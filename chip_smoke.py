@@ -13,15 +13,25 @@
 2. Serves the Table-1 graphs at full scale (DSJC.1/.5/.9, FB107, FNA.5, NY),
    the FB107 family scaled to n = 17,199, and 16 small graphs through
    ``TriangleServer(device="cuda").serve``.
-3. Forces each of dense, ring, bitset_ring, sparse and mapreduce
+3. Forces each of dense, ring, bitset_ring, sparse, mapreduce and stream
    (``Resources(max_stages=4)``) on those large graphs — the paper's
-   dynamic pipeline against MapReduce — and requires every method to give
-   the same count as every other and as the plain path (the plain PyTorch
-   dense count on the card up to n = 16384, a host numpy count beyond).
-4. Profiles one planner-chosen count of FNA.5 and of NY with
-   ``torch.profiler``: host wall, device busy time, the device's idle share.
+   dynamic pipeline against MapReduce, and the two-phase stream ingest —
+   and requires every method to give the same count as every other and as
+   the plain path (the plain PyTorch dense count on the card up to
+   n = 16384, a host numpy count beyond).
+4. Streams: ``TriangleCounter(device="cuda").count_stream`` with the
+   planner's sizing over shuffled, ragged edge blocks of FNA.5, NY and
+   FB107x9 (each equal to the resident count); ``count_windowed`` with a
+   window of 4 over 8 epochs of FB107x9 and FNA.5 (each equal to the
+   resident bitset-ring count of the last 4 epochs' edges); and a session
+   checkpointed halfway (unbounded, and windowed mid-epoch), spilled to
+   ``.npz``, restored on a fresh counter and finished, bit-identical to an
+   uninterrupted session.
+5. Profiles one planner-chosen count of FNA.5 and of NY, and one
+   planner-chosen ``count_stream`` of NY, with ``torch.profiler``: host
+   wall, device busy time, the device's idle share.
 
-Phases 2 and 3 are the main path: every kernel's launch count is set to 0
+Phases 2 to 4 are the main path: every kernel's launch count is set to 0
 before them and must be above 0 after them. Any mismatch or exception exits
 non-zero. The last three lines are the ``kernels`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Imports nothing
@@ -35,12 +45,13 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
 TABLE1 = ("DSJC.1", "DSJC.5", "DSJC.9", "FB107", "FNA.5", "NY")
-METHODS = ("dense", "ring", "bitset_ring", "sparse", "mapreduce")
+METHODS = ("dense", "ring", "bitset_ring", "sparse", "mapreduce", "stream")
 # Beside Table 1: the FB107 family (power-law, Facebook-ego-like) scaled to
 # n = 17,199 — a graph past the plain dense path's reach (n > 16384) that has
 # triangles, so every method's count there is held against the host oracle.
@@ -173,8 +184,11 @@ def check_kernels(graphs: dict) -> dict:
         build_bitset_ring_operands,
         build_dense_ring_operands,
     )
-    from repro_torch.kernels.bitset_count.ops import bitset_edge_count
-    from repro_torch.kernels.bitset_count.ref import bitset_edge_count_ref
+    from repro_torch.kernels.bitset_count.ops import bitset_edge_count, bitset_pair_count
+    from repro_torch.kernels.bitset_count.ref import (
+        bitset_edge_count_ref,
+        bitset_pair_count_ref,
+    )
     from repro_torch.kernels.triangle_count.ops import masked_matmul_sum, triangle_count
     from repro_torch.kernels.triangle_count.ref import (
         masked_matmul_sum_ref,
@@ -287,8 +301,71 @@ def check_kernels(graphs: dict) -> dict:
         library_ms=None,
         bound=(max(2 * words / int_rate, words / popc_rate), nbytes / PEAK_BYTES))
     del masks, edges, m0, e1
+
+    # ---- K4: bitset pair count (two tables) ----
+    def rand_words(*shape):
+        x = torch.randint(-2**31, 2**31 - 1, shape, generator=gen, dtype=torch.int64)
+        x[:, 0] |= -2**31  # bit 31 set in the first word of every row
+        return x.to(torch.int32).to(DEVICE)
+
+    err = 0
+    for (npad, w, nb) in ((64, 1, 31), (96, 2, 57), (700, 33, 5001), (4472, 140, 200_003)):
+        a, b = rand_words(npad, w), rand_words(npad, w)
+        e = torch.randint(0, npad, (nb, 2), generator=gen, dtype=torch.int32)
+        e[torch.rand(nb, generator=gen) < 0.2, 0] = npad + 3  # phantom edges
+        e[torch.rand(nb, generator=gen) < 0.1, 1] = npad      # clamped v
+        e = e.to(DEVICE)
+        for x, y in ((a, b), (b, a)):  # a != b: both orders
+            err = max(err, agree("bitset_pair_count", (npad, w, nb),
+                                 bitset_pair_count(x, y, e), bitset_pair_count_ref(x, y, e)))
+    # the main path's largest shape: NY's adjacency and the delta of one of
+    # its planner-sized blocks, as the stream ingest hands them to K4
+    adj, delta, ek = ny_block_operands(graphs["NY"])
+    shape = ["NY"] + list(adj.shape) + list(ek.shape)
+    for x, y in ((adj, delta), (delta, adj)):
+        err = max(err, agree("bitset_pair_count", tuple(shape),
+                             bitset_pair_count(x, y, ek), bitset_pair_count_ref(x, y, ek)))
+    n, w = adj.shape
+    real = int((ek[:, 0] < n).sum())
+    words = real * w
+    log(f"  bitset_pair_count bound inputs: {real} real edges of {ek.shape[0]}, W={w}")
+    rows["bitset_pair_count"] = dict(
+        shape=shape[1:], max_abs_err=err,
+        ms=time_ms(lambda: bitset_pair_count(adj, delta, ek), reps=10),
+        plain_ms=time_ms(lambda: bitset_pair_count_ref(adj, delta, ek), reps=2),
+        library_ms=None,
+        bound=(max(2 * words / int_rate, words / popc_rate),
+               (ek.numel() * 4 + real * 2 * w * 4 + 8) / PEAK_BYTES))
+    del adj, delta, ek
     torch.cuda.empty_cache()
     return rows
+
+
+def ny_block_operands(g):
+    """(adjacency, delta, phantom edges) of the last planner-sized block of
+    a seeded shuffle of ``g``'s edges, after every earlier block has been
+    ingested: K4's operands at the main path's largest shape."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import GraphStats, Resources, plan
+    from repro_torch.core import streaming
+
+    stats = GraphStats(n_nodes=g.n_nodes, n_edges=0, replication_factor=0, max_degree=0,
+                       max_fwd_degree=0, edges_in_memory=False)
+    bs = plan(stats, Resources.detect(DEVICE)).block_size  # the planner's stream block
+    e = g.edges[np.random.default_rng(7).permutation(g.n_edges)]
+    last = max(len(e) // bs - 1, 0) * bs  # the start of the last full block
+    state = streaming.init_state(g.n_nodes, device=DEVICE)
+    for i in range(0, last, bs):
+        streaming.ingest_block(state, e[i:i + bs])
+    adj, n = state["adj"], g.n_nodes
+    block = torch.from_numpy(np.ascontiguousarray(e[last:last + bs])).to(DEVICE)
+    keep, lo, hi = streaming._canonical_live(block, n)
+    live = keep & (streaming._stage_seen(adj, lo, hi, 0) == 0)
+    idx, bits = streaming._delta_bits(n, adj.shape[1], lo, hi, live, 0)
+    delta = streaming._delta_table(n, adj.shape[1], idx, bits)
+    return adj, delta, streaming._phantom_edges(lo, hi, live, n)
 
 
 # --------------------------------------------------------------------------
@@ -338,7 +415,7 @@ def comparison_phase(graphs: dict) -> None:
 
     res = dataclasses.replace(Resources.detect(DEVICE), max_stages=4)
     counter = TriangleCounter(res, device=DEVICE)
-    header = "  graph    " + "".join(f"{m:>24s}" for m in METHODS)
+    header = "  graph    " + "".join(f"{m:>20s}" for m in METHODS)
     log(header)
     for name in GRAPHS:
         g = graphs[name]
@@ -360,7 +437,8 @@ def comparison_phase(graphs: dict) -> None:
                 continue
             k0 = launch_counts()
             t0 = time.perf_counter()
-            c = counter.count(g, plan=p).item()
+            r = counter.count(g, plan=p)
+            c = r.item()
             dt = time.perf_counter() - t0
             k1 = launch_counts()
             if c != want:
@@ -373,25 +451,160 @@ def comparison_phase(graphs: dict) -> None:
             if method == "bitset_ring" and k1["bitset_edge_count"] \
                     - k0["bitset_edge_count"] != p.n_stages ** 2:
                 raise AssertionError(f"{name} bitset_ring did not launch S² edge counts")
+            if method == "stream":
+                check_stream_launches(f"{name} stream", k0, k1, r.stats["n_blocks"], 2, 2)
             cells.append(f"{dt * 1e3:.1f} ms S={p.n_stages}")
         served = graphs["_served"][name]
         if served != want:
             raise AssertionError(f"{name}: served {served} != plain path {want}")
-        log(f"  {name:8s} " + "".join(f"{c:>24s}" for c in cells)
+        log(f"  {name:8s} " + "".join(f"{c:>20s}" for c in cells)
             + f"   count={want} (plain path {plain_s:.2f} s)")
 
 
+def check_stream_launches(label: str, k0: dict, k1: dict, blocks: int, per_k3: int,
+                          per_k4: int) -> None:
+    """A stream on the card launches K3 ``per_k3`` and K4 ``per_k4`` times
+    per block: (pre, dd) and the two mixed closures, once per epoch age in
+    a window."""
+    for name, per in (("bitset_edge_count", per_k3), ("bitset_pair_count", per_k4)):
+        got = k1[name] - k0[name]
+        if got != per * blocks:
+            raise AssertionError(f"{label}: {name} launched {got} times, not "
+                                 f"{per} x {blocks} blocks")
+
+
+def ragged(e, rng, typical: int):
+    """``e`` cut into blocks of ragged sizes around ``typical`` rows."""
+    import numpy as np
+
+    cuts = np.cumsum(rng.integers(1, 2 * typical, size=len(e) // typical + 2))
+    return np.split(e, cuts[cuts < len(e)])
+
+
+def stream_phase(graphs: dict) -> list:
+    """Unbounded and windowed streams through the counter's entry points,
+    and sessions checkpointed, spilled and restored. Returns the table rows
+    of the unbounded streams."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import GraphStats, Resources, SessionCheckpoint, TriangleCounter, plan
+    from repro_torch.convert import graph_from_arrays
+    from repro_torch.core import streaming
+    from repro_torch.kernels import launch_counts
+
+    counter = TriangleCounter(device=DEVICE)
+    rng = np.random.default_rng(12)
+    table = []
+    for name in ("FNA.5", "NY", LARGE_NAME):
+        g = graphs[name]
+        blocks = ragged(g.edges[rng.permutation(g.n_edges)], rng, 50_000)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k0 = launch_counts()
+        t0 = time.perf_counter()
+        r = counter.count_stream(g.n_nodes, blocks)
+        c = r.item()
+        wall = time.perf_counter() - t0
+        k1 = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if c != graphs["_served"][name]:
+            raise AssertionError(f"{name}: streamed {c} != resident {graphs['_served'][name]}")
+        nb = r.stats["n_blocks"]
+        check_stream_launches(f"{name} count_stream", k0, k1, nb, 2, 2)
+        row = dict(graph=name, n=g.n_nodes, m=g.n_edges, feeds=len(blocks), blocks=nb,
+                   block_size=r.stats["block_size"], wall_ms=wall * 1e3, count=c,
+                   k3=k1["bitset_edge_count"] - k0["bitset_edge_count"],
+                   k4=k1["bitset_pair_count"] - k0["bitset_pair_count"],
+                   state_bytes=r.stats["state_bytes"], peak_bytes=peak)
+        table.append(row)
+        log(f"  count_stream {name:8s} {len(blocks)} ragged feeds -> {nb} blocks of "
+            f"{r.stats['block_size']}: count={c} wall={wall * 1e3:.3f} ms "
+            f"K3={row['k3']} K4={row['k4']} state={row['state_bytes']} B "
+            f"peak_allocated={peak} B")
+
+    res = dataclasses.replace(Resources.detect(DEVICE), max_stages=4)
+    window, n_epochs = 4, 8
+    for name in (LARGE_NAME, "FNA.5"):
+        g = graphs[name]
+        epochs = np.array_split(g.edges[rng.permutation(g.n_edges)], n_epochs)
+        k0 = launch_counts()
+        t0 = time.perf_counter()
+        r = counter.count_windowed(g.n_nodes, [ragged(ep, rng, 20_000) for ep in epochs],
+                                   window=window)
+        c = r.item()
+        wall = time.perf_counter() - t0
+        k1 = launch_counts()
+        live = graph_from_arrays(g.n_nodes, np.concatenate(epochs[-window:]))
+        want = counter.count(live, plan=plan(GraphStats.from_graph(live), res,
+                                             allow={"bitset_ring"})).item()
+        if c != want:
+            raise AssertionError(f"{name}: window count {c} != resident recount {want}")
+        check_stream_launches(f"{name} count_windowed", k0, k1, r.stats["n_blocks"],
+                              window + 1, 2 * window)
+        log(f"  count_windowed {name:8s} window={window} of {n_epochs} epochs: "
+            f"count={c} (resident bitset-ring recount {want}) blocks={r.stats['n_blocks']} "
+            f"of {r.stats['block_size']} wall={wall * 1e3:.3f} ms")
+
+    # checkpoints: halfway through an unbounded session, and mid-epoch in a
+    # windowed one; spilled, restored on a fresh counter, finished
+    g = graphs[LARGE_NAME]
+    e = g.edges[rng.permutation(g.n_edges)]
+    epochs = np.array_split(e, n_epochs)
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind in ("unbounded", "windowed"):
+            if kind == "unbounded":
+                ops = [("feed", b) for b in ragged(e, rng, 20_000)]
+                cut, kw = len(ops) // 2, {}
+            else:  # cut in the middle of epoch 5, after the window has slid
+                ops, kw = [], {"window": window}
+                for t, ep in enumerate(epochs):
+                    ops += [("advance", None)] * (t > 0)
+                    feeds = [("feed", b) for b in ragged(ep, rng, 3_000)]
+                    if t == window + 1:
+                        cut = len(ops) + len(feeds) // 2
+                    ops += feeds
+
+            def run(session, todo):
+                for op, b in todo:
+                    if op == "feed":
+                        session.feed(b)
+                    else:
+                        session.advance()
+                return session
+
+            whole = run(counter.open_stream(g.n_nodes, **kw), ops)
+            first = run(counter.open_stream(g.n_nodes, **kw), ops[:cut])
+            ck = first.checkpoint()
+            path = os.path.join(tmp, f"{kind}.npz")
+            ck.spill(path)
+            spilled = ck.disk_bytes
+            rest = run(TriangleCounter(device=DEVICE).restore_stream(
+                SessionCheckpoint.from_file(path)), ops[cut:])
+            a, b = whole.finalize().item(), rest.finalize().item()
+            sa, sb = streaming.snapshot_state(whole.state), streaming.snapshot_state(rest.state)
+            same = all(np.array_equal(sa[k], sb[k]) and sa[k].dtype == sb[k].dtype
+                       for k in sa) and sorted(sa) == sorted(sb)
+            if a != b or not same:
+                raise AssertionError(f"{kind} session restored from a checkpoint: count {b} "
+                                     f"vs {a}, state arrays equal: {same}")
+            log(f"  checkpoint {kind:9s} {LARGE_NAME}: cut after {cut} of {len(ops)} ops, "
+                f"{ck.nbytes} B snapshot, {spilled} B spilled; restored count {b} = "
+                f"uninterrupted {a}, every state array bit-identical ({sorted(sa)})")
+    return table
+
+
 # --------------------------------------------------------------------------
-# Phase 4: where the time of one count goes (after the main path's counts)
+# Phase 5: where the time of one count goes (after the main path's counts)
 # --------------------------------------------------------------------------
 def profile_phase(graphs: dict) -> None:
-    """One planner-chosen count of each of the two largest Table-1 graphs
-    under ``torch.profiler``, after a warm-up count: host wall, device busy
-    time (every kernel, copy and fill), the device's idle share of the wall,
-    and the host and device operations that take the most time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """One planner-chosen count of each of the two largest Table-1 graphs,
+    and one planner-chosen ``count_stream`` of NY, under ``torch.profiler``
+    after a warm-up run: host wall, device busy time (every kernel, copy
+    and fill), the device's idle share of the wall, the peak of allocated
+    device memory, and the host and device operations that take the most
+    time."""
+    import numpy as np
 
     from repro_torch.api import TriangleCounter
 
@@ -399,31 +612,46 @@ def profile_phase(graphs: dict) -> None:
     for name in ("FNA.5", "NY"):
         g = graphs[name]
         p = counter.plan_for(g)
-        counter.count(g, plan=p).item()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            c = counter.count(g, plan=p).item()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        if c != graphs["_served"][name]:
-            raise AssertionError(f"{name}: profiled count {c} != served "
-                                 f"{graphs['_served'][name]}")
-        # device rows (kernels, copies, fills) carry the device time once; a
-        # host op's own device time repeats that of the kernels it launched
-        events = prof.key_averages()
-        dev_rows = [e for e in events if e.device_type == DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in dev_rows) / 1e3
-        ops_ms = sum(e.self_cpu_time_total for e in events
-                     if e.device_type == DeviceType.CPU) / 1e3
-        log(f"  {name:6s} method={p.method} wall={wall_ms:.3f} ms device_busy={busy_ms:.3f} ms "
-            f"device_idle_share={1 - busy_ms / wall_ms:.4f} host_in_torch_ops={ops_ms:.3f} ms "
-            f"host_outside_torch_ops={wall_ms - ops_ms:.3f} ms")
-        top_dev = sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:4]
-        top_host = sorted(events, key=lambda e: -e.self_cpu_time_total)[:4]
-        log("    device: " + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms "
-                                       f"x{e.count}" for e in top_dev))
-        log("    host:   " + "; ".join(f"{e.key[:48]} {e.self_cpu_time_total / 1e3:.3f} ms "
-                                       f"x{e.count}" for e in top_host))
+        profile_one(f"{name} method={p.method}", lambda: counter.count(g, plan=p),
+                    graphs["_served"][name])
+    g = graphs["NY"]
+    e = g.edges[np.random.default_rng(5).permutation(g.n_edges)]
+    blocks = [e[i:i + 50_000] for i in range(0, len(e), 50_000)]
+    profile_one("NY count_stream (planner-sized)",
+                lambda: counter.count_stream(g.n_nodes, blocks), graphs["_served"]["NY"])
+
+
+def profile_one(label: str, run, want: int) -> None:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run().item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        c = run().item()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    if c != want:
+        raise AssertionError(f"{label}: profiled count {c} != served {want}")
+    # device rows (kernels, copies, fills) carry the device time once; a
+    # host op's own device time repeats that of the kernels it launched
+    events = prof.key_averages()
+    dev_rows = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev_rows) / 1e3
+    ops_ms = sum(e.self_cpu_time_total for e in events
+                 if e.device_type == DeviceType.CPU) / 1e3
+    log(f"  {label}: wall={wall_ms:.3f} ms device_busy={busy_ms:.3f} ms "
+        f"device_idle_share={1 - busy_ms / wall_ms:.4f} host_in_torch_ops={ops_ms:.3f} ms "
+        f"host_outside_torch_ops={wall_ms - ops_ms:.3f} ms peak_allocated={peak} B")
+    top_dev = sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:8]
+    top_host = sorted(events, key=lambda e: -e.self_cpu_time_total)[:5]
+    log("    device: " + "; ".join(f"{e.key[:90]} {e.self_device_time_total / 1e3:.3f} ms "
+                                   f"x{e.count}" for e in top_dev))
+    log("    host:   " + "; ".join(f"{e.key[:48]} {e.self_cpu_time_total / 1e3:.3f} ms "
+                                   f"x{e.count}" for e in top_host))
 
 
 def main() -> int:
@@ -479,6 +707,10 @@ def main() -> int:
         "(Resources(max_stages=4)); wall = host + device per count")
     comparison_phase(graphs)
     log(f"[compare] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log("[stream] count_stream, count_windowed and checkpointed sessions on the card")
+    table = stream_phase(graphs)
+    log(f"[stream] done in {time.perf_counter() - t0:.1f} s")
     torch.cuda.synchronize()
     launches = launch_counts()  # the main path ends here
     log(f"[main path] kernel launches: {launches}")
@@ -486,7 +718,8 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     t0 = time.perf_counter()
-    log("[profile] one planner-chosen count each, torch.profiler (CPU + CUDA)")
+    log("[profile] one planner-chosen count each, and a NY count_stream, "
+        "torch.profiler (CPU + CUDA)")
     profile_phase(graphs)
     log(f"[profile] done in {time.perf_counter() - t0:.1f} s")
 
@@ -501,6 +734,7 @@ def main() -> int:
                 "triangle_count_live": "src/repro/kernels/triangle_count/triangle_count.py:162",
                 "masked_matmul_sum": "src/repro/kernels/triangle_count/triangle_count.py:79",
                 "bitset_edge_count": "src/repro/kernels/bitset_count/bitset_count.py:139",
+                "bitset_pair_count": "src/repro/kernels/bitset_count/bitset_count.py:110",
             }[name],
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -510,6 +744,7 @@ def main() -> int:
             "match": r["max_abs_err"] == 0, "kernel_ms": r["ms"], "shape": r["shape"],
         })
         log(f"  bound of {name}: operations {ops_ms:.6f} ms, bytes {bytes_ms:.6f} ms")
+    log("[stream table] " + json.dumps(table))
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": out}))
     print(card)

@@ -24,8 +24,14 @@ Plan method → paper section map:
   The planner refuses it when the replication factor Σ_v C(deg(v), 2)
   (Afrati–Ullman's communication cost, §2 related work) exceeds
   ``MR_RF_FACTOR``× the input — the paper's dense-graph blowup.
-- ``stream``             — planned as in the reference; executing it comes
-  with the port's streaming slice.
+- ``stream``             — the paper's "dynamically generated / does not
+  fit in memory" regime: edge blocks fold into an adjacency-so-far bitset
+  with the two-phase blocked ingest (``core.streaming``; the bitset
+  closures K3 and K4 on the card). ``TriangleCounter.open_stream`` returns
+  a ``StreamSession`` handle (``count_stream`` is open → feed → finalize);
+  ``window=E`` opens a sliding window of E epochs. Sessions checkpoint to a
+  ``SessionCheckpoint`` (spillable to ``.npz``, in the reference's layout)
+  and resume bit-identically through ``restore_stream``.
 """
 from repro_torch.api.planner import (
     ADMISSION_ONLY,
@@ -43,6 +49,8 @@ from repro_torch.api.planner import (
 )
 from repro_torch.api.counter import (
     CountResult,
+    SessionCheckpoint,
+    StreamSession,
     TriangleCounter,
     bucket,
     count_triangles,
@@ -62,6 +70,8 @@ __all__ = [
     "plan_for_graph",
     "stream_sizing",
     "CountResult",
+    "SessionCheckpoint",
+    "StreamSession",
     "TriangleCounter",
     "bucket",
     "count_triangles",

@@ -17,16 +17,22 @@ card every count goes through the CUDA kernels, on the CPU through their
 plain PyTorch versions. A plan must say so: ``use_kernel=True,
 interpret=False`` on the card, ``use_kernel=False`` on the CPU (what
 :func:`backend_exec_flags` gives for the device's backend); a plan that
-contradicts the device is refused with a ``ValueError``. The streaming entry points (``open_stream``,
-``count_stream``, ``count_windowed``, ``restore_stream``) come with the port's
-streaming slice (ROADMAP.md, queue A, item 1); until then they, and a
-``stream`` plan, raise a ``RuntimeError`` that names that item.
+contradicts the device is refused with a ``ValueError``.
+
+Streams run through :class:`StreamSession` (``open_stream``,
+``count_stream``, ``count_windowed``, ``restore_stream``): the two-phase
+bitset ingest of ``core.streaming``, whose state lives on the counter's
+device, and :class:`SessionCheckpoint`, whose arrays keep the reference's
+layout. A ``hybrid`` stream plan raises a ``RuntimeError``: the degree-aware
+hybrid state is a later item of the port (ROADMAP.md, queue A, item 1).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
-from typing import Any
+from typing import Any, Iterable
 
 import numpy as np
 import torch
@@ -35,8 +41,8 @@ from repro_torch.api.planner import GraphStats, Plan, Resources, backend_exec_fl
 from repro_torch.api.planner import plan as plan_fn
 from repro_torch.utils import resolve_device
 
-_STREAM_TODO = ("streaming is not ported yet (ROADMAP.md queue A, item 1: "
-                "streaming ingest + K4 + sessions)")
+_HYBRID_TODO = ("the degree-aware hybrid stream state (state_layout='hybrid') is "
+                "not ported yet (ROADMAP.md queue A, item 1)")
 
 
 def bucket(x: int, minimum: int = 64) -> int:
@@ -51,14 +57,14 @@ def bucket(x: int, minimum: int = 64) -> int:
 class CountResult:
     """The single result contract for every counting path.
 
-    count:  device tensor (int64) — scalar for ``count``, a vector of
-            per-graph counts for ``count_batch``. Stays on device until
-            ``.item()`` so hot loops avoid per-call syncs.
+    count:  device tensor (int64) — scalar for ``count``/``count_stream``,
+            a vector of per-graph counts for ``count_batch``. Stays on
+            device until ``.item()`` so hot loops avoid per-call syncs.
     plan:   the executed :class:`Plan` (method, predicted bytes, reason).
     wall_s: host wall time of build+launch (launches are asynchronous: it
             excludes device completion unless the path synchronizes anyway).
     stats:  per-run details — cache key and hit, stage costs for
-            ring plans.
+            ring plans, block counts for streams.
     """
 
     count: Any
@@ -71,6 +77,118 @@ class CountResult:
 
     def __int__(self) -> int:
         return self.item()
+
+
+@dataclasses.dataclass
+class SessionCheckpoint:
+    """A host-side, bit-exact snapshot of one :class:`StreamSession` — the
+    unit of preemption, spill and migration.
+
+    Taken by :meth:`StreamSession.checkpoint` (which first flushes the
+    buffered tail, so the snapshot covers exactly "every edge fed so far")
+    and consumed by :meth:`TriangleCounter.restore_stream`, which resumes the
+    stream BIT-IDENTICALLY: same state arrays, same cache key, same sticky
+    re-blocking shapes (``buffer_shape``), same running stats.
+
+    ``arrays`` has the reference's layout — ``{adj, count}`` unbounded,
+    ``{epochs, counts, head}`` windowed, with the leading stage axis kept
+    for sharded states; bitsets uint32, ``head`` int32, counts int64 (the
+    reference's int32 counts are widened on restore) — so checkpoints move
+    between the two packages. ``nbytes`` is what the snapshot charges
+    against a host budget; ``state_bytes`` the device footprint the session
+    pins when restored. ``spill``/``load_arrays`` round-trip the arrays
+    through one COMPRESSED ``.npz`` file (``arrays`` is None while spilled,
+    ``disk_bytes`` the file's size).
+    """
+
+    n_nodes: int
+    plan: Plan
+    block_size: int
+    state_bytes: int
+    nbytes: int
+    arrays: dict | None
+    buffer_shape: dict
+    n_blocks: int
+    n_epochs_advanced: int
+    wall_s: float
+    path: str | None = None
+    disk_bytes: int | None = None
+
+    @property
+    def spilled(self) -> bool:
+        return self.arrays is None
+
+    def spill(self, path: str) -> None:
+        """Move the snapshot arrays from host memory to one COMPRESSED
+        ``.npz`` at ``path``; everything else stays in the object.
+        Idempotent on an already-spilled checkpoint."""
+        if self.arrays is None:
+            return
+        meta = json.dumps({
+            "n_nodes": self.n_nodes, "plan": self.plan.to_dict(),
+            "block_size": self.block_size, "state_bytes": self.state_bytes,
+            "nbytes": self.nbytes, "buffer_shape": self.buffer_shape,
+            "n_blocks": self.n_blocks,
+            "n_epochs_advanced": self.n_epochs_advanced,
+            "wall_s": self.wall_s})
+        np.savez_compressed(path, __meta__=np.array(meta), **self.arrays)
+        self.arrays, self.path = None, path
+        self.disk_bytes = int(os.path.getsize(path))
+
+    def load_arrays(self) -> dict:
+        """The snapshot arrays, loading (and deleting) the spill file if the
+        checkpoint was spilled."""
+        if self.arrays is None:
+            with np.load(self.path) as z:
+                self.arrays = {k: z[k] for k in z.files if k != "__meta__"}
+            os.remove(self.path)
+            self.path, self.disk_bytes = None, None
+        return self.arrays
+
+    def discard(self) -> None:
+        """Drop the snapshot (and its spill file, if any)."""
+        if self.path is not None and os.path.exists(self.path):
+            os.remove(self.path)
+        self.arrays, self.path = None, None
+
+    def finalize_result(self) -> CountResult:
+        """Finalize WITHOUT touching the device: the snapshot covers every
+        edge fed, so the count is read out of the host arrays — the running
+        total, or the sum of the epoch ring's per-slot counters — as an
+        int64 tensor on the CPU (an int32 count from the reference is
+        widened). Equal to restoring and finalizing."""
+        arrays = self.load_arrays()
+        p = self.plan
+        if int(arrays.get("lost", 0)):
+            raise RuntimeError(
+                f"hybrid stream checkpoint recorded {int(arrays['lost'])} dropped "
+                f"edge endpoint(s) — its count is not exact and cannot be finalized")
+        key = "counts" if p.window_epochs else "count"
+        count = torch.tensor(int(arrays[key].astype(np.int64).sum()), dtype=torch.int64)
+        stats = {"n_blocks": self.n_blocks, "block_size": self.block_size,
+                 "n_stages": p.n_stages, "sharded": p.n_stages > 1,
+                 "session": True, "from_checkpoint": True,
+                 "state_bytes": self.nbytes}
+        if p.window_epochs:
+            stats["window_epochs"] = p.window_epochs
+            stats["epochs_advanced"] = self.n_epochs_advanced
+        return CountResult(count=count, plan=p, wall_s=self.wall_s, stats=stats)
+
+    @classmethod
+    def from_file(cls, path: str) -> "SessionCheckpoint":
+        """Rehydrate a checkpoint that something else spilled — the port or
+        the reference (the migration entry point)."""
+        with np.load(path) as z:
+            meta = json.loads(str(z["__meta__"][()]))
+            arrays = {k: z[k] for k in z.files if k != "__meta__"}
+        return cls(n_nodes=meta["n_nodes"], plan=Plan.from_dict(meta["plan"]),
+                   block_size=meta["block_size"],
+                   state_bytes=meta["state_bytes"], nbytes=meta["nbytes"],
+                   arrays=arrays, buffer_shape=meta["buffer_shape"],
+                   n_blocks=meta["n_blocks"],
+                   n_epochs_advanced=meta["n_epochs_advanced"],
+                   wall_s=meta["wall_s"],
+                   disk_bytes=int(os.path.getsize(path)))
 
 
 def _forward_adjacency_batch(graphs, n_b: int, device: torch.device) -> torch.Tensor:
@@ -159,28 +277,130 @@ class TriangleCounter:
         return CountResult(count=count, plan=p,
                            wall_s=time.perf_counter() - t0, stats=stats)
 
-    # -- streaming entry points: not ported yet ----------------------------
-    # They keep the reference's signatures and refuse with a RuntimeError
-    # (repro-lint R3 admits only the exception types the cluster protocol
-    # re-raises by name in this module; NotImplementedError is not one).
+    # -- streaming entry points -------------------------------------------
     def open_stream(self, n_nodes: int, *, plan: Plan | None = None,
-                    block_size: int | None = None, window: int | None = None):
-        raise RuntimeError(f"open_stream: {_STREAM_TODO}")
+                    block_size: int | None = None,
+                    window: int | None = None) -> "StreamSession":
+        """Open a :class:`StreamSession` — the handle behind every streaming
+        entry point (``count_stream`` is open → feed → finalize in one call).
 
-    def restore_stream(self, ckpt):
-        raise RuntimeError(f"restore_stream: {_STREAM_TODO}")
+        Plan resolution: the ``plan`` argument, else the counter's fixed
+        plan, else the planner on not-memory-resident stats — resolved
+        BEFORE the block size, so the planner's ``block_size``/``n_stages``
+        apply; an explicit ``block_size`` argument still overrides the
+        plan's. Plans whose method is not ``"stream"`` are rejected, and so
+        is a plan that contradicts the device (``ValueError``).
 
-    def count_stream(self, n_nodes: int, blocks, *, plan: Plan | None = None,
+        ``window = E`` opens a SLIDING-WINDOW session (a ring of E epoch
+        bitsets, E·n²/8 bytes): ``feed`` lands edges in the current epoch,
+        :meth:`StreamSession.advance` slides the window, and ``finalize``
+        returns the live window's count. A resolved plan's
+        ``window_epochs`` must agree with ``window``.
+
+        The session's uses are recorded under ``(plan.cache_key(),
+        ("stream", n_nodes, block_size, on_mesh))`` (``on_mesh`` is False:
+        the multi-card ring is a later item of the port)."""
+        p = plan or self.fixed_plan
+        if p is None:
+            stats = GraphStats(n_nodes=n_nodes, n_edges=0, replication_factor=0,
+                               max_degree=0, max_fwd_degree=0, edges_in_memory=False)
+            p = plan_fn(stats, self.resources, window_epochs=window or 0)
+        elif window is not None and p.window_epochs != window:
+            raise ValueError(
+                f"window={window} conflicts with the resolved plan's "
+                f"window_epochs={p.window_epochs} — pass the window through "
+                f"the plan OR the argument, not both")
+        if p.method != "stream":
+            raise ValueError(
+                f"count_stream requires a plan with method='stream', got "
+                f"{p.method!r} — use count()/count_batch() for memory-resident "
+                f"plans, or drop the plan to let the planner size the stream")
+        if p.state_layout == "hybrid" and (p.window_epochs or p.n_stages > 1):
+            raise ValueError(
+                "state_layout='hybrid' supports only unbounded single-stage "
+                f"streams (got window_epochs={p.window_epochs}, "
+                f"n_stages={p.n_stages}) — the windowed epoch ring and the "
+                "mesh stage axis stay bitset")
+        if block_size is None:
+            block_size = p.block_size
+        return StreamSession(self, n_nodes, p, block_size)
+
+    def restore_stream(self, ckpt: SessionCheckpoint) -> "StreamSession":
+        """Resume a checkpointed stream session — the other half of
+        :meth:`StreamSession.checkpoint`. The restored session continues
+        BIT-IDENTICALLY to one that was never interrupted: the state arrays
+        are rehydrated exactly on this counter's device
+        (``core.streaming.restore_state``; an int32 count from the
+        reference is widened to int64), the session records the SAME cache
+        key, and the re-blocking buffer resumes the checkpoint's sticky
+        shapes. A checkpoint whose plan contradicts this counter's device is
+        refused with a ``ValueError``."""
+        from repro_torch.core import streaming
+
+        self._check_stream_plan(ckpt.plan)
+        session = StreamSession(
+            self, ckpt.n_nodes, ckpt.plan, ckpt.block_size,
+            state=streaming.restore_state(ckpt.load_arrays(), device=self.device))
+        session._buffer.import_shape_state(ckpt.buffer_shape)
+        session.n_blocks = ckpt.n_blocks
+        session.n_epochs_advanced = ckpt.n_epochs_advanced
+        session._wall = ckpt.wall_s
+        session.restored = True
+        return session
+
+    def count_stream(self, n_nodes: int, blocks: Iterable, *,
+                     plan: Plan | None = None,
                      block_size: int | None = None) -> CountResult:
-        raise RuntimeError(f"count_stream: {_STREAM_TODO}")
+        """Fold an iterable of (B, 2) edge blocks — ``core.streaming`` behind
+        the same result contract, as a one-session wrapper over
+        :meth:`open_stream` (see it for plan resolution and cache keying).
+        ``n_stages > 1`` runs the column-sharded ingest, its stages
+        emulated on this device."""
+        session = self.open_stream(n_nodes, plan=plan, block_size=block_size)
+        for b in blocks:
+            session.feed(b)
+        return session.finalize()
 
-    def count_windowed(self, n_nodes: int, epochs, *, window: int | None = None,
-                       plan: Plan | None = None,
+    def count_windowed(self, n_nodes: int, epochs: Iterable, *,
+                       window: int | None = None, plan: Plan | None = None,
                        block_size: int | None = None) -> CountResult:
-        raise RuntimeError(f"count_windowed: {_STREAM_TODO}")
+        """Count triangles over a SLIDING WINDOW of an edge stream: consume
+        an iterable of EPOCHS — each an iterable of (B, 2) edge blocks — and
+        return the count of the final window (the last ``window`` epochs).
+        A one-session wrapper over :meth:`open_stream` with ``window=``: the
+        window advances between epochs (one epoch-slot clear, no per-edge
+        deletes)."""
+        p = plan or self.fixed_plan
+        if not window and (p is None or not p.window_epochs):
+            # validate BEFORE open_stream allocates state for a session that
+            # would never run
+            raise ValueError(
+                "count_windowed needs a windowed session — pass window=E or "
+                "a plan with window_epochs > 0")
+        session = self.open_stream(n_nodes, plan=plan, block_size=block_size,
+                                   window=window)
+        first = True
+        for epoch_blocks in epochs:
+            if not first:
+                session.advance()
+            first = False
+            for b in epoch_blocks:
+                session.feed(b)
+        return session.finalize()
+
+    def _check_stream_plan(self, p: Plan) -> None:
+        if p.state_layout == "hybrid":
+            raise RuntimeError(_HYBRID_TODO)
+        self._check_plan(p)
 
     def _run_stream(self, g, p: Plan):
-        raise RuntimeError(f"stream plan: {_STREAM_TODO}")
+        # A memory-resident graph executed under a stream plan: feed its own
+        # edge list as blocks. Shrink the block to the graph so a 100-edge
+        # input is not padded to 65536 phantom rows.
+        p_run = dataclasses.replace(
+            p, block_size=min(p.block_size, bucket(max(g.n_edges, 1), minimum=256)))
+        res = self.count_stream(g.n_nodes, [g.edges], plan=p_run)
+        return res.count, res.stats
 
     def batch_plan(self) -> Plan:
         """The dense plan ``count_batch`` runs when none is given: derived
@@ -315,6 +535,236 @@ class TriangleCounter:
                                torch.from_numpy(ks).to(self.device),
                                n=n_b, node_batch=p.node_batch)
         return out, {"cache": self._note((p.cache_key(), (n_b, d_b, m_b)))}
+
+
+
+class StreamSession:
+    """One in-flight streaming count: open → ``feed`` blocks → ``finalize``.
+
+    The handle owns this stream's state on the counter's device — the
+    adjacency-so-far bitset (n²/8 bytes; all S column shards when the plan
+    is ring-sharded, emulated on this device; for a windowed plan a ring of
+    E epoch bitsets, E·n²/8) — plus a
+    :class:`~repro_torch.core.streaming.BlockBuffer` that re-blocks ragged
+    feeds to one fixed shape. Sessions are independent and interleavable
+    from one driver thread; the handle itself is not thread-safe.
+
+    ``feed`` ingests every full block the new edges completed and buffers
+    the remainder on the host (at most ``block_size - 1`` edges). Windowed
+    sessions add :meth:`advance`: flush the current epoch's tail and slide
+    the window one epoch. ``finalize`` flushes the padded tail and returns
+    the :class:`CountResult` (the running total, or the LIVE WINDOW's
+    count); it is idempotent, and later ``feed``/``advance`` calls raise.
+    Nothing here synchronises with the device before ``finalize`` or
+    ``checkpoint``. ``state_bytes`` is the device footprint the session
+    pins while open.
+    """
+
+    def __init__(self, counter: TriangleCounter, n_nodes: int, plan: Plan,
+                 block_size: int, *, state: dict | None = None):
+        from repro_torch.core import streaming
+
+        counter._check_stream_plan(plan)
+        self.counter = counter
+        self.n_nodes = n_nodes
+        self.plan = plan
+        self.block_size = block_size
+        dev = counter.device
+        self._buffer = streaming.BlockBuffer(n_nodes, block_size, device=dev)
+        self._key = (plan.cache_key(), ("stream", n_nodes, block_size, False))
+        self._cache = counter._note(self._key)
+        self.restored = False
+        if plan.window_epochs:
+            self._ingest = (streaming.ingest_block_windowed_sharded if plan.n_stages > 1
+                            else streaming.ingest_block_windowed)
+        else:
+            self._ingest = (streaming.ingest_block_sharded if plan.n_stages > 1
+                            else streaming.ingest_block)
+        if state is not None:
+            # restore path (TriangleCounter.restore_stream): adopt the
+            # checkpointed arrays instead of allocating zeros
+            self.state = state
+        elif plan.window_epochs:
+            self.state = (streaming.init_windowed_sharded_state(
+                n_nodes, plan.window_epochs, plan.n_stages, device=dev)
+                if plan.n_stages > 1 else
+                streaming.init_windowed_state(n_nodes, plan.window_epochs, device=dev))
+        elif plan.n_stages > 1:
+            self.state = streaming.init_sharded_state(n_nodes, plan.n_stages, device=dev)
+        else:
+            self.state = streaming.init_state(n_nodes, device=dev)
+        # emulated sharding keeps all S shards on this device, so the whole
+        # array is what the session pins
+        self.state_bytes = self._state_nbytes()
+        self.n_blocks = 0
+        self.n_epochs_advanced = 0
+        self._traces0 = streaming.ingest_trace_count()
+        self._wall = 0.0
+        self.result: CountResult | None = None
+
+    def _state_nbytes(self) -> int:
+        return int(self.state["epochs" if self.plan.window_epochs else "adj"].nbytes)
+
+    @property
+    def closed(self) -> bool:
+        return self.result is not None
+
+    def _live(self) -> None:
+        if self.result is not None:
+            raise RuntimeError("session already finalized")
+
+    def _ingest_tail(self) -> None:
+        tail = self._buffer.flush()
+        if tail is not None:
+            self._ingest(self.state, tail)
+            self.n_blocks += 1
+
+    def feed(self, edges) -> None:
+        """Buffer ``edges`` ((B, 2) array-like, any B including ragged);
+        ingest every full ``block_size`` block they completed (into the
+        CURRENT epoch for windowed sessions). Front-door validation
+        (``core.streaming.validate_edges``): non-integer arrays, shapes
+        other than (B, 2), and vertex ids outside ``[0, n_nodes)`` raise
+        ``ValueError``."""
+        self._live()
+        from repro_torch.core import streaming
+
+        edges = streaming.validate_edges(edges, self.n_nodes)
+        t0 = time.perf_counter()
+        for b in self._buffer.push(edges):
+            self._ingest(self.state, b)
+            self.n_blocks += 1
+        self._wall += time.perf_counter() - t0
+
+    # -- split surface for an async driver: feed() = reblock() + ingest_ready()
+    # per emitted block, so a producer thread can own the host half
+    # (validation, re-blocking, the host-to-device copy) while the drive
+    # thread owns the device half; BlockBuffer's SPSC guard enforces one
+    # thread at a time in the host half.
+    def reblock(self, edges) -> list:
+        """PRODUCER half of an async ``feed``: validate ``edges`` and push
+        them through the re-blocking buffer, returning every device-ready
+        fixed-shape block they completed. Touches no state and no stats;
+        the caller routes every returned block through :meth:`ingest_ready`
+        IN ORDER."""
+        self._live()
+        from repro_torch.core import streaming
+
+        return self._buffer.push(streaming.validate_edges(edges, self.n_nodes))
+
+    def flush_ready(self):
+        """PRODUCER half of an async tail flush: the padded tail block (None
+        when nothing is buffered), NOT ingested."""
+        self._live()
+        return self._buffer.flush()
+
+    def ingest_ready(self, block) -> None:
+        """CONSUMER half of an async ``feed``: ingest one already-padded
+        block (from :meth:`reblock` / :meth:`flush_ready`). Called in the
+        order the blocks were produced, the device work is IDENTICAL to a
+        synchronous ``feed`` of the same edges."""
+        self._live()
+        t0 = time.perf_counter()
+        self._ingest(self.state, block)
+        self.n_blocks += 1
+        self._wall += time.perf_counter() - t0
+
+    def expire_ready(self) -> None:
+        """CONSUMER half of an async ``advance``: slide the window WITHOUT
+        flushing the tail (the producer already flushed it through
+        :meth:`flush_ready`)."""
+        self._live()
+        if not self.plan.window_epochs:
+            raise RuntimeError(
+                "expire_ready() is for windowed sessions — open with "
+                "window=E (or a plan with window_epochs > 0)")
+        from repro_torch.core import streaming
+
+        t0 = time.perf_counter()
+        streaming.expire_epoch(self.state)
+        self.n_epochs_advanced += 1
+        self._wall += time.perf_counter() - t0
+
+    def set_block_size(self, block_size: int) -> list:
+        """Adaptive re-blocking: change the emitted block shape from the
+        next block on (counts are invariant to re-blocking). Returns any
+        blocks the buffered remainder completed at the new size — route
+        them through :meth:`ingest_ready` in order. A later checkpoint
+        carries the CURRENT shape."""
+        self._live()
+        out = self._buffer.set_block_size(block_size)
+        self.block_size = int(block_size)
+        return out
+
+    def checkpoint(self) -> SessionCheckpoint:
+        """Snapshot this session to host memory — the preemption primitive.
+
+        The buffered tail is flushed and ingested first, so the snapshot
+        covers EXACTLY the edges fed so far; then every state array is
+        copied to the host bit-exactly. The session stays usable (a
+        snapshot, not a close). Raises after ``finalize``."""
+        self._live()
+        from repro_torch.core import streaming
+
+        t0 = time.perf_counter()
+        self._ingest_tail()
+        arrays = streaming.snapshot_state(self.state)
+        self._wall += time.perf_counter() - t0
+        return SessionCheckpoint(
+            n_nodes=self.n_nodes, plan=self.plan, block_size=self.block_size,
+            state_bytes=self.state_bytes,
+            nbytes=streaming.state_nbytes(arrays), arrays=arrays,
+            buffer_shape=self._buffer.export_shape_state(),
+            n_blocks=self.n_blocks, n_epochs_advanced=self.n_epochs_advanced,
+            wall_s=self._wall)
+
+    def advance(self) -> None:
+        """Slide a WINDOWED session's window by one epoch: the closing
+        epoch's buffered tail is flushed and ingested first (epoch
+        boundaries bind edges to the epoch they were fed in), then the
+        oldest epoch's bitset and count slot are cleared in one shot
+        (``core.streaming.expire_epoch``). Raises on unbounded sessions and
+        after ``finalize``."""
+        self._live()
+        if not self.plan.window_epochs:
+            raise RuntimeError(
+                "advance() is for windowed sessions — open with window=E "
+                "(or a plan with window_epochs > 0)")
+        from repro_torch.core import streaming
+
+        t0 = time.perf_counter()
+        self._ingest_tail()
+        streaming.expire_epoch(self.state)
+        self.n_epochs_advanced += 1
+        self._wall += time.perf_counter() - t0
+
+    def finalize(self) -> CountResult:
+        """Flush the padded tail block and return the stream's
+        :class:`CountResult` (idempotent): the running total, or the live
+        window's count. The count stays a device tensor. ``wall_s`` is the
+        host time spent inside ``feed``/``advance``/``finalize`` (the
+        ingest is asynchronous on the card). ``stats["ingest_traces"]``
+        counts the new ingest keys over the session's lifetime."""
+        if self.result is not None:
+            return self.result
+        from repro_torch.core import streaming
+
+        t0 = time.perf_counter()
+        self._ingest_tail()
+        self._wall += time.perf_counter() - t0
+        p = self.plan
+        count = (streaming.window_count(self.state) if p.window_epochs
+                 else self.state["count"])
+        stats = {"n_blocks": self.n_blocks, "block_size": self.block_size,
+                 "n_stages": p.n_stages, "sharded": p.n_stages > 1,
+                 "on_mesh": False, "session": True,
+                 "state_bytes": self._state_nbytes(), "cache": self._cache,
+                 "ingest_traces": streaming.ingest_trace_count() - self._traces0}
+        if p.window_epochs:
+            stats["window_epochs"] = p.window_epochs
+            stats["epochs_advanced"] = self.n_epochs_advanced
+        self.result = CountResult(count=count, plan=p, wall_s=self._wall, stats=stats)
+        return self.result
 
 
 _METHOD_ALIASES = {"bitset": "bitset_ring"}

@@ -10,7 +10,7 @@ def kernels() -> dict:
     from repro_torch.kernels.triangle_count import ops as tc
 
     return {"triangle_count_live": tc.LIVE, "masked_matmul_sum": tc.MASKED,
-            "bitset_edge_count": bs.EDGE}
+            "bitset_edge_count": bs.EDGE, "bitset_pair_count": bs.PAIR}
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,1 +1,1 @@
-from repro_torch.kernels.bitset_count.ops import bitset_edge_count
+from repro_torch.kernels.bitset_count.ops import bitset_edge_count, bitset_pair_count

@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the bitset edge-closure kernel (any device).
+"""Plain PyTorch versions of the bitset closure kernels (any device).
 
 Bitset words travel as int32 with the bit pattern of the reference's uint32
 (``np.uint32`` arrays ``.view(np.int32)`` at the host boundary): torch has
@@ -24,19 +24,26 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
 
 
 def bitset_edge_count_ref(masks: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
-    """Σ_e popcount(masks[u_e] & masks[v_e]) as an int64 scalar.
+    """Σ_e popcount(masks[u_e] & masks[v_e]) as an int64 scalar: the
+    one-table case of :func:`bitset_pair_count_ref`."""
+    return bitset_pair_count_ref(masks, masks, edges)
 
-    masks: (n_pad, W) int32 bitset rows; edges: (B, 2) non-negative ids.
-    Phantom edges (u ≥ n_pad) count 0, and v is clamped to n_pad − 1, as in
-    the reference's oracle."""
-    n_pad, w = masks.shape
-    total = torch.zeros((), dtype=torch.int64, device=masks.device)
+
+def bitset_pair_count_ref(masks_a: torch.Tensor, masks_b: torch.Tensor,
+                          edges: torch.Tensor) -> torch.Tensor:
+    """Σ_e popcount(masks_a[u_e] & masks_b[v_e]) as an int64 scalar.
+
+    masks_a, masks_b: (n_pad, W) int32 bitset rows of one shape; edges:
+    (B, 2) non-negative ids. Phantom edges (u ≥ n_pad) count 0, and v is
+    clamped to n_pad − 1, as in the reference's oracle."""
+    n_pad, w = masks_a.shape
+    total = torch.zeros((), dtype=torch.int64, device=masks_a.device)
     step = max(1, _GATHER_WORDS // max(w, 1))
     for s in range(0, edges.shape[0], step):
         e = edges[s:s + step].to(torch.int64)
         u, v = e[:, 0], e[:, 1]
         valid = u < n_pad
-        both = masks[u.clamp(0, n_pad - 1)] & masks[v.clamp(0, n_pad - 1)]
+        both = masks_a[u.clamp(0, n_pad - 1)] & masks_b[v.clamp(0, n_pad - 1)]
         pc = popcount32(both).sum(dim=-1)
         total += torch.where(valid, pc, 0).sum()
     return total

@@ -153,22 +153,6 @@ def test_plan_that_contradicts_the_device_is_refused():
     assert c.count(g, plan=Plan(method="dense")).item() == count_triangles_brute(g)
 
 
-def test_stream_plans_are_refused_until_streaming_is_ported():
-    g = _port(ref_gen.gnp(30, 0.3, seed=1))
-    c = TriangleCounter(Resources(), device="cpu")
-    todo = "streaming is not ported yet .ROADMAP.md queue A, item 1"
-    with pytest.raises(RuntimeError, match=todo):
-        c.count(g, plan=Plan(method="stream"))
-    for call in (lambda: c.open_stream(30), lambda: c.count_stream(30, [g.edges]),
-                 lambda: c.count_windowed(30, [[g.edges]], window=2),
-                 lambda: c.restore_stream(None)):
-        with pytest.raises(RuntimeError, match=todo):
-            call()
-    stats = GraphStats(n_nodes=1000, n_edges=0, replication_factor=0, max_degree=0,
-                       max_fwd_degree=0, edges_in_memory=False)
-    assert plan(stats, Resources()).method == "stream"  # planned, not executable yet
-
-
 def test_entry_points_need_a_card_unless_cpu_is_asked_for(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g = _port(ref_gen.gnp(20, 0.5, seed=1))
@@ -191,6 +175,17 @@ def test_import_repro_torch_pulls_in_neither_jax_nor_repro():
         "import repro_torch.core, repro_torch.kernels, repro_torch.graphs.datasets\n"
         "import repro_torch.kernels.triangle_count, repro_torch.kernels.bitset_count\n"
         "import repro_torch.core.streaming, repro_torch.kernels._build\n"
+        "from repro_torch.api import SessionCheckpoint, StreamSession, TriangleCounter\n"
+        "from repro_torch.kernels.bitset_count import bitset_pair_count\n"
+        "import numpy as np, tempfile, os\n"
+        "c = TriangleCounter(device='cpu')\n"
+        "e = np.array([[0, 1], [1, 2], [0, 2], [2, 3], [1, 3]], np.int32)\n"
+        "s = c.open_stream(4, window=2)\n"
+        "s.feed(e[:2]); s.advance(); s.feed(e[2:])\n"
+        "ck = s.checkpoint(); ck.spill(os.path.join(tempfile.mkdtemp(), 'c.npz'))\n"
+        "ck = SessionCheckpoint.from_file(ck.path)\n"
+        "assert c.restore_stream(ck).finalize().item() == 2\n"
+        "assert c.count_stream(4, [e]).item() == 2\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

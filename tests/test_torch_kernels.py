@@ -19,11 +19,20 @@ from repro.core.triangle_ref import count_triangles_brute  # noqa: E402
 from repro.graphs import generators as ref_gen  # noqa: E402
 from repro.graphs.formats import forward_adjacency_dense  # noqa: E402
 from repro.kernels.bitset_count.ops import bitset_edge_count as ref_bitset  # noqa: E402
+from repro.kernels.bitset_count.ops import bitset_pair_count as ref_pair  # noqa: E402
+from repro.kernels.bitset_count.ref import bitset_pair_count_ref as ref_pair_oracle  # noqa: E402
 from repro.kernels.triangle_count.ops import masked_matmul_sum as ref_mms  # noqa: E402
 from repro.kernels.triangle_count.ops import triangle_count as ref_tc  # noqa: E402
 from repro_torch.kernels import _build, launch_counts  # noqa: E402
-from repro_torch.kernels.bitset_count.ops import bitset_edge_count  # noqa: E402
-from repro_torch.kernels.bitset_count.ref import popcount32  # noqa: E402
+from repro_torch.kernels.bitset_count.ops import (  # noqa: E402
+    bitset_edge_count,
+    bitset_pair_count,
+)
+from repro_torch.kernels.bitset_count.ref import (  # noqa: E402
+    bitset_edge_count_ref,
+    bitset_pair_count_ref,
+    popcount32,
+)
 from repro_torch.kernels.triangle_count.ops import (  # noqa: E402
     live_grid_size,
     masked_matmul_sum,
@@ -147,6 +156,56 @@ def test_bitset_edge_count_rejects_bad_shapes():
 
 
 # --------------------------------------------------------------------------
+# K4: bitset pair count (two tables)
+# --------------------------------------------------------------------------
+def _words(rng, shape):
+    """Random 32-bit words with the top bit set in about half of them."""
+    return rng.integers(0, 2**32, size=shape, dtype=np.uint64).astype(np.uint32)
+
+
+@pytest.mark.parametrize("n_pad,w,b,seed", [(64, 1, 31, 0), (64, 2, 57, 1), (96, 3, 41, 2),
+                                            (70, 33, 129, 3), (40, 140, 77, 4)])
+def test_bitset_pair_count_matches_reference_kernel(n_pad, w, b, seed):
+    rng = np.random.default_rng(seed)
+    a, bt = _words(rng, (n_pad, w)), _words(rng, (n_pad, w))
+    a[:, -1] |= np.uint32(0x80000000)  # bit 31 in every row of one word
+    edges = rng.integers(0, n_pad, size=(b, 2)).astype(np.int32)
+    edges[rng.random(b) < 0.2, 0] = n_pad       # phantom edges count 0
+    edges[rng.random(b) < 0.1, 0] = n_pad + 5   # any id >= n_pad is phantom
+    edges[rng.random(b) < 0.1, 1] = n_pad       # v past the tables is clamped
+    ta, tb = torch.from_numpy(a.view(np.int32)), torch.from_numpy(bt.view(np.int32))
+    te = torch.from_numpy(edges)
+    for x, y, tx, ty in ((a, bt, ta, tb), (bt, a, tb, ta)):  # a != b: both orders
+        want = int(ref_pair(jnp.asarray(x), jnp.asarray(y), jnp.asarray(edges),
+                            interpret=True))
+        assert want == int(ref_pair_oracle(jnp.asarray(x), jnp.asarray(y), jnp.asarray(edges)))
+        got = bitset_pair_count(tx, ty, te)
+        assert got.dtype == torch.int64 and got.shape == () and int(got) == want
+        assert int(bitset_pair_count_ref(tx, ty, te)) == want
+    assert int(bitset_pair_count(ta, tb, te)) != int(bitset_pair_count(tb, ta, te))
+
+
+def test_bitset_edge_count_is_the_one_table_pair_count():
+    rng = np.random.default_rng(9)
+    m = torch.from_numpy(_words(rng, (50, 5)).view(np.int32))
+    e = torch.from_numpy(rng.integers(0, 60, size=(200, 2)).astype(np.int32))
+    assert int(bitset_edge_count_ref(m, e)) == int(bitset_pair_count_ref(m, m, e)) == \
+        int(bitset_pair_count(m, m, e))
+
+
+def test_bitset_pair_count_rejects_bad_shapes():
+    t = torch.zeros(4, 2, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        bitset_pair_count(t, torch.zeros(4, 3, dtype=torch.int32),
+                          torch.zeros(3, 2, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        bitset_pair_count(t, torch.zeros(5, 2, dtype=torch.int32),
+                          torch.zeros(3, 2, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        bitset_pair_count(t, t, torch.zeros(3, 3, dtype=torch.int32))
+
+
+# --------------------------------------------------------------------------
 # Wrappers on the CPU, and the build/bind layer
 # --------------------------------------------------------------------------
 def test_cpu_tensors_run_the_plain_versions_and_launch_nothing():
@@ -155,6 +214,8 @@ def test_cpu_tensors_run_the_plain_versions_and_launch_nothing():
     triangle_count(u)
     masked_matmul_sum(u, u, u)
     bitset_edge_count(torch.zeros(8, 1, dtype=torch.int32), torch.zeros(4, 2, dtype=torch.int32))
+    bitset_pair_count(torch.zeros(8, 1, dtype=torch.int32), torch.zeros(8, 1, dtype=torch.int32),
+                      torch.zeros(4, 2, dtype=torch.int32))
     assert launch_counts() == before
 
 
@@ -212,3 +273,9 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
     with pytest.raises(ValueError):
         bitset_edge_count(torch.zeros(4, 1, dtype=torch.int32, device="meta"),
                           torch.zeros(2, 2, dtype=torch.int32, device="meta"))
+    m = torch.zeros(4, 1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        bitset_pair_count(m, m, torch.zeros(2, 2, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError):  # tables and edges on different devices
+        bitset_pair_count(torch.zeros(4, 1, dtype=torch.int32), m,
+                          torch.zeros(2, 2, dtype=torch.int32))
