@@ -5,9 +5,12 @@
 
 1. Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
    (one ``nvcc`` per source, all in parallel) and holds each kernel against
-   its plain PyTorch version on the card, as exact integers, at several
-   shapes: ragged sizes, phantom edges, and the shapes the main path gives
-   it at the paper's full Table-1 sizes. Times each kernel, its plain
+   its plain PyTorch version on the card at several shapes: the counting
+   kernels as exact integers (ragged sizes, phantom edges, the shapes the
+   main path gives them at the paper's full Table-1 sizes), flash attention
+   (K6) and EmbeddingBag (K7) within the reference kernel tests'
+   tolerances, at Yi-6B's and AutoInt's full widths among others. Float32
+   products run in true float32 (TF32 off, asserted). Times each kernel, its plain
    version and, where one exists, a single PyTorch call computing the same
    function (``library_ms``; the port never calls it).
 2. Serves the Table-1 graphs at full scale (DSJC.1/.5/.9, FB107, FNA.5, NY),
@@ -27,11 +30,26 @@
    checkpointed halfway (unbounded, and windowed mid-epoch), spilled to
    ``.npz``, restored on a fresh counter and finished, bit-identical to an
    uninterrupted session.
-5. Profiles one planner-chosen count of FNA.5 and of NY, and one
-   planner-chosen ``count_stream`` of NY, with ``torch.profiler``: host
-   wall, device busy time, the device's idle share.
+5. [lm] Yi-6B at full width and depth (32 layers, d_model 4,096, 32/4
+   heads, d_ff 11,008, vocab 64,000; f32 weights drawn on the card from a
+   seeded generator): ``LMServer.generate`` on 8 seeded prompts of 256 to
+   1,024 tokens, 4 to a batch, 32 new tokens each; the same batches through
+   ``prefill(use_flash=True)`` (K6 once per layer) and ``decode_step``,
+   whose last-token logits must agree with the server's chunked-attention
+   prefill within 1e-3 of the largest logit; and ``prefill`` of a prompt
+   less its last token plus one ``decode_step`` against ``forward`` of the
+   whole prompt. The Yi-6B smoke config on the card against the CPU port.
+6. [recsys] AutoInt at its full config (3.9M-row table): ``ctr_logits`` and
+   ``retrieval_scores`` (100,000 candidates) on 16,384 seeded rows, and
+   ``lookup_multihot(use_kernel=True)`` (K7) on 16,384 × 39 bags of 8 ids
+   against ``use_kernel=False``; the smoke config on the card against the
+   CPU port.
+7. Profiles one planner-chosen count of FNA.5 and of NY, one planner-chosen
+   ``count_stream`` of NY, and one Yi-6B flash prefill plus 32 decode steps,
+   with ``torch.profiler``: host wall, device busy time, the device's idle
+   share.
 
-Phases 2 to 4 are the main path: every kernel's launch count is set to 0
+Phases 2 to 6 are the main path: every kernel's launch count is set to 0
 before them and must be above 0 after them. Any mismatch or exception exits
 non-zero. The last three lines are the ``kernels`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Imports nothing
@@ -67,6 +85,16 @@ NOT_RUN = {"FNA.5": {"sparse", "mapreduce"}, LARGE_NAME: {"mapreduce"}}
 # the device memory rate.
 PEAK_INT8_OPS = 1.979e15
 PEAK_BYTES = 3.35e12
+# Float rates of the same data sheet: FP32 on the CUDA cores, and bf16 on
+# the tensor cores (dense).
+PEAK_F32_FLOPS = 66.9e12
+PEAK_BF16_FLOPS = 989.4e12
+# Yi-6B's attention at a long prefill: K6 is timed at this shape.
+YI_ATTN = dict(b=1, hq=32, hkv=4, s=8192, d=128)
+# K6 against its plain version at that shape: 1e-4 absolute in f32; in bf16
+# that plus one bf16 ulp of the output (7 stored mantissa bits), elementwise.
+F32_LONG_TOL = 1e-4
+BF16_ULP = 2.0**-7
 # Issue rates outside the tensor cores, per SM per clock, for compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
 # throughput): 32-bit integer add and bitwise logic 64, population count 16.
@@ -338,7 +366,157 @@ def check_kernels(graphs: dict) -> dict:
                (ek.numel() * 4 + real * 2 * w * 4 + 8) / PEAK_BYTES))
     del adj, delta, ek
     torch.cuda.empty_cache()
+    rows["flash_attention"] = check_attention(gen)
+    rows["embedding_bag"] = check_embedding_bag(gen)
     return rows
+
+
+def close(got, want, tol: float) -> tuple[float, bool]:
+    """(max |got - want|, whether |got - want| <= tol + tol·|want| holds
+    everywhere): the rtol = atol = tol test of the reference's kernel
+    tests (``np.testing.assert_allclose``), in float32."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    return float(diff.max()), bool((diff <= tol + tol * want.abs()).all())
+
+
+def check_attention(gen) -> dict:
+    """K6 against its plain version: f32 and bf16, Hq/Hkv in {4/4, 8/2,
+    32/4}, D in {16, 64, 128}, S in {1, 127, 200, 1000}, causal and full,
+    within 2e-5 (f32) and 3e-2 (bf16) — the reference kernel test's
+    tolerances — then timed at Yi-6B's width (``YI_ATTN``) in both dtypes,
+    within 1e-4 in f32 there and within 1e-4 plus one bf16 ulp of the
+    output (2^-7·|want|, elementwise) in bf16. Returns the f32 row; the bf16 figures ride
+    along under ``bf16``."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n = 0
+    for dtype in worst:
+        tol = 2e-5 if dtype == torch.float32 else 3e-2
+        for hq, hkv in ((4, 4), (8, 2), (32, 4)):
+            for d in (16, 64, 128):
+                for s in (1, 127, 200, 1000):
+                    q = torch.randn(2, hq, s, d, generator=gen).to(dtype).to(DEVICE)
+                    k = torch.randn(2, hkv, s, d, generator=gen).to(dtype).to(DEVICE)
+                    v = torch.randn(2, hkv, s, d, generator=gen).to(dtype).to(DEVICE)
+                    for causal in (True, False):
+                        err, ok = close(flash_attention(q, k, v, causal=causal),
+                                        attention_ref(q, k, v, causal=causal), tol)
+                        n += 1
+                        if not ok:
+                            raise AssertionError(
+                                f"flash_attention {dtype} Hq={hq} Hkv={hkv} D={d} S={s} "
+                                f"causal={causal}: max abs err {err}, not within "
+                                f"rtol = atol = {tol}")
+                        worst[dtype] = max(worst[dtype], err)
+    log(f"  flash_attention      {n} cases match within rtol = atol = 2e-5 (f32) and 3e-2 "
+        f"(bf16): max abs err f32 {worst[torch.float32]:.3e}, bf16 "
+        f"{worst[torch.bfloat16]:.3e}")
+    b, hq, hkv, s, d = (YI_ATTN[x] for x in ("b", "hq", "hkv", "s", "d"))
+    flops = 4 * b * hq * d * s * (s + 1) / 2
+    timed = {}
+    for dtype, peak in ((torch.float32, PEAK_F32_FLOPS), (torch.bfloat16, PEAK_BF16_FLOPS)):
+        q = torch.randn(b, hq, s, d, generator=gen).to(dtype).to(DEVICE)
+        k = torch.randn(b, hkv, s, d, generator=gen).to(dtype).to(DEVICE)
+        v = torch.randn(b, hkv, s, d, generator=gen).to(dtype).to(DEVICE)
+        want = attention_ref(q, k, v).float()
+        diff = (flash_attention(q, k, v).float() - want).abs()
+        err = float(diff.max())
+        # f32: 1e-4 absolute. bf16: both sides round an f32 result to bf16,
+        # so they may differ by one bf16 ulp of the output (2^-7 of |want|)
+        # on top of the f32 limit.
+        limit = F32_LONG_TOL + (BF16_ULP * want.abs() if dtype == torch.bfloat16 else 0)
+        ratio = float((diff / limit).max())
+        log(f"  flash_attention      Yi-6B width {tuple(q.shape)} kv {tuple(k.shape)} {dtype}: "
+            f"max abs err {err:.3e}, max |diff| / limit {ratio:.3f} (limit {F32_LONG_TOL:g}"
+            + (" + 2^-7 |want|)" if dtype == torch.bfloat16 else ")"))
+        if not ratio <= 1.0:
+            raise AssertionError(f"flash_attention at Yi-6B's width, {dtype}: max |diff| / "
+                                 f"limit {ratio} > 1 (max abs err {err})")
+        del want, diff
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)
+        timed[dtype] = dict(
+            shape=[b, hq, hkv, s, d], max_abs_err=max(worst[dtype], err),
+            ms=time_ms(lambda: flash_attention(q, k, v), reps=5),
+            plain_ms=time_ms(lambda: attention_ref(q, k, v), reps=2),
+            library_ms=time_ms(sdpa, reps=5),
+            bound=(flops / peak, nbytes / PEAK_BYTES))
+        del q, k, v
+        torch.cuda.empty_cache()
+    row = dict(timed[torch.float32], match=True)
+    bf = timed[torch.bfloat16]
+    row["bf16"] = dict(ms=bf["ms"], plain_ms=bf["plain_ms"], library_ms=bf["library_ms"],
+                       bound_ms=max(bf["bound"]) * 1e3, max_abs_err=bf["max_abs_err"])
+    return row
+
+
+def check_embedding_bag(gen) -> dict:
+    """K7 against its plain version: f32 and bf16, ragged bags (several L,
+    30% padding, any id >= V pads), an all-padding bag, ids at V - 1 and V,
+    within 1e-6 (f32) and 3e-2 (bf16); then timed at AutoInt's full table
+    (V = 39 * 100,000, D = 16, f32) on 16,384 * 39 bags of L = 8."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+
+    def bags(v, n, l, pad=0.3):
+        ids = torch.randint(0, v, (n, l), generator=gen, dtype=torch.int32)
+        ids[torch.rand(n, l, generator=gen) < pad] = v
+        if n > 2 and l:
+            ids[0] = v + 7            # an all-padding bag (any id >= V)
+            ids[1, 0], ids[2, -1] = v - 1, v
+        return ids.to(DEVICE)
+
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for dtype in worst:
+        tol = 1e-6 if dtype == torch.float32 else 3e-2
+        for (v, d, n, l) in ((64, 16, 8, 4), (256, 128, 4, 10), (1000, 32, 16, 3),
+                             (100, 13, 7, 5), (5000, 16, 100_000, 17), (7, 8, 5, 1)):
+            table = torch.randn(v, d, generator=gen).to(dtype).to(DEVICE)
+            ids = bags(v, n, l)
+            got = embedding_bag(table, ids)
+            err, ok = close(got, embedding_bag_ref(table, ids), tol)
+            if not ok or got[0].any():
+                raise AssertionError(f"embedding_bag {dtype} V={v} D={d} N={n} L={l}: max abs "
+                                     f"err {err}, not within rtol = atol = {tol}, or padding "
+                                     "summed")
+            worst[dtype] = max(worst[dtype], err)
+    cfg = get_config("autoint")
+    v, d = cfg.n_sparse * cfg.vocab_per_field, cfg.embed_dim
+    table = (torch.randn(v, d, generator=gen) * 0.01).to(DEVICE)
+    ids = bags(v, 16_384 * cfg.n_sparse, 8)
+    err, ok = close(embedding_bag(table, ids), embedding_bag_ref(table, ids), 1e-6)
+    if not ok:
+        raise AssertionError(f"embedding_bag at AutoInt's table: max abs err {err}, not "
+                             "within rtol = atol = 1e-6")
+    worst[torch.float32] = max(worst[torch.float32], err)
+    real = int(((ids >= 0) & (ids < v)).sum())
+    log(f"  embedding_bag        match within rtol = atol = 1e-6 (f32) and 3e-2 (bf16): "
+        f"max abs err f32 {worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e}; "
+        f"AutoInt table {v}x{d} f32, "
+        f"{ids.shape[0]} bags of {ids.shape[1]}, {real} real ids")
+    nbytes = real * d * 4 + ids.numel() * 4 + ids.shape[0] * d * 4
+    safe, weights = ids.clamp(max=v - 1), (ids < v).to(table.dtype)
+    row = dict(
+        shape=[v, d, ids.shape[0], ids.shape[1]], max_abs_err=worst[torch.float32], match=True,
+        ms=time_ms(lambda: embedding_bag(table, ids), reps=20),
+        plain_ms=time_ms(lambda: embedding_bag_ref(table, ids), reps=3),
+        library_ms=time_ms(lambda: torch.nn.functional.embedding_bag(
+            safe, table, mode="sum", per_sample_weights=weights), reps=10),
+        bound=(real * d / PEAK_F32_FLOPS, nbytes / PEAK_BYTES))
+    del table, ids, safe, weights
+    torch.cuda.empty_cache()
+    return row
 
 
 def ny_block_operands(g):
@@ -595,7 +773,209 @@ def stream_phase(graphs: dict) -> list:
 
 
 # --------------------------------------------------------------------------
-# Phase 5: where the time of one count goes (after the main path's counts)
+# Phases 5 and 6: the LM and the recsys paths (main path too)
+# --------------------------------------------------------------------------
+def logits_agree(label: str, got, want, rel: float = 1e-3) -> float:
+    """max |got - want| <= rel * max |want|, both finite; returns the ratio."""
+    import torch
+
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{label}: logits are not finite")
+    diff = float((got - want).abs().max())
+    top = float(want.abs().max())
+    log(f"  {label}: max |diff| {diff:.3e}, max |logit| {top:.3e}, ratio {diff / top:.3e} "
+        f"(<= {rel:g})")
+    if not diff <= rel * top:
+        raise AssertionError(f"{label}: max |diff| {diff} > {rel} * {top}")
+    return diff / top
+
+
+def lm_phase(arch: str = "yi_6b", n_prompts: int = 8, lengths=(256, 1024),
+             max_batch: int = 4, new_tokens: int = 32) -> dict:
+    """The LM path at full width and depth: the server, the flash prefill
+    and decode, and forward, as the module docstring says. Returns what
+    the profile phase reuses (the model and one batch)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import LMServer, ServeConfig
+
+    # the smoke config on the card against the CPU port, same weights
+    small = get_smoke(arch)
+    m_dev = tf.init_params(torch.Generator(device=DEVICE).manual_seed(1), small, device=DEVICE)
+    m_cpu = tf.Transformer(small, device="cpu")
+    m_cpu.load_state_dict({k: v.cpu() for k, v in m_dev.state_dict().items()})
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, small.vocab, (2, 33)))
+    a, _ = tf.prefill(m_dev, small, toks.to(DEVICE), 40, use_flash=True)
+    b, _ = tf.prefill(m_cpu, small, toks, 40, use_flash=True)
+    logits_agree(f"{small.name} flash prefill, card vs CPU port", a.cpu(), b)
+    del m_dev, m_cpu
+
+    cfg = get_config(arch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tf.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}: {cfg.n_params()} "
+        f"params, {n_bytes} B of f32 weights drawn on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(13)
+    lens = rng.integers(lengths[0], lengths[1] + 1, n_prompts)
+    lens[0] = lengths[1]
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32) for n in lens]
+    log(f"  prompts: {sorted(int(n) for n in lens)} tokens, {max_batch} to a batch")
+
+    # (a) the server
+    server = LMServer(model, cfg, ServeConfig(max_batch=max_batch, max_new_tokens=new_tokens))
+    t0 = time.perf_counter()
+    out_a = server.generate(prompts)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if [o.shape for o in out_a] != [(new_tokens,)] * n_prompts or any(
+            ((o < 0) | (o >= cfg.vocab)).any() for o in out_a):
+        raise AssertionError("LMServer.generate: wrong shapes or token ids out of range")
+    log(f"  generate: {n_prompts} prompts x {new_tokens} tokens in {gen_s:.3f} s (host wall, "
+        f"synchronized): {n_prompts * new_tokens / gen_s:.2f} tokens/s")
+
+    # (b) the same batches through the flash prefill and decode_step; the
+    # server's own prefill (chunked attention) recomputed for its logits and
+    # timed: that is the served path's time to first token
+    k6 = launch_counts()["flash_attention"]
+    agree, flash_ms, ttft_ms, decode_ms, ratios = 0, [], [], [], []
+    batch0 = None
+    for i in range(0, n_prompts, max_batch):
+        group = prompts[i:i + max_batch]
+        plen = max(len(p) for p in group)
+        tokens = np.zeros((len(group), plen), np.int32)
+        for j, p in enumerate(group):
+            tokens[j, plen - len(p):] = p
+        tokens = torch.from_numpy(tokens).to(DEVICE)
+        batch0 = batch0 if batch0 is not None else tokens
+        s_max = plen + new_tokens
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, _ = tf.prefill(model, cfg, tokens, s_max, chunk_q=min(512, plen))
+        torch.cuda.synchronize()
+        ttft_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        got, cache = tf.prefill(model, cfg, tokens, s_max, use_flash=True)
+        torch.cuda.synchronize()
+        flash_ms.append((time.perf_counter() - t0) * 1e3)
+        ratios.append(logits_agree(f"batch {i // max_batch} (plen {plen}): flash prefill vs "
+                                   "the server's chunked prefill", got, want))
+        tok = got.argmax(-1, keepdim=True)
+        gen = [tok]
+        t0 = time.perf_counter()
+        for step in range(new_tokens - 1):
+            logits, cache = tf.decode_step(model, cfg, cache, tok, plen + step)
+            tok = logits.argmax(-1, keepdim=True)
+            gen.append(tok)
+        out_b = torch.cat(gen, 1).cpu().numpy()
+        decode_ms.append((time.perf_counter() - t0) * 1e3 / (new_tokens - 1))
+        agree += int(sum((out_b[j] == out_a[i + j]).sum() for j in range(len(group))))
+        del cache
+    k6 = launch_counts()["flash_attention"] - k6
+    n_batches = len(flash_ms)
+    if k6 != cfg.n_layers * n_batches:
+        raise AssertionError(f"flash prefills launched K6 {k6} times, not {cfg.n_layers} x "
+                             f"{n_batches}")
+    log(f"  greedy tokens equal between the server and the flash path: {agree} of "
+        f"{n_prompts * new_tokens}")
+    log(f"  K6 launches: {k6} = {cfg.n_layers} layers x {n_batches} flash prefills")
+    for i, (c, f, d) in enumerate(zip(ttft_ms, flash_ms, decode_ms)):
+        log(f"  batch {i}: time to first token {c:.3f} ms (the server's prefill, chunked "
+            f"attention, as generate runs it); the flash prefill (K6) {f:.3f} ms; decode "
+            f"{d:.3f} ms per token (host wall per step)")
+
+    # prefill of all but the last token plus one decode step == forward
+    t = torch.from_numpy(prompts[0][None].astype(np.int64)).to(DEVICE)
+    last, cache = tf.prefill(model, cfg, t[:, :-1], t.shape[1], use_flash=True)
+    step, _ = tf.decode_step(model, cfg, cache, t[:, -1:], t.shape[1] - 1)
+    full, _ = tf.forward(model, cfg, t, use_flash=True)
+    logits_agree("prefill(tokens[:, :-1]) vs forward[:, -2]", last, full[:, -2])
+    logits_agree("prefill + decode_step vs forward[:, -1]", step, full[:, -1])
+    del cache, full
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  peak allocated {peak} B ({n_bytes} B of weights)")
+    return dict(model=model, cfg=cfg, batch=batch0, new_tokens=new_tokens,
+                summary=dict(generate_s=gen_s, tokens_per_s=n_prompts * new_tokens / gen_s,
+                             ttft_ms=ttft_ms, flash_prefill_ms=flash_ms,
+                             decode_ms_per_token=decode_ms, peak_bytes=peak,
+                             k6_launches=k6, tokens_equal=agree,
+                             logit_ratio=max(ratios)))
+
+
+def recsys_phase(arch: str = "autoint", rows: int = 16_384, n_cand: int = 100_000,
+                 bag_len: int = 8) -> dict:
+    """AutoInt at its full config on the card, as the module docstring says."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.recsys import autoint, embedding
+
+    small = get_smoke(arch)
+    m_dev = autoint.init_params(torch.Generator(device=DEVICE).manual_seed(2), small,
+                                device=DEVICE)
+    m_cpu = autoint.AutoInt(small, device="cpu")
+    m_cpu.load_state_dict({k: v.cpu() for k, v in m_dev.state_dict().items()})
+    ids = torch.from_numpy(np.random.default_rng(4).integers(0, small.vocab_per_field,
+                                                             (64, small.n_sparse)))
+    logits_agree(f"{small.name} ctr_logits, card vs CPU port",
+                 autoint.ctr_logits(m_dev, small, ids.to(DEVICE)).cpu(),
+                 autoint.ctr_logits(m_cpu, small, ids), rel=1e-5)
+    del m_dev, m_cpu
+
+    cfg = get_config(arch)
+    model = autoint.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg,
+                                device=DEVICE)
+    rng = np.random.default_rng(21)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_per_field, (rows, cfg.n_sparse))
+                           ).to(DEVICE)
+    cands = torch.from_numpy(rng.standard_normal((n_cand, cfg.embed_dim)).astype(np.float32)
+                             ).to(DEVICE)
+    bags = rng.integers(0, cfg.vocab_per_field, (rows, cfg.n_sparse, bag_len))
+    bags[rng.random(bags.shape) < 0.3] = cfg.vocab_per_field
+    bags = torch.from_numpy(bags.astype(np.int32)).to(DEVICE)
+    torch.cuda.synchronize()
+    out = {}
+    for name, run, shape in (
+            ("ctr_logits", lambda: autoint.ctr_logits(model, cfg, ids), (rows,)),
+            ("retrieval_scores", lambda: autoint.retrieval_scores(model, cfg, ids, cands),
+             (rows, n_cand)),
+            ("lookup_multihot", lambda: embedding.lookup_multihot(model.table, cfg, bags,
+                                                                  use_kernel=True),
+             (rows, cfg.n_sparse, cfg.embed_dim))):
+        t0 = time.perf_counter()
+        y = run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        if tuple(y.shape) != shape or not torch.isfinite(y).all():
+            raise AssertionError(f"{name}: shape {tuple(y.shape)} (want {shape}) or not finite")
+        log(f"  {name:16s} {tuple(y.shape)} finite, {wall:.3f} ms (host wall, synchronized)")
+        out[name] = (y, wall)
+    k7 = launch_counts()["embedding_bag"]
+    plain = embedding.lookup_multihot(model.table, cfg, bags, use_kernel=False)
+    k7 = launch_counts()["embedding_bag"] - k7
+    err, ok = close(out["lookup_multihot"][0], plain, 1e-6)
+    log(f"  lookup_multihot use_kernel=True vs False: max abs err {err:.3e} (within rtol = "
+        f"atol = 1e-6: {ok}); the plain path launched K7 {k7} times")
+    if not ok or k7:
+        raise AssertionError(f"lookup_multihot: max abs err {err}, not within rtol = atol = "
+                             "1e-6, or the plain path launched K7")
+    return {name: wall for name, (_, wall) in out.items()}
+
+
+# --------------------------------------------------------------------------
+# Phase 7: where the time of one count goes (after the main path's counts)
 # --------------------------------------------------------------------------
 def profile_phase(graphs: dict) -> None:
     """One planner-chosen count of each of the two largest Table-1 graphs,
@@ -619,6 +999,44 @@ def profile_phase(graphs: dict) -> None:
     blocks = [e[i:i + 50_000] for i in range(0, len(e), 50_000)]
     profile_one("NY count_stream (planner-sized)",
                 lambda: counter.count_stream(g.n_nodes, blocks), graphs["_served"]["NY"])
+
+
+def profile_lm(lm: dict) -> dict:
+    """One flash prefill of the LM phase's first batch plus ``new_tokens``
+    decode steps under ``torch.profiler``, after a warm-up run: host wall,
+    device busy time, idle share, the largest device items."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as tf
+
+    model, cfg, tokens, n = lm["model"], lm["cfg"], lm["batch"], lm["new_tokens"]
+
+    def run():
+        logits, cache = tf.prefill(model, cfg, tokens, tokens.shape[1] + n, use_flash=True)
+        tok = logits.argmax(-1, keepdim=True)
+        for step in range(n):
+            logits, cache = tf.decode_step(model, cfg, cache, tok, tokens.shape[1] + step)
+            tok = logits.argmax(-1, keepdim=True)
+        return tok.cpu()
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    dev_rows = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev_rows) / 1e3
+    log(f"  {cfg.name} flash prefill {tuple(tokens.shape)} + {n} decode steps: "
+        f"wall={wall_ms:.3f} ms device_busy={busy_ms:.3f} ms "
+        f"device_idle_share={1 - busy_ms / wall_ms:.4f}")
+    top_dev = sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:8]
+    log("    device: " + "; ".join(f"{e.key[:90]} {e.self_device_time_total / 1e3:.3f} ms "
+                                   f"x{e.count}" for e in top_dev))
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms)
 
 
 def profile_one(label: str, run, want: int) -> None:
@@ -671,6 +1089,12 @@ def main() -> int:
     from repro_torch.graphs import generators as gen
     from repro_torch.kernels import _build, kernels, launch_counts, reset_launch_counts
 
+    # the plain versions and the chunked attention must run in true f32
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("float32 matmuls would run in TF32: the plain versions "
+                             "need true float32")
+
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t_all = time.perf_counter()
@@ -711,6 +1135,16 @@ def main() -> int:
     log("[stream] count_stream, count_windowed and checkpointed sessions on the card")
     table = stream_phase(graphs)
     log(f"[stream] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log("[lm] Yi-6B at full width and depth: LMServer.generate, flash prefill + "
+        "decode_step, forward")
+    lm = lm_phase()
+    log(f"[lm] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log("[recsys] AutoInt at its full config: ctr_logits, retrieval_scores, "
+        "lookup_multihot through K7")
+    recsys = recsys_phase()
+    log(f"[recsys] done in {time.perf_counter() - t0:.1f} s")
     torch.cuda.synchronize()
     launches = launch_counts()  # the main path ends here
     log(f"[main path] kernel launches: {launches}")
@@ -718,8 +1152,11 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     t0 = time.perf_counter()
-    log("[profile] one planner-chosen count each, and a NY count_stream, "
-        "torch.profiler (CPU + CUDA)")
+    log("[profile] one planner-chosen count each, a NY count_stream, and a Yi-6B "
+        "flash prefill + decode, torch.profiler (CPU + CUDA)")
+    lm["summary"]["profile"] = profile_lm(lm)
+    del lm["model"], lm["batch"]  # the counts' peaks below exclude the LM's weights
+    torch.cuda.empty_cache()
     profile_phase(graphs)
     log(f"[profile] done in {time.perf_counter() - t0:.1f} s")
 
@@ -735,16 +1172,25 @@ def main() -> int:
                 "masked_matmul_sum": "src/repro/kernels/triangle_count/triangle_count.py:79",
                 "bitset_edge_count": "src/repro/kernels/bitset_count/bitset_count.py:139",
                 "bitset_pair_count": "src/repro/kernels/bitset_count/bitset_count.py:110",
+                "flash_attention":
+                    "src/repro/kernels/flash_attention/flash_attention.py:62",
+                "embedding_bag": "src/repro/kernels/embedding_bag/embedding_bag.py:32",
             }[name],
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": r["library_ms"],
-            "match": r["max_abs_err"] == 0, "kernel_ms": r["ms"], "shape": r["shape"],
+            # exact for the counting kernels; the float kernels' checks raise
+            # unless every case is within its tolerance
+            "match": r.get("match", r["max_abs_err"] == 0),
+            "kernel_ms": r["ms"], "shape": r["shape"],
+            **({"bf16": r["bf16"]} if "bf16" in r else {}),
         })
         log(f"  bound of {name}: operations {ops_ms:.6f} ms, bytes {bytes_ms:.6f} ms")
     log("[stream table] " + json.dumps(table))
+    log("[lm summary] " + json.dumps(lm["summary"]))
+    log("[recsys summary] " + json.dumps(recsys))
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": out}))
     print(card)

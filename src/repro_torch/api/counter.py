@@ -24,7 +24,7 @@ Streams run through :class:`StreamSession` (``open_stream``,
 bitset ingest of ``core.streaming``, whose state lives on the counter's
 device, and :class:`SessionCheckpoint`, whose arrays keep the reference's
 layout. A ``hybrid`` stream plan raises a ``RuntimeError``: the degree-aware
-hybrid state is a later item of the port (ROADMAP.md, queue A, item 1).
+hybrid state is a later item of the port (ROADMAP.md, queue A, item 2).
 """
 from __future__ import annotations
 
@@ -42,7 +42,7 @@ from repro_torch.api.planner import plan as plan_fn
 from repro_torch.utils import resolve_device
 
 _HYBRID_TODO = ("the degree-aware hybrid stream state (state_layout='hybrid') is "
-                "not ported yet (ROADMAP.md queue A, item 1)")
+                "not ported yet (ROADMAP.md queue A, item 2)")
 
 
 def bucket(x: int, minimum: int = 64) -> int:

@@ -7,10 +7,13 @@ from __future__ import annotations
 def kernels() -> dict:
     """Kernel name -> its :class:`~repro_torch.kernels._build.CudaKernel`."""
     from repro_torch.kernels.bitset_count import ops as bs
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.triangle_count import ops as tc
 
     return {"triangle_count_live": tc.LIVE, "masked_matmul_sum": tc.MASKED,
-            "bitset_edge_count": bs.EDGE, "bitset_pair_count": bs.PAIR}
+            "bitset_edge_count": bs.EDGE, "bitset_pair_count": bs.PAIR,
+            "flash_attention": fa.FLASH, "embedding_bag": eb.BAG}
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,0 +1,109 @@
+"""Shared neural layers: RMSNorm, rotary embeddings, the LM's MLP.
+
+Functions on tensors, as in the reference (``repro/models/layers.py``); an
+MLP's weights live in an :class:`MLP` module whose parameter names are the
+reference's leaf names, in the (in, out) orientation that ``x @ W`` uses.
+The cross-entropy losses come with training (ROADMAP.md queue A item 6d).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.utils import resolve_device
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """x · rsqrt(mean(x²) + eps) · scale, the variance taken in float32 and
+    cast to x's dtype before the product."""
+    var = x.float().square().mean(-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps).to(x.dtype)) * scale
+
+
+def rotary_cos_sin(positions: torch.Tensor, dim: int,
+                   theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions: (...,) integers → cos/sin of shape (..., dim // 2), float32."""
+    inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                        device=positions.device) / dim))
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (..., S, D); cos/sin: (S, D // 2). Rotates the two halves of the
+    last dimension (split halves, not interleaved pairs)."""
+    x1, x2 = x.chunk(2, dim=-1)
+    shape = (1,) * (x.dim() - 2) + tuple(cos.shape)
+    cos = cos.reshape(shape).to(x.dtype)
+    sin = sin.reshape(shape).to(x.dtype)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def _relu2(x: torch.Tensor) -> torch.Tensor:
+    return torch.square(F.relu(x))
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+
+
+def activation(name: str):
+    if name == "swiglu":
+        return F.silu
+    if name == "geglu":
+        return _gelu
+    if name == "relu2":
+        return _relu2
+    raise ValueError(name)
+
+
+class MLP(nn.Module):
+    """Gated (``w_gate``, ``w_up``, ``w_down``: swiglu/geglu) or plain
+    (``w_in``, ``w_out``: relu2, Nemotron-style) MLP weights."""
+
+    def __init__(self, d_model: int, d_ff: int, act: str, dtype=torch.float32, *,
+                 device=None):
+        super().__init__()
+        activation(act)  # raises on an unknown activation
+        dev = resolve_device(device)
+        shapes = ({"w_in": (d_model, d_ff), "w_out": (d_ff, d_model)} if act == "relu2" else
+                  {"w_gate": (d_model, d_ff), "w_up": (d_model, d_ff),
+                   "w_down": (d_ff, d_model)})
+        for name, shape in shapes.items():
+            self.register_parameter(name, nn.Parameter(
+                torch.empty(shape, dtype=dtype, device=dev), requires_grad=False))
+
+
+def mlp_apply(p: MLP, x: torch.Tensor, act: str) -> torch.Tensor:
+    """Gated (swiglu/geglu) or plain (relu2, Nemotron-style) MLP."""
+    fn = activation(act)
+    if act == "relu2":
+        return fn(x @ p.w_in) @ p.w_out
+    return (fn(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+
+
+def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, act: str,
+             dtype=torch.float32, *, device=None) -> MLP:
+    """An :class:`MLP` with normal weights scaled by fan-in^-½, drawn from
+    ``generator`` (which lies on ``device``)."""
+    return fan_in_normal_(MLP(d_model, d_ff, act, dtype, device=device), generator)
+
+
+def fan_in_normal_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fill every (in, out) weight of ``module`` in place with
+    N(0, 1/in), the reference's scale for projections."""
+    for w in module.parameters():
+        normal_(w, generator, w.shape[0] ** -0.5)
+    return module
+
+
+@torch.no_grad()
+def normal_(w: torch.Tensor, generator: torch.Generator, std: float) -> torch.Tensor:
+    """Fill ``w`` in place with N(0, std²) drawn in float32 from
+    ``generator`` and cast to w's dtype (as the reference draws in float32
+    and casts)."""
+    if w.dtype == torch.float32:
+        return w.normal_(0.0, std, generator=generator)
+    tmp = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+    return w.copy_(tmp.normal_(0.0, std, generator=generator))

@@ -1,3 +1,3 @@
-from repro_torch.serve.serve_loop import TriangleServeConfig, TriangleServer
+from repro_torch.serve.serve_loop import LMServer, ServeConfig, TriangleServeConfig, TriangleServer
 
-__all__ = ["TriangleServeConfig", "TriangleServer"]
+__all__ = ["LMServer", "ServeConfig", "TriangleServeConfig", "TriangleServer"]

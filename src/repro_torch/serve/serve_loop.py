@@ -1,5 +1,15 @@
-"""The triangle-counting server: the planner-driven ``repro_torch.api``
-front end with one shared counter (one device, one cache) across requests.
+"""Batched serving loops: the LM server (prefill + greedy decode over the
+KV cache) and the triangle-counting server (the planner-driven
+``repro_torch.api`` front end with one shared counter — one device, one
+cache — across requests).
+
+The LM server groups requests (prompt token arrays) into fixed-size
+batches, pads short prompts on the left with a pad id, prefills once, then
+decodes greedily until ``max_new_tokens``, as the reference's
+(``repro/serve/serve_loop.py``) does. Left-pads are attended causally (no
+pad mask in the step functions), so a mixed-length batch is approximate,
+exactly as in the reference: a deployment would bucket requests by length
+or add a pad mask.
 
 Streaming sessions (``open_stream``/``feed``/``serve_streams`` and the
 multiplexer behind them) come with the port's serving slice (ROADMAP.md,
@@ -7,6 +17,58 @@ queue A)."""
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import LMConfig
+from repro_torch.models.transformer import Transformer, decode_step, prefill
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_batch: int = 8
+    max_new_tokens: int = 32
+    pad_id: int = 0
+
+
+class LMServer:
+    """Greedy generation over a :class:`~repro_torch.models.transformer.
+    Transformer` on the model's device. Prefill runs the chunked attention
+    with ``chunk_q = min(512, prompt length)``, as the reference server's.
+    Generated tokens stay on the device until a batch ends: one copy to
+    the host per batch."""
+
+    def __init__(self, model: Transformer, cfg: LMConfig, serve_cfg: ServeConfig | None = None):
+        self.model = model
+        self.cfg = cfg
+        self.scfg = serve_cfg or ServeConfig()
+
+    def generate(self, prompts: list[np.ndarray]) -> list[np.ndarray]:
+        """Greedy-decode a list of int32 prompt arrays. Returns generated ids."""
+        out: list[np.ndarray] = []
+        for i in range(0, len(prompts), self.scfg.max_batch):
+            out.extend(self._generate_batch(prompts[i:i + self.scfg.max_batch]))
+        return out
+
+    def _generate_batch(self, prompts: list[np.ndarray]) -> list[np.ndarray]:
+        b = len(prompts)
+        plen = max(len(p) for p in prompts)
+        s_max = plen + self.scfg.max_new_tokens
+        tokens = np.full((b, plen), self.scfg.pad_id, np.int32)
+        for i, p in enumerate(prompts):
+            tokens[i, plen - len(p):] = p  # left-pad → aligned last positions
+        dev = self.model.device
+        logits, cache = prefill(self.model, self.cfg, torch.from_numpy(tokens).to(dev), s_max,
+                                chunk_q=min(512, plen))
+        tok = logits.argmax(-1, keepdim=True)
+        gen = [tok]
+        for step in range(self.scfg.max_new_tokens - 1):
+            logits, cache = decode_step(self.model, self.cfg, cache, tok, plen + step)
+            tok = logits.argmax(-1, keepdim=True)
+            gen.append(tok)
+        stacked = torch.cat(gen, dim=1).to(torch.int32).cpu().numpy()
+        return [stacked[i] for i in range(b)]
 
 
 @dataclasses.dataclass

@@ -175,6 +175,11 @@ def test_import_repro_torch_pulls_in_neither_jax_nor_repro():
         "import repro_torch.core, repro_torch.kernels, repro_torch.graphs.datasets\n"
         "import repro_torch.kernels.triangle_count, repro_torch.kernels.bitset_count\n"
         "import repro_torch.core.streaming, repro_torch.kernels._build\n"
+        "import repro_torch.configs, repro_torch.models.layers\n"
+        "import repro_torch.models.chunked_attention, repro_torch.models.attention\n"
+        "import repro_torch.models.transformer, repro_torch.models.recsys.embedding\n"
+        "import repro_torch.models.recsys.autoint, repro_torch.models.gnn.common\n"
+        "import repro_torch.kernels.flash_attention, repro_torch.kernels.embedding_bag\n"
         "from repro_torch.api import SessionCheckpoint, StreamSession, TriangleCounter\n"
         "from repro_torch.kernels.bitset_count import bitset_pair_count\n"
         "import numpy as np, tempfile, os\n"
@@ -186,6 +191,23 @@ def test_import_repro_torch_pulls_in_neither_jax_nor_repro():
         "ck = SessionCheckpoint.from_file(ck.path)\n"
         "assert c.restore_stream(ck).finalize().item() == 2\n"
         "assert c.count_stream(4, [e]).item() == 2\n"
+        "import torch\n"
+        "from repro_torch.configs import get_config, get_smoke\n"
+        "from repro_torch.models import transformer as tf\n"
+        "from repro_torch.models.recsys import autoint, embedding\n"
+        "from repro_torch.serve import LMServer, ServeConfig\n"
+        "cfg = get_smoke('yi_6b')\n"
+        "m = tf.init_params(torch.Generator().manual_seed(0), cfg, device='cpu')\n"
+        "out = LMServer(m, cfg, ServeConfig(max_batch=2, max_new_tokens=3)).generate(\n"
+        "    [np.arange(1, 5, dtype=np.int32), np.arange(2, 9, dtype=np.int32)])\n"
+        "assert [o.shape for o in out] == [(3,), (3,)]\n"
+        "tf.prefill(m, cfg, torch.ones(1, 4, dtype=torch.long), 6, use_flash=True)\n"
+        "rc = get_smoke('autoint')\n"
+        "a = autoint.init_params(torch.Generator().manual_seed(0), rc, device='cpu')\n"
+        "assert autoint.ctr_logits(a, rc, torch.zeros(2, 39, dtype=torch.long)).shape == (2,)\n"
+        "bags = torch.full((2, 39, 3), 64)\n"
+        "assert not embedding.lookup_multihot(a.table, rc, bags, use_kernel=True).any()\n"
+        "assert get_config('yi_6b').n_layers == 32\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

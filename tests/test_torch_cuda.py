@@ -37,6 +37,10 @@ from repro_torch.kernels.bitset_count.ref import (  # noqa: E402
     bitset_edge_count_ref,
     bitset_pair_count_ref,
 )
+from repro_torch.kernels.embedding_bag.ops import embedding_bag  # noqa: E402
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.triangle_count.ops import (  # noqa: E402
     masked_matmul_sum,
     triangle_count,
@@ -145,6 +149,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     tall = torch.zeros(64 * 65535 + 1, 1, dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError, match="rows exceed"):
         masked_matmul_sum(tall, tall[:1], tall)
+    h = torch.zeros(1, 2, 3, 8, dtype=torch.float16, device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention(h, h, h)
+    wide = torch.zeros(1, 2, 3, 264, device=cuda)
+    with pytest.raises(ValueError, match="head dims up to 256"):
+        flash_attention(wide, wide, wide)
+    with pytest.raises(TypeError):
+        embedding_bag(torch.zeros(4, 2, device=cuda), torch.zeros(2, 2, dtype=torch.int64,
+                                                                   device=cuda))
+    with pytest.raises(TypeError):
+        embedding_bag(torch.zeros(4, 2, dtype=torch.float16, device=cuda),
+                      torch.zeros(2, 2, dtype=torch.int32, device=cuda))
 
 
 @pytest.mark.parametrize("method", ["dense", "ring", "bitset_ring", "sparse", "mapreduce"])
@@ -268,3 +284,118 @@ def test_stream_ingest_never_waits_for_the_card(cuda):
         torch.cuda.set_sync_debug_mode("default")
     cpu = streaming.count_stream(5000, [edges], block_size=8192, device="cpu")
     assert int(unbounded["count"]) == cpu
+
+
+# --------------------------------------------------------------------------
+# K6 and K7, and the LM and recsys paths on the card
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,d", [(4, 4, 16), (8, 2, 64), (32, 4, 128), (4, 1, 200)])
+@pytest.mark.parametrize("s", [1, 127, 200])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_equals_plain(cuda, dtype, hq, hkv, d, s, causal):
+    """Tolerances of the reference's kernel test: 2e-5 (f32), 3e-2 (bf16)."""
+    g = torch.Generator(device=cuda).manual_seed(hq * s + d)
+    q = torch.randn(2, hq, s, d, generator=g, device=cuda).to(dtype)
+    k = torch.randn(2, hkv, s, d, generator=g, device=cuda).to(dtype)
+    v = torch.randn(2, hkv, s, d, generator=g, device=cuda).to(dtype)
+    before = launch_counts()["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal)
+    assert launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = attention_ref(q, k, v, causal=causal)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_kernel_reads_head_views_in_place(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(2, 300, 8 * 64, generator=g, device=cuda)
+    y = torch.randn(2, 300, 2 * 64, generator=g, device=cuda)
+    q = x.reshape(2, 300, 8, 64).transpose(1, 2)   # (B, H, S, hd) views
+    kv = y.reshape(2, 300, 2, 64).transpose(1, 2)
+    got = flash_attention(q, kv, kv)
+    assert got.stride() == q.stride()  # out has q's layout
+    torch.testing.assert_close(got, attention_ref(q, kv, kv), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v,d,n,l", [(64, 16, 8, 4), (256, 128, 4, 10), (1000, 32, 16, 3),
+                                     (100, 13, 7, 5), (5000, 16, 20_000, 8), (50, 16, 3, 0)])
+def test_embedding_bag_kernel_equals_plain(cuda, dtype, v, d, n, l):
+    g = torch.Generator().manual_seed(v + n)
+    table = torch.randn(v, d, generator=g).to(dtype).to(cuda)
+    ids = torch.randint(0, v, (n, l), generator=g, dtype=torch.int32)
+    ids[torch.rand(n, l, generator=g) < 0.3] = v
+    if l:
+        ids[0] = v                       # an all-padding bag
+        ids[1, 0], ids[2, -1] = v - 1, -3  # the last row; a negative id pads
+    ids = ids.to(cuda)
+    before = launch_counts()["embedding_bag"]
+    got = embedding_bag(table, ids)
+    assert launch_counts()["embedding_bag"] == before + 1
+    assert got.dtype == dtype and got.shape == (n, d)
+    tol = 1e-6 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), embedding_bag_ref(table, ids).float(),
+                               rtol=tol, atol=tol)
+    if l:
+        assert not got[0].any()
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "nemotron_4_15b"])
+def test_lm_flash_prefill_launches_k6_per_layer_and_matches_the_cpu_port(cuda, arch):
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as tf
+
+    cfg = get_smoke(arch)
+    model = tf.init_params(torch.Generator(device=cuda).manual_seed(0), cfg, device=cuda)
+    host = tf.Transformer(cfg, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 37)))
+    before = launch_counts()["flash_attention"]
+    got, cache = tf.prefill(model, cfg, toks.to(cuda), 40, use_flash=True)
+    assert launch_counts()["flash_attention"] == before + cfg.n_layers
+    want, host_cache = tf.prefill(host, cfg, toks, 40, use_flash=True)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(cache["dense"]["k"].cpu(), host_cache["dense"]["k"],
+                               rtol=2e-4, atol=2e-4)
+    chunked, _ = tf.prefill(model, cfg, toks.to(cuda), 40, chunk_q=16)
+    torch.testing.assert_close(got, chunked, rtol=2e-4, atol=2e-4)
+    nxt = got.argmax(-1, keepdim=True)
+    step, _ = tf.decode_step(model, cfg, cache, nxt, 37)
+    host_step, _ = tf.decode_step(host, cfg, host_cache, nxt.cpu(), 37)
+    torch.testing.assert_close(step.cpu(), host_step, rtol=2e-4, atol=2e-4)
+
+
+def test_lm_server_on_the_card(cuda):
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import LMServer, ServeConfig
+
+    cfg = get_smoke("granite_8b")
+    model = tf.init_params(torch.Generator(device=cuda).manual_seed(1), cfg, device=cuda)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32) for n in (5, 9, 7)]
+    out = LMServer(model, cfg, ServeConfig(max_batch=2, max_new_tokens=4)).generate(prompts)
+    assert [o.shape for o in out] == [(4,)] * 3
+    assert all(o.dtype == np.int32 and ((o >= 0) & (o < cfg.vocab)).all() for o in out)
+
+
+def test_recsys_on_the_card_launches_k7_and_matches_the_cpu_port(cuda):
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.recsys import autoint, embedding
+
+    cfg = get_smoke("autoint")
+    model = autoint.init_params(torch.Generator(device=cuda).manual_seed(2), cfg, device=cuda)
+    host = autoint.AutoInt(cfg, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    rng = np.random.default_rng(2)
+    bags = torch.from_numpy(rng.integers(0, cfg.vocab_per_field + 20, (6, cfg.n_sparse, 5)))
+    before = launch_counts()["embedding_bag"]
+    got = embedding.lookup_multihot(model.table, cfg, bags.to(cuda), use_kernel=True)
+    assert launch_counts()["embedding_bag"] == before + 1
+    torch.testing.assert_close(got.cpu(), embedding.lookup_multihot(host.table, cfg, bags),
+                               rtol=1e-6, atol=1e-6)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_per_field, (6, cfg.n_sparse)))
+    torch.testing.assert_close(autoint.ctr_logits(model, cfg, ids.to(cuda)).cpu(),
+                               autoint.ctr_logits(host, cfg, ids), rtol=1e-5, atol=1e-5)

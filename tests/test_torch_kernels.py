@@ -21,6 +21,10 @@ from repro.graphs.formats import forward_adjacency_dense  # noqa: E402
 from repro.kernels.bitset_count.ops import bitset_edge_count as ref_bitset  # noqa: E402
 from repro.kernels.bitset_count.ops import bitset_pair_count as ref_pair  # noqa: E402
 from repro.kernels.bitset_count.ref import bitset_pair_count_ref as ref_pair_oracle  # noqa: E402
+from repro.kernels.embedding_bag.ops import embedding_bag as ref_bag  # noqa: E402
+from repro.kernels.embedding_bag.ref import embedding_bag_ref as ref_bag_oracle  # noqa: E402
+from repro.kernels.flash_attention.ops import flash_attention as ref_flash  # noqa: E402
+from repro.kernels.flash_attention.ref import attention_ref as ref_attention  # noqa: E402
 from repro.kernels.triangle_count.ops import masked_matmul_sum as ref_mms  # noqa: E402
 from repro.kernels.triangle_count.ops import triangle_count as ref_tc  # noqa: E402
 from repro_torch.kernels import _build, launch_counts  # noqa: E402
@@ -33,6 +37,10 @@ from repro_torch.kernels.bitset_count.ref import (  # noqa: E402
     bitset_pair_count_ref,
     popcount32,
 )
+from repro_torch.kernels.embedding_bag.ops import embedding_bag  # noqa: E402
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.triangle_count.ops import (  # noqa: E402
     live_grid_size,
     masked_matmul_sum,
@@ -206,6 +214,117 @@ def test_bitset_pair_count_rejects_bad_shapes():
 
 
 # --------------------------------------------------------------------------
+# K6: causal GQA flash attention (float tolerances of the reference's own
+# kernel test, tests/test_kernel_flash_attention.py)
+# --------------------------------------------------------------------------
+def _qkv(b, hq, hkv, s, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, hq, s, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, s, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, s, d)).astype(np.float32))
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (8, 1)])
+@pytest.mark.parametrize("s", [128, 256, 200])
+def test_flash_attention_matches_reference_kernel_f32(hq, hkv, s):
+    q, k, v = _qkv(2, hq, hkv, s, 64, hq * s)
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    want = ref_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=128,
+                     block_k=128, interpret=True)
+    _close(got, want, 2e-5)
+    _close(attention_ref(*(torch.from_numpy(x) for x in (q, k, v))),
+           ref_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)), 2e-5)
+
+
+def test_flash_attention_matches_reference_kernel_bf16():
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkv(1, 4, 2, 256, 64, 3))
+    got = flash_attention(q, k, v)
+    assert got.dtype == torch.bfloat16
+    jq, jk, jv = (jnp.asarray(x.float().numpy()).astype(jnp.bfloat16) for x in (q, k, v))
+    want = ref_flash(jq, jk, jv, interpret=True)
+    _close(got.float(), want.astype(jnp.float32), 3e-2)
+
+
+@pytest.mark.parametrize("s", [1, 77, 200])
+def test_flash_attention_takes_full_attention_at_a_ragged_length(s):
+    """Deliberate difference: the reference wrapper refuses causal=False
+    when S needs padding; the port pads nothing and takes it at any S."""
+    q, k, v = _qkv(2, 4, 2, s, 32, s)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    if s % 128:
+        with pytest.raises(ValueError, match="non-causal padding"):
+            ref_flash(jq, jk, jv, causal=False, interpret=True)
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                          causal=False)
+    _close(got, ref_attention(jq, jk, jv, causal=False), 2e-5)
+
+
+def test_flash_attention_reads_head_views_and_rejects_bad_shapes():
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 9, 4 * 16)).astype(
+        np.float32))
+    q = x.reshape(2, 9, 4, 16).transpose(1, 2)  # the layout _split_heads gives
+    kv = x[..., :32].reshape(2, 9, 2, 16).transpose(1, 2)
+    _close(flash_attention(q, kv, kv), attention_ref(q.contiguous(), kv.contiguous(),
+                                                     kv.contiguous()), 1e-6)
+    z = torch.zeros(1, 3, 4, 8)
+    for bad in ((z, torch.zeros(1, 2, 4, 8), torch.zeros(1, 2, 4, 8)),  # 3 % 2
+                (z, torch.zeros(1, 3, 5, 8), torch.zeros(1, 3, 5, 8)),  # S differs
+                (z, z, torch.zeros(1, 3, 4, 9)),                        # v differs
+                (z[0], z[0], z[0])):                                    # not 4-D
+        with pytest.raises(ValueError):
+            flash_attention(*bad)
+
+
+# --------------------------------------------------------------------------
+# K7: sum-mode EmbeddingBag (tolerances of tests/test_kernel_embedding_bag.py)
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("v,d,b,l", [(64, 16, 8, 4), (256, 128, 4, 10), (1000, 32, 16, 3)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_embedding_bag_matches_reference_kernel(v, d, b, l, dtype):
+    rng = np.random.default_rng(v + b)
+    table = rng.standard_normal((v, d)).astype(np.float32)
+    idx = rng.integers(0, v, (b, l)).astype(np.int32)
+    idx[rng.random((b, l)) < 0.3] = v          # sentinel padding
+    idx[0, 0], idx[-1, -1] = v - 1, v + 9      # the last row; any id >= V pads
+    jt = jnp.asarray(table).astype(getattr(jnp, dtype))
+    tt = torch.from_numpy(table).to(getattr(torch, dtype))
+    got = embedding_bag(tt, torch.from_numpy(idx))
+    assert got.dtype == tt.dtype and got.shape == (b, d)
+    want = ref_bag(jt, jnp.asarray(idx), interpret=True)
+    tol = 1e-6 if dtype == "float32" else 3e-2
+    _close(got.float(), want.astype(jnp.float32), tol)
+    _close(embedding_bag_ref(tt, torch.from_numpy(idx)).float(),
+           ref_bag_oracle(jt, jnp.asarray(idx)).astype(jnp.float32), tol)
+
+
+def test_embedding_bag_all_padding_is_zero():
+    idx = np.full((4, 5), 16, np.int32)
+    got = embedding_bag(torch.ones(16, 8), torch.from_numpy(idx))
+    want = ref_bag(jnp.ones((16, 8), jnp.float32), jnp.asarray(idx), interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert not got.any()
+
+
+def test_embedding_bag_counts_negative_ids_as_padding():
+    table = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+    got = embedding_bag(table, torch.tensor([[0, -1, 2], [-4, 5, 3]], dtype=torch.int32))
+    assert got.tolist() == [[6.0, 8.0, 10.0], [9.0, 10.0, 11.0]]
+
+
+def test_embedding_bag_rejects_bad_shapes():
+    with pytest.raises(ValueError):
+        embedding_bag(torch.zeros(4), torch.zeros(2, 2, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        embedding_bag(torch.zeros(4, 2), torch.zeros(2, dtype=torch.int32))
+
+
+# --------------------------------------------------------------------------
 # Wrappers on the CPU, and the build/bind layer
 # --------------------------------------------------------------------------
 def test_cpu_tensors_run_the_plain_versions_and_launch_nothing():
@@ -216,11 +335,14 @@ def test_cpu_tensors_run_the_plain_versions_and_launch_nothing():
     bitset_edge_count(torch.zeros(8, 1, dtype=torch.int32), torch.zeros(4, 2, dtype=torch.int32))
     bitset_pair_count(torch.zeros(8, 1, dtype=torch.int32), torch.zeros(8, 1, dtype=torch.int32),
                       torch.zeros(4, 2, dtype=torch.int32))
+    flash_attention(torch.zeros(1, 2, 3, 4), torch.zeros(1, 1, 3, 4), torch.zeros(1, 1, 3, 4))
+    embedding_bag(torch.zeros(5, 2), torch.zeros(3, 2, dtype=torch.int32))
     assert launch_counts() == before
 
 
 def test_kernel_sources_are_found():
-    assert set(_build.sources()) == {"triangle_count", "bitset_count"}
+    assert set(_build.sources()) == {"triangle_count", "bitset_count", "flash_attention",
+                                     "embedding_bag"}
     for name in _build.sources():
         path = _build.library_path(name)
         assert path.parent == _build.BUILD_DIR and path.name.startswith(name + "-")
@@ -279,3 +401,13 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
     with pytest.raises(ValueError):  # tables and edges on different devices
         bitset_pair_count(torch.zeros(4, 1, dtype=torch.int32), m,
                           torch.zeros(2, 2, dtype=torch.int32))
+    q = torch.zeros(1, 2, 3, 4, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="CPU or CUDA"):  # q on the CPU, k and v not
+        flash_attention(torch.zeros(1, 2, 3, 4), q, q)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        embedding_bag(torch.zeros(4, 2, device="meta"),
+                      torch.zeros(2, 2, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        embedding_bag(torch.zeros(4, 2), torch.zeros(2, 2, dtype=torch.int32, device="meta"))

@@ -404,7 +404,7 @@ def test_hybrid_plans_are_refused_until_the_hybrid_state_is_ported():
     c = _counter()
     hyb = Plan(method="stream", state_layout="hybrid", hub_slots=4, tail_capacity=8,
                hub_threshold=4)
-    todo = "hybrid stream state .* not ported yet .ROADMAP.md queue A, item 1"
+    todo = "hybrid stream state .* not ported yet .ROADMAP.md queue A, item 2"
     with pytest.raises(RuntimeError, match=todo):
         c.open_stream(100, plan=hyb)
     with pytest.raises(RuntimeError, match=todo):
