@@ -12,7 +12,8 @@
    tolerances, at Yi-6B's and AutoInt's full widths among others. Float32
    products run in true float32 (TF32 off, asserted). Times each kernel, its plain
    version and, where one exists, a single PyTorch call computing the same
-   function (``library_ms``; the port never calls it).
+   function (``library_ms``; the port never calls it). The per-edge closure
+   (K5) is timed beside K3 at K3's shape and at the hybrid stream's.
 2. Serves the Table-1 graphs at full scale (DSJC.1/.5/.9, FB107, FNA.5, NY),
    the FB107 family scaled to n = 17,199, and 16 small graphs through
    ``TriangleServer(device="cuda").serve``.
@@ -30,7 +31,18 @@
    checkpointed halfway (unbounded, and windowed mid-epoch), spilled to
    ``.npz``, restored on a fresh counter and finished, bit-identical to an
    uninterrupted session.
-5. [lm] Yi-6B at full width and depth (32 layers, d_model 4,096, 32/4
+5. [hybrid] The degree-aware hybrid stream state: YT, a Chung-Lu power-law
+   stream (alpha 0.85, seed 0) with SNAP com-Youtube's n = 1,134,890 and
+   m = 2,987,624 edge draws, through ``count_stream`` with the planner's own
+   (hybrid) plan — its n²/8 bitset would be 161 GB — equal to the host
+   oracle, ``state_bytes`` equal to ``predicted_bytes``, one K5, two K4 and
+   one K3 launch per block; FNA.5 (every vertex a hub, 1.49e10 triangles)
+   and FB107x9 (hub slots for exactly the vertices that reach the tail
+   capacity) under hand-built hybrid plans, equal to the dense stream and
+   the resident count; a hybrid FB107x9 session checkpointed halfway,
+   spilled, restored and finished; and a plan with too few hub slots,
+   which must raise at ``finalize``.
+6. [lm] Yi-6B at full width and depth (32 layers, d_model 4,096, 32/4
    heads, d_ff 11,008, vocab 64,000; f32 weights drawn on the card from a
    seeded generator): ``LMServer.generate`` on 8 seeded prompts of 256 to
    1,024 tokens, 4 to a batch, 32 new tokens each; the same batches through
@@ -39,17 +51,17 @@
    prefill within 1e-3 of the largest logit; and ``prefill`` of a prompt
    less its last token plus one ``decode_step`` against ``forward`` of the
    whole prompt. The Yi-6B smoke config on the card against the CPU port.
-6. [recsys] AutoInt at its full config (3.9M-row table): ``ctr_logits`` and
+7. [recsys] AutoInt at its full config (3.9M-row table): ``ctr_logits`` and
    ``retrieval_scores`` (100,000 candidates) on 16,384 seeded rows, and
    ``lookup_multihot(use_kernel=True)`` (K7) on 16,384 × 39 bags of 8 ids
    against ``use_kernel=False``; the smoke config on the card against the
    CPU port.
-7. Profiles one planner-chosen count of FNA.5 and of NY, one planner-chosen
-   ``count_stream`` of NY, and one Yi-6B flash prefill plus 32 decode steps,
-   with ``torch.profiler``: host wall, device busy time, the device's idle
-   share.
+8. Profiles one planner-chosen count of FNA.5 and of NY, one planner-chosen
+   ``count_stream`` of NY and of YT, and one Yi-6B flash prefill plus 32
+   decode steps, with ``torch.profiler``: host wall, device busy time, the
+   device's idle share.
 
-Phases 2 to 6 are the main path: every kernel's launch count is set to 0
+Phases 2 to 7 are the main path: every kernel's launch count is set to 0
 before them and must be above 0 after them. Any mismatch or exception exits
 non-zero. The last three lines are the ``kernels`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Imports nothing
@@ -95,6 +107,9 @@ YI_ATTN = dict(b=1, hq=32, hkv=4, s=8192, d=128)
 # that plus one bf16 ulp of the output (7 stored mantissa bits), elementwise.
 F32_LONG_TOL = 1e-4
 BF16_ULP = 2.0**-7
+# YT: SNAP com-Youtube's size (n nodes, m edge draws), the edges drawn by a
+# Chung-Lu power law (the reference's tests/test_hybrid_stream.py generator)
+YT = dict(n=1_134_890, m=2_987_624, alpha=0.85, seed=0)
 # Issue rates outside the tensor cores, per SM per clock, for compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
 # throughput): 32-bit integer add and bitwise logic 64, population count 16.
@@ -328,6 +343,8 @@ def check_kernels(graphs: dict) -> dict:
         plain_ms=time_ms(lambda: bitset_edge_count_ref(m0, e1), reps=2),
         library_ms=None,
         bound=(max(2 * words / int_rate, words / popc_rate), nbytes / PEAK_BYTES))
+    rows["bitset_edge_count_per_edge"] = check_per_edge(gen, agree, m0, e1, rows,
+                                                        int_rate, popc_rate)
     del masks, edges, m0, e1
 
     # ---- K4: bitset pair count (two tables) ----
@@ -369,6 +386,76 @@ def check_kernels(graphs: dict) -> dict:
     rows["flash_attention"] = check_attention(gen)
     rows["embedding_bag"] = check_embedding_bag(gen)
     return rows
+
+
+def check_per_edge(gen, agree, m_k3, e_k3, rows: dict, int_rate: float,
+                   popc_rate: float) -> dict:
+    """K5 against its plain version as exact integers: ragged B, phantom u
+    and real u with phantom v; K3's timed operands; and the hybrid stream's
+    shape at YT, a (2B, W) = (16,384 × 35,466) table closed over edges
+    (e, B + e), one in ten dead (the phantom id 2B). Timed beside K3 at both
+    timed shapes; bound by bytes: both W-word rows of every real edge and
+    the edges at the memory rate."""
+    import torch
+
+    from repro_torch.kernels.bitset_count.ops import (
+        bitset_edge_count,
+        bitset_edge_count_per_edge,
+    )
+    from repro_torch.kernels.bitset_count.ref import bitset_edge_count_per_edge_ref
+
+    def bound(masks, e):
+        w = masks.shape[1]
+        real = int((e[:, 0] < masks.shape[0]).sum())
+        words = real * w
+        return real, (max(2 * words / int_rate, words / popc_rate),
+                      (e.numel() * 4 + real * 2 * w * 4 + 8) / PEAK_BYTES)
+
+    err = 0
+    for (npad, w, nb) in ((64, 2, 31), (96, 1, 16), (1000, 100, 5001), (700, 257, 20_000)):
+        masks = torch.randint(-2**31, 2**31 - 1, (npad, w), generator=gen,
+                              dtype=torch.int64).to(torch.int32).to(DEVICE)
+        e = torch.randint(0, npad, (nb, 2), generator=gen, dtype=torch.int32)
+        e[torch.rand(nb, generator=gen) < 0.2, 0] = npad + 3  # phantom edges
+        e[torch.rand(nb, generator=gen) < 0.1, 1] = npad      # real u, phantom v
+        e[0] = torch.tensor([1, npad])
+        e = e.to(DEVICE)
+        err = max(err, agree("bitset_edge_count_per_edge", (npad, w, nb),
+                             bitset_edge_count_per_edge(masks, e),
+                             bitset_edge_count_per_edge_ref(masks, e)))
+    err = max(err, agree("bitset_edge_count_per_edge", ("K3's",) + tuple(m_k3.shape)
+                         + tuple(e_k3.shape), bitset_edge_count_per_edge(m_k3, e_k3),
+                         bitset_edge_count_per_edge_ref(m_k3, e_k3)))
+    real, (ops_s, bytes_s) = bound(m_k3, e_k3)
+    at_k3 = dict(shape=list(m_k3.shape) + list(e_k3.shape), real_edges=real,
+                 ms=time_ms(lambda: bitset_edge_count_per_edge(m_k3, e_k3), reps=5),
+                 k3_ms=rows["bitset_edge_count"]["ms"], bound_ms=max(ops_s, bytes_s) * 1e3)
+    b, w = 8192, -(-YT["n"] // 32)
+    table = torch.randint(-2**31, 2**31 - 1, (2 * b, w), generator=torch.Generator(
+        device=DEVICE).manual_seed(5), dtype=torch.int32, device=DEVICE)
+    ar = torch.arange(b, dtype=torch.int32)
+    dead = torch.rand(b, generator=gen) < 0.1
+    e = torch.where(dead[:, None], 2 * b, torch.stack([ar, ar + b], 1)).to(torch.int32)
+    e = e.to(DEVICE)
+    err = max(err, agree("bitset_edge_count_per_edge", ("YT", 2 * b, w, b),
+                         bitset_edge_count_per_edge(table, e),
+                         bitset_edge_count_per_edge_ref(table, e)))
+    agree("  (K3, same operands)", ("YT", 2 * b, w, b), bitset_edge_count(table, e),
+          bitset_edge_count_per_edge_ref(table, e))
+    real, bnd = bound(table, e)
+    log(f"  bitset_edge_count_per_edge bound inputs: {real} real edges of {b}, W={w}; at "
+        f"K3's shape {at_k3['real_edges']} real edges, W={m_k3.shape[1]}")
+    row = dict(shape=[2 * b, w, b], max_abs_err=err, library_ms=None, bound=bnd,
+               ms=time_ms(lambda: bitset_edge_count_per_edge(table, e), reps=10),
+               k3_ms=time_ms(lambda: bitset_edge_count(table, e), reps=10),
+               plain_ms=time_ms(lambda: bitset_edge_count_per_edge_ref(table, e), reps=2),
+               at_k3_shape=at_k3)
+    log(f"  bitset_edge_count_per_edge: YT shape {row['ms']:.4f} ms (K3 {row['k3_ms']:.4f} "
+        f"ms, bound {max(bnd) * 1e3:.4f} ms); K3's shape {at_k3['ms']:.4f} ms (K3 "
+        f"{at_k3['k3_ms']:.4f} ms, bound {at_k3['bound_ms']:.4f} ms)")
+    del table
+    torch.cuda.empty_cache()
+    return row
 
 
 def close(got, want, tol: float) -> tuple[float, bool]:
@@ -773,7 +860,170 @@ def stream_phase(graphs: dict) -> list:
 
 
 # --------------------------------------------------------------------------
-# Phases 5 and 6: the LM and the recsys paths (main path too)
+# Phase 5: the degree-aware hybrid stream state (main path too)
+# --------------------------------------------------------------------------
+def yt_stream():
+    """(raw edge draws, simple graph) of YT: ``m`` Chung-Lu draws of both
+    endpoints from weights i^-alpha over n nodes, seeded; the draws keep
+    their duplicates and self-loops (the stream drops them), the graph is
+    their canonical simple edge set (what the host oracle counts)."""
+    import numpy as np
+
+    from repro_torch.graphs.formats import canonical_edges
+
+    n, m = YT["n"], YT["m"]
+    rng = np.random.default_rng(YT["seed"])
+    w = np.arange(1, n + 1, dtype=np.float64) ** -YT["alpha"]
+    w /= w.sum()
+    e = np.stack([rng.choice(n, m, p=w), rng.choice(n, m, p=w)], 1).astype(np.int32)
+    return e, canonical_edges(e, n)
+
+
+def hybrid_plan(n: int, hubs: int, cap: int, block: int = 8192):
+    from repro_torch.api import Plan, Resources, backend_exec_flags
+    from repro_torch.core.streaming import hybrid_state_nbytes
+
+    return Plan(method="stream", block_size=block, state_layout="hybrid", hub_slots=hubs,
+                tail_capacity=cap, hub_threshold=cap,
+                predicted_bytes=hybrid_state_nbytes(n, hubs, cap),
+                **backend_exec_flags(Resources.detect(DEVICE)),
+                reason="hand-built hybrid plan (chip_smoke.py)")
+
+
+def check_hybrid_launches(label: str, k0: dict, k1: dict, blocks: int) -> None:
+    """A hybrid stream launches K5 once (``pre``), K4 twice (``mixed``) and
+    K3 once (``dd``) per block."""
+    for name, per in (("bitset_edge_count_per_edge", 1), ("bitset_pair_count", 2),
+                      ("bitset_edge_count", 1)):
+        got = k1[name] - k0[name]
+        if got != per * blocks:
+            raise AssertionError(f"{label}: {name} launched {got} times, not "
+                                 f"{per} x {blocks} blocks")
+
+
+def hybrid_phase(graphs: dict, stream_table: list) -> list:
+    """The hybrid stream state, as the module docstring says. Returns the
+    table rows; leaves YT's blocks and count in ``graphs`` for the profile."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import GraphStats, Resources, SessionCheckpoint, TriangleCounter, plan
+    from repro_torch.core import streaming
+    from repro_torch.kernels import launch_counts
+
+    counter = TriangleCounter(device=DEVICE)
+    res = Resources.detect(DEVICE)
+    table = []
+    t0 = time.perf_counter()
+    raw, g = yt_stream()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = host_count(g)
+    log(f"  YT: n={g.n_nodes} draws={len(raw)} simple edges={g.n_edges} triangles={want} "
+        f"(drawn in {gen_s:.1f} s, host oracle {time.perf_counter() - t0:.1f} s)")
+    sparse = plan(GraphStats.from_graph(g), res, allow={"sparse"})
+    if sparse.predicted_bytes <= res.memory_bytes:
+        resident = counter.count(g, plan=sparse).item()
+        if resident != want:
+            raise AssertionError(f"YT: resident sparse count {resident} != host {want}")
+        log(f"  YT resident sparse count on the card: {resident}")
+    else:
+        log(f"  YT resident sparse count: does not fit ({sparse.predicted_bytes} B predicted "
+            f"of {res.memory_bytes} B); the host oracle is the reference")
+    rng = np.random.default_rng(14)
+    blocks = ragged(raw, rng, 50_000)
+    graphs["_yt"] = (g.n_nodes, blocks, want)
+    rows = [("YT", g.n_nodes, blocks, want, None, None)]
+    plans = {}
+    for name, hubs, cap in (("FNA.5", graphs["FNA.5"].n_nodes, 32), (LARGE_NAME, None, 32)):
+        gx = graphs[name]
+        if hubs is None:  # exactly the vertices whose degree reaches the tail capacity
+            hubs = int((np.bincount(gx.edges.ravel(), minlength=gx.n_nodes) >= cap).sum())
+        dense = next(r["count"] for r in stream_table if r["graph"] == name)
+        if dense != graphs["_served"][name]:
+            raise AssertionError(f"{name}: dense stream {dense} != resident")
+        plans[name] = hybrid_plan(gx.n_nodes, hubs, cap)
+        rows.append((name, gx.n_nodes, ragged(gx.edges[rng.permutation(gx.n_edges)], rng,
+                                              20_000), dense, plans[name], hubs))
+    for name, n, feeds, want_n, p, hubs in rows:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k0 = launch_counts()
+        t0 = time.perf_counter()
+        r = counter.count_stream(n, feeds, plan=p)
+        c = r.item()
+        wall = time.perf_counter() - t0
+        k1 = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if r.plan.state_layout != "hybrid":
+            raise AssertionError(f"{name}: the stream ran state_layout="
+                                 f"{r.plan.state_layout!r}, not hybrid")
+        if c != want_n or (name != "YT" and c != graphs["_served"][name]):
+            raise AssertionError(f"{name}: hybrid stream {c} != {want_n}")
+        if r.stats["state_bytes"] != r.plan.predicted_bytes:
+            raise AssertionError(f"{name}: state bytes {r.stats['state_bytes']} != planned")
+        nb = r.stats["n_blocks"]
+        check_hybrid_launches(f"{name} hybrid count_stream", k0, k1, nb)
+        used = r.stats["hubs_used"]
+        if hubs is not None and used != hubs:  # every slot taken by the end
+            raise AssertionError(f"{name}: {used} of {hubs} hub slots used")
+        row = dict(graph=name, n=n, feeds=len(feeds), blocks=nb,
+                   block_size=r.stats["block_size"], hub_slots=r.plan.hub_slots,
+                   tail_capacity=r.plan.tail_capacity, hubs_used=used, wall_ms=wall * 1e3,
+                   count=c, state_bytes=r.stats["state_bytes"], peak_bytes=peak,
+                   planner_chosen=p is None)
+        table.append(row)
+        log(f"  count_stream {name:8s} hybrid ({'planner' if p is None else 'hand-built'}: "
+            f"H={r.plan.hub_slots} C={r.plan.tail_capacity} B={r.plan.block_size}) "
+            f"{len(feeds)} ragged feeds -> {nb} blocks: count={c} wall={wall * 1e3:.3f} ms "
+            f"hubs used={used} lost=0 state={row['state_bytes']} B "
+            f"(predicted {r.plan.predicted_bytes} B) peak_allocated={peak} B")
+
+    # a hybrid session on FB107x9 checkpointed halfway, spilled, restored on a
+    # fresh counter and finished; the plan with too few hub slots raises
+    g = graphs[LARGE_NAME]
+    p = plans[LARGE_NAME]
+    e = g.edges[rng.permutation(g.n_edges)]
+    feeds = ragged(e, rng, 20_000)
+    cut = len(feeds) // 2
+    whole = counter.open_stream(g.n_nodes, plan=p)
+    kept = counter.open_stream(g.n_nodes, plan=p)
+    for b in feeds:
+        whole.feed(b)
+    for b in feeds[:cut]:
+        kept.feed(b)
+    ck = kept.checkpoint()
+    with tempfile.TemporaryDirectory() as tmp:
+        ck.spill(os.path.join(tmp, "hybrid.npz"))
+        rest = TriangleCounter(device=DEVICE).restore_stream(SessionCheckpoint.from_file(ck.path))
+    for b in feeds[cut:]:
+        kept.feed(b)
+        rest.feed(b)
+    a, b_, k = whole.finalize().item(), rest.finalize().item(), kept.finalize().item()
+    sa, sb = streaming.snapshot_state(kept.state), streaming.snapshot_state(rest.state)
+    same = sorted(sa) == sorted(sb) and all(
+        np.array_equal(sa[x], sb[x]) and sa[x].dtype == sb[x].dtype for x in sa)
+    if not (a == b_ == k == graphs["_served"][LARGE_NAME]) or not same:
+        raise AssertionError(f"hybrid session restored from a checkpoint: count {b_} vs "
+                             f"uninterrupted {a}, state arrays equal: {same}")
+    log(f"  checkpoint hybrid {LARGE_NAME}: cut after {cut} of {len(feeds)} feeds, "
+        f"{ck.nbytes} B snapshot, {ck.disk_bytes} B spilled; restored count {b_} = "
+        f"uninterrupted {a}; every state array equal to the session that kept going")
+    lossy = hybrid_plan(g.n_nodes, p.hub_slots // 2, p.tail_capacity)
+    s = counter.open_stream(g.n_nodes, plan=lossy)
+    for b in feeds:
+        s.feed(b)
+    try:
+        s.finalize()
+    except RuntimeError as err:
+        log(f"  lossy plan (H={lossy.hub_slots}): finalize raised: {err}")
+    else:
+        raise AssertionError("a hybrid session with too few hub slots finalized")
+    return table
+
+
+# --------------------------------------------------------------------------
+# Phases 6 and 7: the LM and the recsys paths (main path too)
 # --------------------------------------------------------------------------
 def logits_agree(label: str, got, want, rel: float = 1e-3) -> float:
     """max |got - want| <= rel * max |want|, both finite; returns the ratio."""
@@ -975,11 +1225,12 @@ def recsys_phase(arch: str = "autoint", rows: int = 16_384, n_cand: int = 100_00
 
 
 # --------------------------------------------------------------------------
-# Phase 7: where the time of one count goes (after the main path's counts)
+# Phase 8: where the time of one count goes (after the main path's counts)
 # --------------------------------------------------------------------------
 def profile_phase(graphs: dict) -> None:
     """One planner-chosen count of each of the two largest Table-1 graphs,
-    and one planner-chosen ``count_stream`` of NY, under ``torch.profiler``
+    and one planner-chosen ``count_stream`` of NY and of YT (the hybrid
+    state), under ``torch.profiler``
     after a warm-up run: host wall, device busy time (every kernel, copy
     and fill), the device's idle share of the wall, the peak of allocated
     device memory, and the host and device operations that take the most
@@ -999,6 +1250,9 @@ def profile_phase(graphs: dict) -> None:
     blocks = [e[i:i + 50_000] for i in range(0, len(e), 50_000)]
     profile_one("NY count_stream (planner-sized)",
                 lambda: counter.count_stream(g.n_nodes, blocks), graphs["_served"]["NY"])
+    n, blocks, want = graphs["_yt"]
+    profile_one("YT count_stream (planner-chosen hybrid)",
+                lambda: counter.count_stream(n, blocks), want)
 
 
 def profile_lm(lm: dict) -> dict:
@@ -1136,6 +1390,12 @@ def main() -> int:
     table = stream_phase(graphs)
     log(f"[stream] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    log("[hybrid] the degree-aware hybrid stream state on the card: YT through the "
+        "planner's own plan, FNA.5 and FB107x9 through hand-built plans, a restored "
+        "session, a lossy plan")
+    hybrid_table = hybrid_phase(graphs, table)
+    log(f"[hybrid] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     log("[lm] Yi-6B at full width and depth: LMServer.generate, flash prefill + "
         "decode_step, forward")
     lm = lm_phase()
@@ -1152,7 +1412,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     t0 = time.perf_counter()
-    log("[profile] one planner-chosen count each, a NY count_stream, and a Yi-6B "
+    log("[profile] one planner-chosen count each, a NY and a YT count_stream, and a Yi-6B "
         "flash prefill + decode, torch.profiler (CPU + CUDA)")
     lm["summary"]["profile"] = profile_lm(lm)
     del lm["model"], lm["batch"]  # the counts' peaks below exclude the LM's weights
@@ -1172,6 +1432,8 @@ def main() -> int:
                 "masked_matmul_sum": "src/repro/kernels/triangle_count/triangle_count.py:79",
                 "bitset_edge_count": "src/repro/kernels/bitset_count/bitset_count.py:139",
                 "bitset_pair_count": "src/repro/kernels/bitset_count/bitset_count.py:110",
+                "bitset_edge_count_per_edge":
+                    "src/repro/kernels/bitset_count/bitset_count.py:86",
                 "flash_attention":
                     "src/repro/kernels/flash_attention/flash_attention.py:62",
                 "embedding_bag": "src/repro/kernels/embedding_bag/embedding_bag.py:32",
@@ -1186,9 +1448,11 @@ def main() -> int:
             "match": r.get("match", r["max_abs_err"] == 0),
             "kernel_ms": r["ms"], "shape": r["shape"],
             **({"bf16": r["bf16"]} if "bf16" in r else {}),
+            **({k: r[k] for k in ("k3_ms", "at_k3_shape") if k in r}),
         })
         log(f"  bound of {name}: operations {ops_ms:.6f} ms, bytes {bytes_ms:.6f} ms")
     log("[stream table] " + json.dumps(table))
+    log("[hybrid table] " + json.dumps(hybrid_table))
     log("[lm summary] " + json.dumps(lm["summary"]))
     log("[recsys summary] " + json.dumps(recsys))
     log(f"[done] {time.perf_counter() - t_all:.1f} s")

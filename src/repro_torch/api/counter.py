@@ -21,14 +21,15 @@ contradicts the device is refused with a ``ValueError``.
 
 Streams run through :class:`StreamSession` (``open_stream``,
 ``count_stream``, ``count_windowed``, ``restore_stream``): the two-phase
-bitset ingest of ``core.streaming``, whose state lives on the counter's
-device, and :class:`SessionCheckpoint`, whose arrays keep the reference's
-layout. A ``hybrid`` stream plan raises a ``RuntimeError``: the degree-aware
-hybrid state is a later item of the port (ROADMAP.md, queue A, item 2).
+bitset ingest of ``core.streaming`` — or, for a ``state_layout="hybrid"``
+plan, its degree-aware hybrid state (hub bitset rows + tail buffers, linear
+in n) — whose state lives on the counter's device, and
+:class:`SessionCheckpoint`, whose arrays keep the reference's layout.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -40,9 +41,6 @@ import torch
 from repro_torch.api.planner import GraphStats, Plan, Resources, backend_exec_flags
 from repro_torch.api.planner import plan as plan_fn
 from repro_torch.utils import resolve_device
-
-_HYBRID_TODO = ("the degree-aware hybrid stream state (state_layout='hybrid') is "
-                "not ported yet (ROADMAP.md queue A, item 2)")
 
 
 def bucket(x: int, minimum: int = 64) -> int:
@@ -92,7 +90,8 @@ class SessionCheckpoint:
 
     ``arrays`` has the reference's layout — ``{adj, count}`` unbounded,
     ``{epochs, counts, head}`` windowed, with the leading stage axis kept
-    for sharded states; bitsets uint32, ``head`` int32, counts int64 (the
+    for sharded states, ``{hub_adj, hub_ids, hub_slot, tail_nbr, deg,
+    count, lost}`` hybrid; bitsets uint32, ``head`` int32, counts int64 (the
     reference's int32 counts are widened on restore) — so checkpoints move
     between the two packages. ``nbytes`` is what the snapshot charges
     against a host budget; ``state_bytes`` the device footprint the session
@@ -389,8 +388,6 @@ class TriangleCounter:
         return session.finalize()
 
     def _check_stream_plan(self, p: Plan) -> None:
-        if p.state_layout == "hybrid":
-            raise RuntimeError(_HYBRID_TODO)
         self._check_plan(p)
 
     def _run_stream(self, g, p: Plan):
@@ -544,7 +541,8 @@ class StreamSession:
     The handle owns this stream's state on the counter's device — the
     adjacency-so-far bitset (n²/8 bytes; all S column shards when the plan
     is ring-sharded, emulated on this device; for a windowed plan a ring of
-    E epoch bitsets, E·n²/8) — plus a
+    E epoch bitsets, E·n²/8; for a hybrid plan hub rows and tail buffers,
+    ``core.streaming.hybrid_state_nbytes``) — plus a
     :class:`~repro_torch.core.streaming.BlockBuffer` that re-blocks ragged
     feeds to one fixed shape. Sessions are independent and interleavable
     from one driver thread; the handle itself is not thread-safe.
@@ -574,7 +572,10 @@ class StreamSession:
         self._key = (plan.cache_key(), ("stream", n_nodes, block_size, False))
         self._cache = counter._note(self._key)
         self.restored = False
-        if plan.window_epochs:
+        if plan.state_layout == "hybrid":
+            self._ingest = functools.partial(streaming.ingest_block_hybrid,
+                                             hub_threshold=plan.hub_threshold)
+        elif plan.window_epochs:
             self._ingest = (streaming.ingest_block_windowed_sharded if plan.n_stages > 1
                             else streaming.ingest_block_windowed)
         else:
@@ -584,6 +585,9 @@ class StreamSession:
             # restore path (TriangleCounter.restore_stream): adopt the
             # checkpointed arrays instead of allocating zeros
             self.state = state
+        elif plan.state_layout == "hybrid":
+            self.state = streaming.init_hybrid_state(
+                n_nodes, plan.hub_slots, plan.tail_capacity, device=dev)
         elif plan.window_epochs:
             self.state = (streaming.init_windowed_sharded_state(
                 n_nodes, plan.window_epochs, plan.n_stages, device=dev)
@@ -603,6 +607,11 @@ class StreamSession:
         self.result: CountResult | None = None
 
     def _state_nbytes(self) -> int:
+        """Device bytes this session's state pins: the bitset array, or for
+        a hybrid plan the sum over all its arrays — exactly the planner's
+        ``predicted_bytes``."""
+        if self.plan.state_layout == "hybrid":
+            return int(sum(v.nbytes for v in self.state.values()))
         return int(self.state["epochs" if self.plan.window_epochs else "adj"].nbytes)
 
     @property
@@ -702,13 +711,19 @@ class StreamSession:
         The buffered tail is flushed and ingested first, so the snapshot
         covers EXACTLY the edges fed so far; then every state array is
         copied to the host bit-exactly. The session stays usable (a
-        snapshot, not a close). Raises after ``finalize``."""
+        snapshot, not a close). Raises after ``finalize``, and for a hybrid
+        session that dropped edge endpoints (its count is not exact)."""
         self._live()
         from repro_torch.core import streaming
 
         t0 = time.perf_counter()
         self._ingest_tail()
         arrays = streaming.snapshot_state(self.state)
+        if int(arrays.get("lost", 0)):
+            raise RuntimeError(
+                f"refusing to checkpoint a hybrid session that dropped "
+                f"{int(arrays['lost'])} edge endpoint(s) — the snapshot would "
+                f"persist an inexact count")
         self._wall += time.perf_counter() - t0
         return SessionCheckpoint(
             n_nodes=self.n_nodes, plan=self.plan, block_size=self.block_size,
@@ -744,7 +759,9 @@ class StreamSession:
         window's count. The count stays a device tensor. ``wall_s`` is the
         host time spent inside ``feed``/``advance``/``finalize`` (the
         ingest is asynchronous on the card). ``stats["ingest_traces"]``
-        counts the new ingest keys over the session's lifetime."""
+        counts the new ingest keys over the session's lifetime. A hybrid
+        session that dropped edge endpoints raises instead of returning a
+        count (its ``lost`` counter is read here, once)."""
         if self.result is not None:
             return self.result
         from repro_torch.core import streaming
@@ -753,6 +770,13 @@ class StreamSession:
         self._ingest_tail()
         self._wall += time.perf_counter() - t0
         p = self.plan
+        if p.state_layout == "hybrid":
+            lost = streaming.hybrid_lost(self.state)
+            if lost:
+                raise RuntimeError(
+                    f"hybrid stream dropped {lost} edge endpoint(s): {p.hub_slots} hub "
+                    f"slots exhausted while tail buffers of {p.tail_capacity} "
+                    f"overflowed — re-plan with larger hub_slots/tail_capacity")
         count = (streaming.window_count(self.state) if p.window_epochs
                  else self.state["count"])
         stats = {"n_blocks": self.n_blocks, "block_size": self.block_size,
@@ -763,6 +787,8 @@ class StreamSession:
         if p.window_epochs:
             stats["window_epochs"] = p.window_epochs
             stats["epochs_advanced"] = self.n_epochs_advanced
+        if p.state_layout == "hybrid":
+            stats["hubs_used"] = int((self.state["hub_ids"] < self.n_nodes).sum())
         self.result = CountResult(count=count, plan=p, wall_s=self._wall, stats=stats)
         return self.result
 

@@ -48,6 +48,15 @@ attribute each closure to the age of its oldest wedge edge; the mixed term
 is differenced the same way; ``dd`` is unchanged. A duplicate of a
 still-live edge is ignored; an edge re-inserted after expiry is new.
 
+The DEGREE-AWARE HYBRID state (``init_hybrid_state``/``ingest_block_hybrid``)
+escapes the n²/8 wall for unbounded streams: full bitset rows only for
+promoted hubs, fixed-capacity sorted neighbor buffers for the tail, linear
+in n. Its block ingest keeps the same ``pre + mixed//2 + dd//3`` contract:
+``pre`` closes each edge against its two full-width pre-block rows with the
+per-edge closure K5, and ``mixed``/``dd`` run K4/K3 on block-local packed
+tables. The reference drops out-of-range scatters (JAX's rule); here every
+such write adds 0 at index 0 instead, since PyTorch raises.
+
 Eager PyTorch compiles nothing, so the reference's trace telemetry becomes
 a count of first uses: :func:`ingest_trace_count` counts the distinct
 (ingest family, block shape, state shape, device) keys seen, so the
@@ -60,7 +69,11 @@ import threading
 import numpy as np
 import torch
 
-from repro_torch.kernels.bitset_count.ops import bitset_edge_count, bitset_pair_count
+from repro_torch.kernels.bitset_count.ops import (
+    bitset_edge_count,
+    bitset_edge_count_per_edge,
+    bitset_pair_count,
+)
 from repro_torch.utils import count_dtype, resolve_device
 
 # bit b of a 32-bit word as int32 (bit 31 is -2**31): a table, so no int32
@@ -160,7 +173,7 @@ def validate_edges(edges, n_nodes: int) -> np.ndarray:
     return arr.astype(np.int32, copy=False)
 
 
-_WORD_KEYS = ("adj", "epochs")
+_WORD_KEYS = ("adj", "epochs", "hub_adj")
 _COUNT_KEYS = ("count", "counts")
 
 
@@ -731,8 +744,46 @@ def count_windowed_stream(n_nodes: int, epochs, window_epochs: int, *,
     return int(window_count(state))
 
 
+# --------------------------------------------------------------------------
+# Degree-aware hybrid state: bitset rows for hubs, fixed-capacity sorted
+# adjacency buffers for the long tail — the escape from the n²/8 wall
+# --------------------------------------------------------------------------
+def init_hybrid_state(n_nodes: int, hub_slots: int, tail_capacity: int, *,
+                      device=None) -> dict:
+    """Hybrid streaming state: ``hub_slots`` full bitset rows reserved for
+    high-degree vertices plus a sorted-adjacency buffer of ``tail_capacity``
+    neighbor slots per vertex for the long tail. The reference's layout:
+
+    - ``hub_adj``  (H, W) int32 words (the uint32 bit pattern) — one
+      full-width bitset row per hub slot; a free slot's row is all zero
+    - ``hub_ids``  (H,)   — vertex owning each slot (sentinel n = free)
+    - ``hub_slot`` (n,)   — slot index per vertex (-1 = tail vertex)
+    - ``tail_nbr`` (n, C) — sorted neighbor ids, sentinel n past the fill
+    - ``deg``      (n,)   — streamed degree so far (the promotion sketch)
+    - ``count`` int64 running total; ``lost`` int32 — edge endpoints
+      DROPPED on capacity exhaustion (must stay 0: finalize and checkpoint
+      refuse a lossy session)
+
+    State bytes: exactly :func:`hybrid_state_nbytes`, linear in n instead
+    of the dense n²/8 whenever C ≪ n/8. ``device`` defaults to ``cuda``."""
+    if hub_slots < 1:
+        raise ValueError(f"hub_slots must be >= 1, got {hub_slots}")
+    if tail_capacity < 1:
+        raise ValueError(f"tail_capacity must be >= 1, got {tail_capacity}")
+    dev = resolve_device(device)
+    w = -(-n_nodes // 32)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return {"hub_adj": torch.zeros((hub_slots, w), **i32),
+            "hub_ids": torch.full((hub_slots,), n_nodes, **i32),
+            "hub_slot": torch.full((n_nodes,), -1, **i32),
+            "tail_nbr": torch.full((n_nodes, tail_capacity), n_nodes, **i32),
+            "deg": torch.zeros((n_nodes,), **i32),
+            "count": _counts((), dev),
+            "lost": torch.zeros((), **i32)}
+
+
 def hybrid_state_nbytes(n_nodes: int, hub_slots: int, tail_capacity: int) -> int:
-    """EXACT device bytes of the hybrid streaming state — ``hub_slots``
+    """EXACT device bytes of :func:`init_hybrid_state` — ``hub_slots``
     full bitset rows (H, W) int32 plus their owner ids (H,), per-vertex hub
     slots (n,), ``tail_capacity`` neighbor slots per vertex (n, C) and
     degrees (n,), all int32, then the running count (``count_dtype()``, int64
@@ -742,3 +793,242 @@ def hybrid_state_nbytes(n_nodes: int, hub_slots: int, tail_capacity: int) -> int
     scalar = count_dtype().itemsize
     return 4 * (hub_slots * w + hub_slots + n_nodes * (tail_capacity + 2)) \
         + scalar + 4
+
+
+def _tail_rows(table: torch.Tensor, rows: torch.Tensor, nbrs: torch.Tensor,
+               keep: torch.Tensor, n: int) -> None:
+    """Add the bits of the tail buffers ``nbrs`` (R, C) into rows ``rows``
+    (R,) of ``table`` (·, W), in place, where ``keep`` (R,) holds — the
+    reference's expansion of tail buffers into full-width bitset rows,
+    landed in the table that needs them instead of fresh (R, W) zeros.
+
+    A buffer's ids are distinct and its target row holds none of their
+    bits, so add equals OR. The sentinel n (and every dropped row) adds 0
+    to word 0: never ``n // 32``, which is a real word whenever n % 32 ≠ 0
+    (the reference maps the sentinel to word W, one past the end, where
+    JAX drops the scatter)."""
+    w = table.shape[1]
+    real = keep[:, None] & (nbrs < n)
+    idx = torch.where(real, rows[:, None] * w + nbrs // 32, 0)
+    bit = torch.where(real, _bits_on(table.device)[nbrs % 32], 0)
+    table.view(-1).index_add_(0, idx.reshape(-1), bit.reshape(-1))
+
+
+def _set_where(dst: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor, val) -> None:
+    """``dst[idx[i]] = val[i]`` for every i where ``ok[i]``, in place and
+    without a host sync. The ``ok`` indices must be distinct: adding
+    ``val - dst[idx]`` then sets them (exact in two's complement). Every
+    other entry adds 0 to row 0 — the reference sends it out of bounds,
+    where JAX drops a scatter and PyTorch would raise."""
+    i = torch.where(ok, idx, 0)
+    old = dst[i]
+    okb = ok.view(-1, *([1] * (old.dim() - 1)))
+    dst.index_add_(0, i, torch.where(okb, val - old, 0))
+
+
+# Words of the block-local A table packed per step on the way to ``aloc``:
+# bounds its (rows, L) int32 gather to 256 MB whatever the block size.
+_ALOC_WORDS = 1 << 26
+
+
+def _pack_local(table: torch.Tensor, gvert: torch.Tensor, n: int, wl: int) -> torch.Tensor:
+    """A restricted to the block's vertex columns, packed to words: bit b of
+    ``aloc[r, j]`` is bit ``gvert[32j + b]`` of full-width row r of
+    ``table`` (0 past the block's vertices and for the dead id n). The
+    reference's ``abit`` (2B, 2B) and its (2B, Wl, 32) shift, a slab of
+    rows at a time; the bits of a word are distinct, so their int32 sum
+    is their OR."""
+    big, w = table.shape
+    cols = wl * 32
+    k = min(big, cols)  # local ids >= cols do not occur (gvert is n there)
+    real = torch.zeros(cols, dtype=torch.bool, device=table.device)
+    real[:k] = gvert[:k] < n
+    gv = torch.zeros(cols, dtype=torch.int64, device=table.device)
+    gv[:k] = gvert[:k].clamp(max=n - 1)
+    word, shift = gv // 32, (gv % 32).to(torch.int32)
+    place = torch.where(real, _bits_on(table.device).repeat(wl), 0)
+    aloc = torch.empty((big, wl), dtype=torch.int32, device=table.device)
+    step = max(1, _ALOC_WORDS // cols)
+    for r in range(0, big, step):
+        g = table[r:r + step].index_select(1, word)
+        g >>= shift
+        g &= 1  # >> on int32 is arithmetic: keep bit 0 only
+        g *= place
+        aloc[r:r + step] = g.view(-1, wl, 32).sum(-1, dtype=torch.int32)
+    return aloc
+
+
+def ingest_block_hybrid(state: dict, edges, *, hub_threshold: int) -> dict:
+    """Fold one (B, 2) edge block into a HYBRID state, in place, and return
+    the state — the same two-phase ``pre + mixed//2 + dd//3`` contract as
+    ``ingest_block``, bit for bit with the reference, without ever
+    materialising an (n, W) table.
+
+    Phase 1 gathers the full-width pre-block rows of the 2B endpoints into
+    ONE (2B, W) table (hub rows verbatim, tail buffers expanded), rows
+    [0, B) the lower and [B, 2B) the higher endpoint of each edge, and
+    closes edge e against rows (e, B + e) with the per-edge kernel (K5).
+    Phase 2 works in a BLOCK-LOCAL vertex space: the block delta D only
+    touches block endpoints, so D and A restricted to block-vertex columns
+    are packed into (2B, ceil(min(2B, n + 1)/32)) word tables, and the two-table
+    closure (K4, twice) gives ``mixed`` and the one-table closure (K3) on D
+    gives ``dd``, with the dense multiplicities. On the card that is one K5,
+    two K4 and one K3 launch per block; on the CPU their plain versions.
+
+    PROMOTION runs before insertion: a tail vertex whose streamed degree
+    would exceed its buffer (mandatory) or reaches ``hub_threshold``
+    (policy) claims a free hub slot, mandatory promotions first; its
+    buffer's bits go into the slot's (zero) row and the buffer is cleared.
+    Only when every slot is taken AND a buffer still overflows are edge
+    endpoints dropped, counted in ``lost`` on the device (read only at
+    checkpoint and finalize). Transient memory: the (2B, W) table, a
+    256 MB slab of the packing, and O(B·C + B²/8) block-local words."""
+    hub_adj, hub_ids = state["hub_adj"], state["hub_ids"]
+    hub_slot, tail_nbr, deg = state["hub_slot"], state["tail_nbr"], state["deg"]
+    n = hub_slot.shape[0]
+    h, w = hub_adj.shape
+    c = tail_nbr.shape[1]
+    dev = hub_adj.device
+    e = _as_edges(edges, dev)
+    _note_ingest("hybrid", hub_adj, e)
+    b = e.shape[0]
+    big = 2 * b
+    bits = _bits_on(dev)
+    ar = torch.arange(b, device=dev)
+    keep, lo, hi = _canonical_live(e, n)
+
+    # ---- phase 1: pre-block rows of the 2B endpoints, one (2B, W) table ----
+    ends = torch.cat([lo, hi])
+    real_end = ends < n
+    gv_end = ends.clamp(max=n - 1)
+    slot = torch.where(real_end, hub_slot[gv_end], -1)
+    table = hub_adj.index_select(0, slot.clamp(min=0).to(torch.int64))
+    table.masked_fill_((slot < 0)[:, None], 0)
+    _tail_rows(table, torch.arange(big, device=dev), tail_nbr[gv_end], real_end & (slot < 0), n)
+
+    # dedup against A: bit hi of lo's row (rows are symmetric by insertion)
+    word = table[ar, (hi // 32).clamp(max=w - 1)]
+    live = keep & (((word >> (hi % 32).to(torch.int32)) & 1) == 0)
+    pair = torch.stack([ar, ar + b], dim=1)
+    pre = bitset_edge_count_per_edge(table, torch.where(live[:, None], pair, big).to(torch.int32))
+
+    # ---- block-local vertex space for the intra-block correction ----
+    # local ids count the block's distinct endpoints plus the dead id n, so
+    # at most min(2B, n + 1) columns (the reference packs 2B)
+    wl = -(-min(big, n + 1) // 32)
+    rlo, rhi = torch.where(live, lo, n), torch.where(live, hi, n)
+    verts = torch.cat([rlo, rhi])       # one occurrence per endpoint
+    others = torch.cat([rhi, rlo])      # the occurrence's neighbor
+    liveo = torch.cat([live, live])
+    sv, order = torch.sort(verts, stable=True)
+    firsts = torch.ones(big, dtype=torch.bool, device=dev)
+    firsts[1:] = sv[1:] != sv[:-1]
+    lid_sorted = torch.cumsum(firsts, 0) - 1
+    lid = torch.empty(big, dtype=torch.int64, device=dev)
+    lid[order] = lid_sorted
+    # global vertex per local id (dead occurrences share the id of value n);
+    # equal local ids write equal values
+    gvert = torch.full((big,), n, dtype=torch.int64, device=dev)
+    gvert[lid_sorted] = sv
+    l_lo, l_hi = lid[:b], lid[b:]
+
+    # D in local space: each live edge's two bits, in one scatter (distinct
+    # bits, so add equals OR; dead edges add 0 to word 0)
+    didx = torch.cat([torch.where(live, l_lo * wl + l_hi // 32, 0),
+                      torch.where(live, l_hi * wl + l_lo // 32, 0)])
+    dbit = torch.cat([torch.where(live, bits[l_hi % 32], 0),
+                      torch.where(live, bits[l_lo % 32], 0)])
+    dloc = torch.zeros(big * wl, dtype=torch.int32, device=dev).index_add_(
+        0, didx, dbit).view(big, wl)
+    aloc = _pack_local(table, gvert, n, wl)
+    del table
+
+    def closure(u, v):
+        return torch.where(live[:, None], torch.stack([u, v], dim=1), big).to(torch.int32)
+
+    mixed = (bitset_pair_count(aloc, dloc, closure(ar, l_hi))
+             + bitset_pair_count(dloc, aloc, closure(l_lo, ar + b)))
+    dd = bitset_edge_count(dloc, closure(l_lo, l_hi))
+    _combine(state["count"], torch.stack([pre, mixed, dd]))
+
+    # ---- promotion (BEFORE insertion, on pre-block buffers) ----
+    occ = torch.zeros(big, dtype=torch.int32, device=dev).index_add_(
+        0, torch.where(liveo, lid, 0), liveo.to(torch.int32))
+    real = gvert < n
+    gv = gvert.clamp(max=n - 1)
+    is_tail = real & (hub_slot[gv] < 0)
+    newdeg = torch.where(real, deg[gv], 0) + occ
+    touched = is_tail & (occ > 0)
+    must = touched & (newdeg > c)            # buffer would overflow
+    want = touched & (newdeg >= hub_threshold)
+    cand = must | want
+    free = hub_ids == n
+    # mandatory promotions claim free slots before policy ones
+    mrank = torch.cumsum(must, 0) - 1
+    wrank = must.sum() + torch.cumsum(cand & ~must, 0) - 1
+    prank = torch.where(must, mrank, wrank)
+    free_first = torch.argsort((~free).to(torch.int32), stable=True)
+    slot_for = free_first[prank.clamp(0, h - 1)]
+    ok = cand & (prank < free.sum()) & (prank < h)
+    buffers = tail_nbr[gv]
+    _tail_rows(hub_adj, slot_for, buffers, ok, n)   # free slots hold zero rows
+    _set_where(hub_ids, slot_for, ok, gvert.to(torch.int32))
+    _set_where(hub_slot, gv, ok, slot_for.to(torch.int32))
+    _set_where(tail_nbr, gv, ok, n)
+
+    # ---- insertion (hub rows get bits, tail buffers get sorted ids) ----
+    vc = verts.clamp(max=n - 1)
+    slot_now = torch.where(liveo, hub_slot[vc], -1)
+    to_hub = liveo & (slot_now >= 0)
+    # live edges are deduped and absent from A, so the added bits are
+    # distinct and unset: add == bitwise-or (promoted rows included)
+    hub_adj.view(-1).index_add_(
+        0, torch.where(to_hub, slot_now.to(torch.int64) * w + (others // 32).clamp(max=w - 1), 0),
+        torch.where(to_hub, bits[others % 32], 0))
+    to_tail = liveo & (slot_now < 0)
+    # arrival rank of each occurrence within its vertex's block segment
+    pos_in_order = torch.arange(big, device=dev)
+    first_pos = torch.full((big,), big, dtype=torch.int64, device=dev).scatter_reduce_(
+        0, lid_sorted, pos_in_order, "amin", include_self=True)
+    rank = torch.empty(big, dtype=torch.int64, device=dev)
+    rank[order] = pos_in_order - first_pos[lid_sorted]
+    pos = torch.where(liveo, deg[vc], 0) + rank
+    fits = to_tail & (pos < c)
+    _set_where(tail_nbr.view(-1), vc * c + pos.clamp(0, c - 1), fits, others.to(torch.int32))
+    state["lost"] += (to_tail & (pos >= c)).sum().to(torch.int32)  # slots AND buffer full
+
+    # keep touched tail buffers sorted (sentinel n sorts past the fill):
+    # canonical layout -> bit-identical checkpoints regardless of feed order
+    still_tail = real & (hub_slot[gv] < 0) & touched
+    _set_where(tail_nbr, gv, still_tail, torch.sort(tail_nbr[gv], dim=1).values)
+    deg.index_add_(0, torch.where(liveo, vc, 0), liveo.to(torch.int32))
+    return state
+
+
+def hybrid_lost(state: dict) -> int:
+    """Host-synced dropped-endpoint counter of a hybrid state — must be 0
+    for the count to be exact; finalize and checkpoint raise when it is
+    not (capacity exhaustion is a sizing bug, never a silent undercount)."""
+    return int(state["lost"])
+
+
+def count_stream_hybrid(n_nodes: int, blocks, *, hub_slots: int, tail_capacity: int,
+                        hub_threshold: int | None = None, block_size: int | None = None,
+                        device=None) -> int:
+    """Consume an iterable of (B, 2) numpy edge blocks through the HYBRID
+    state — the differential twin of :func:`count_stream`. Raises if any
+    edge endpoint was dropped (hub slots exhausted while a tail buffer
+    overflowed) instead of returning an undercount. ``hub_threshold``
+    defaults to ``tail_capacity`` (promote exactly when the buffer fills).
+    ``device`` defaults to ``cuda``."""
+    state = init_hybrid_state(n_nodes, hub_slots, tail_capacity, device=device)
+    t = tail_capacity if hub_threshold is None else hub_threshold
+    for block in padded_blocks(blocks, n_nodes, block_size, device=device):
+        ingest_block_hybrid(state, block, hub_threshold=t)
+    lost = hybrid_lost(state)
+    if lost:
+        raise RuntimeError(
+            f"hybrid stream dropped {lost} edge endpoint(s): {hub_slots} hub "
+            f"slots exhausted while tail buffers of {tail_capacity} "
+            f"overflowed — resize hub_slots/tail_capacity")
+    return int(state["count"])

@@ -1,9 +1,11 @@
 // Bitset edge closures for Hopper (sm_90a), over a (B, 2) edge block:
-//   bs_edge_count  Σ_e popcount(masks[u_e] & masks[v_e])   (one table)
-//   bs_pair_count  Σ_e popcount(a[u_e] & b[v_e])           (two tables)
+//   bs_edge_count      Σ_e popcount(masks[u_e] & masks[v_e])   (one table)
+//   bs_pair_count      Σ_e popcount(a[u_e] & b[v_e])           (two tables)
+//   bs_per_edge_count  the one-table sum, one CTA per edge
 //
-// Replace the Pallas kernels `bitset_edge_count_kernel` and
-// `bitset_pair_count_kernel` of src/repro/kernels/bitset_count/bitset_count.py.
+// Replace the Pallas kernels `bitset_edge_count_kernel`,
+// `bitset_pair_count_kernel` and `bitset_edge_count_per_edge_kernel` of
+// src/repro/kernels/bitset_count/bitset_count.py.
 // The one-table closure closes the bitset ring's edge blocks and the stream
 // ingest's `pre` and `dd` terms; the two-table closure is the ingest's
 // `mixed` term, u rows from the pre-block adjacency and v rows from the
@@ -67,6 +69,36 @@ pair_count_kernel(const uint32_t* ta, const uint32_t* tb, long long n_pad, long 
   }
 }
 
+// The seed kernel's shape: one CTA per edge, as the Pallas kernel runs one
+// grid step (two (1, W) row copies) per edge. The CTA's threads stride over
+// the W words of the edge's two rows, so a row of tens of thousands of
+// words (the hybrid stream's full-width pre-block rows) is read by the
+// whole CTA, not by one lane group of at most a warp as above. Bytes bound
+// it as they bound the kernel above: 2·W·4 bytes per real edge.
+__global__ void per_edge_kernel(const uint32_t* masks, long long n_pad, long long w,
+                                const int32_t* edges, unsigned long long* out) {
+  __shared__ unsigned long long warp_sums[THREADS / 32];
+  const long long e = blockIdx.x;
+  const long long u = edges[2 * e], v = edges[2 * e + 1];
+  if (u >= n_pad) return;  // phantom edge (the whole CTA): contributes 0
+  const long long uc = u < 0 ? 0 : u;
+  const long long vc = v < 0 ? 0 : (v < n_pad ? v : n_pad - 1);
+  const uint32_t* ru = masks + uc * w;
+  const uint32_t* rv = masks + vc * w;
+  unsigned long long acc = 0;
+  for (long long k = threadIdx.x; k < w; k += blockDim.x) acc += __popc(ru[k] & rv[k]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_down_sync(0xffffffffu, acc, off);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long total = 0;
+    for (int i = 0; i < (int)(blockDim.x >> 5); ++i) total += warp_sums[i];
+    if (total != 0) atomicAdd(out, total);
+  }
+}
+
 int launch(const void* ta, const void* tb, long long n_pad, long long w,
            const void* edges, long long n_edges, void* out, void* stream) {
   int group_log2 = 0;
@@ -112,6 +144,20 @@ int bs_pair_count(const void* a, const void* b, long long n_pad, long long w,
                   const void* edges, long long n_edges, void* out,
                   void* stream) {
   return launch(a, b, n_pad, w, edges, n_edges, out, stream);
+}
+
+// out[0] += Σ_e popcount(masks[u_e] & masks[v_e]), as bs_edge_count, with
+// one CTA per edge: n_edges CTAs of 32 to 256 threads (the power of two
+// >= w, so short rows do not idle most of a CTA).
+int bs_per_edge_count(const void* masks, long long n_pad, long long w,
+                      const void* edges, long long n_edges, void* out,
+                      void* stream) {
+  int threads = 32;
+  while (threads < w && threads < THREADS) threads <<= 1;
+  per_edge_kernel<<<(unsigned)n_edges, threads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)masks, n_pad, w, (const int32_t*)edges,
+      (unsigned long long*)out);
+  return (int)cudaGetLastError();
 }
 
 const char* bs_error_string(int err) {

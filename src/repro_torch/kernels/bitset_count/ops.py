@@ -1,5 +1,6 @@
 """Wrappers of the bitset closure CUDA kernels (``csrc/bitset_count.cu``):
-the one-table edge count (K3) and the two-table pair count (K4).
+the one-table edge count (K3), the two-table pair count (K4) and the
+one-table count with one CTA per edge (K5).
 
 On CPU tensors a wrapper runs the plain version (``ref.py``); on CUDA
 tensors it launches the kernel or raises."""
@@ -10,13 +11,19 @@ import ctypes
 import torch
 
 from repro_torch.kernels._build import CudaKernel
-from repro_torch.kernels.bitset_count.ref import bitset_edge_count_ref, bitset_pair_count_ref
+from repro_torch.kernels.bitset_count.ref import (
+    bitset_edge_count_per_edge_ref,
+    bitset_edge_count_ref,
+    bitset_pair_count_ref,
+)
 
 _P, _L = ctypes.c_void_p, ctypes.c_longlong
 EDGE = CudaKernel("bitset_count", "bs_edge_count", [_P, _L, _L, _P, _L, _P],
                   "bs_error_string")
 PAIR = CudaKernel("bitset_count", "bs_pair_count", [_P, _P, _L, _L, _P, _L, _P],
                   "bs_error_string")
+PER_EDGE = CudaKernel("bitset_count", "bs_per_edge_count", [_P, _L, _L, _P, _L, _P],
+                      "bs_error_string")
 
 
 def _check(tables, edges: torch.Tensor) -> bool:
@@ -76,3 +83,18 @@ def bitset_pair_count(masks_a: torch.Tensor, masks_b: torch.Tensor,
     if _check((masks_a, masks_b), edges):
         return bitset_pair_count_ref(masks_a, masks_b, edges)
     return _launch(PAIR, (masks_a, masks_b), edges)
+
+
+def bitset_edge_count_per_edge(masks: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """The sum of :func:`bitset_edge_count`, Σ_e popcount(masks[u_e] &
+    masks[v_e]) as an int64 scalar, by the seed kernel's shape: one CTA per
+    edge strides over the edge's two full rows. The hybrid stream ingest's
+    ``pre`` term, over its (2B, W) table of pre-block rows.
+
+    Same contract as :func:`bitset_edge_count`: only u ≥ n_pad makes an
+    edge a phantom; v is clamped to n_pad − 1."""
+    if _check((masks,), edges):
+        return bitset_edge_count_per_edge_ref(masks, edges)
+    if edges.shape[0] >= 2**31:
+        raise ValueError(f"one CTA per edge: at most 2**31 - 1 edges, got {edges.shape[0]}")
+    return _launch(PER_EDGE, (masks,), edges)

@@ -29,6 +29,14 @@ def bitset_edge_count_ref(masks: torch.Tensor, edges: torch.Tensor) -> torch.Ten
     return bitset_pair_count_ref(masks, masks, edges)
 
 
+def bitset_edge_count_per_edge_ref(masks: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """Σ_e popcount(masks[u_e] & masks[v_e]) as an int64 scalar: the plain
+    version of the per-edge kernel, the same sum as
+    :func:`bitset_edge_count_ref` (the two kernels differ only in how the
+    card's threads share the work)."""
+    return bitset_pair_count_ref(masks, masks, edges)
+
+
 def bitset_pair_count_ref(masks_a: torch.Tensor, masks_b: torch.Tensor,
                           edges: torch.Tensor) -> torch.Tensor:
     """Σ_e popcount(masks_a[u_e] & masks_b[v_e]) as an int64 scalar.

@@ -31,9 +31,11 @@ from repro_torch.kernels import _build, launch_counts  # noqa: E402
 from repro_torch.kernels.bitset_count import ops as bs_ops  # noqa: E402
 from repro_torch.kernels.bitset_count.ops import (  # noqa: E402
     bitset_edge_count,
+    bitset_edge_count_per_edge,
     bitset_pair_count,
 )
 from repro_torch.kernels.bitset_count.ref import (  # noqa: E402
+    bitset_edge_count_per_edge_ref,
     bitset_edge_count_ref,
     bitset_pair_count_ref,
 )
@@ -131,6 +133,32 @@ def test_bitset_pair_count_kernel_equals_plain(cuda, n_pad, w, b):
     assert launch_counts()["bitset_pair_count"] == before + 2
 
 
+@pytest.mark.parametrize("n_pad,w,b", [(64, 2, 31), (96, 1, 16), (1000, 100, 5000),
+                                       (8192, 64, 100_003), (16384, 35466, 64)])
+def test_bitset_edge_count_per_edge_kernel_equals_plain(cuda, n_pad, w, b):
+    """K5 against its plain version as exact integers: ragged B, phantom
+    u, a real u with a phantom v (v clamps to n_pad - 1), up to the hybrid
+    stream's (2B, W) table at n = 1,134,890 (W = 35,466)."""
+    g = torch.Generator(device=cuda).manual_seed(n_pad + w)
+    masks = torch.randint(-2**31, 2**31 - 1, (n_pad, w), generator=g, dtype=torch.int32,
+                          device=cuda)
+    rng = np.random.default_rng(w)
+    edges = rng.integers(0, n_pad, (b, 2)).astype(np.int32)
+    edges[rng.random(b) < 0.2, 0] = n_pad + 1  # phantom edges
+    edges[rng.random(b) < 0.1, 1] = n_pad      # real u, phantom v
+    e = torch.from_numpy(edges).to(cuda)
+    before = launch_counts()["bitset_edge_count_per_edge"]
+    got = bitset_edge_count_per_edge(masks, e)
+    assert launch_counts()["bitset_edge_count_per_edge"] == before + 1
+    assert got.dtype == torch.int64 and int(got) == int(bitset_edge_count_per_edge_ref(masks, e))
+    assert int(got) == int(bitset_edge_count(masks, e))
+    one = torch.tensor([[1, n_pad]], dtype=torch.int32, device=cuda)
+    assert int(bitset_edge_count_per_edge(masks, one)) == \
+        int(bitset_edge_count_per_edge_ref(masks, one)) > 0
+    with pytest.raises(TypeError):
+        bitset_edge_count_per_edge(masks, e.to(torch.int64))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         triangle_count(torch.zeros(8, 8, dtype=torch.float32, device=cuda))
@@ -219,6 +247,52 @@ def test_count_stream_on_the_card_equals_the_cpu_port(cuda, n_stages):
     assert after["bitset_pair_count"] - before["bitset_pair_count"] == launches
 
 
+def _hybrid_plan(**kw):
+    return Plan(method="stream", block_size=2048, state_layout="hybrid", hub_slots=1024,
+                tail_capacity=32, hub_threshold=24, **kw)
+
+
+def test_hybrid_count_stream_on_the_card_equals_the_cpu_port(cuda):
+    """The hybrid state on the card: the count, and every state array, equal
+    the CPU port's; one K5, two K4 and one K3 launch per block."""
+    from repro_torch.core import streaming
+
+    g = gen.powerlaw(3000, 8, seed=5)
+    e = _shuffled(g, 5)
+    blocks = [e[i:i + 1777] for i in range(0, len(e), 1777)]
+    card = TriangleCounter(Resources(backend="cuda"), device=cuda).open_stream(
+        g.n_nodes, plan=_hybrid_plan(use_kernel=True, interpret=False))
+    before = launch_counts()
+    for b in blocks:
+        card.feed(b)
+    res = card.finalize()
+    after = launch_counts()
+    cpu = TriangleCounter(Resources(), device="cpu").open_stream(g.n_nodes, plan=_hybrid_plan())
+    for b in blocks:
+        cpu.feed(b)
+    assert res.count.device.type == "cuda"
+    assert res.item() == cpu.finalize().item() == count_triangles_brute(g)
+    assert res.stats["state_bytes"] == streaming.hybrid_state_nbytes(g.n_nodes, 1024, 32)
+    nb = res.stats["n_blocks"]
+    for name, per in (("bitset_edge_count_per_edge", 1), ("bitset_pair_count", 2),
+                      ("bitset_edge_count", 1)):
+        assert after[name] - before[name] == per * nb, name
+    a, c = streaming.snapshot_state(card.state), streaming.snapshot_state(cpu.state)
+    assert int((card.state["hub_slot"] >= 0).sum()) > 0  # promotions ran
+    assert all(np.array_equal(a[k], c[k]) and a[k].dtype == c[k].dtype for k in a)
+
+
+def test_lossy_hybrid_session_raises_on_the_card(cuda):
+    rng = np.random.default_rng(13)
+    e = rng.integers(0, 96, size=(3000, 2)).astype(np.int32)
+    p = Plan(method="stream", block_size=128, state_layout="hybrid", hub_slots=2,
+             tail_capacity=4, hub_threshold=4, use_kernel=True, interpret=False)
+    s = TriangleCounter(device=cuda).open_stream(96, plan=p)
+    s.feed(e)
+    with pytest.raises(RuntimeError, match="dropped .* endpoint"):
+        s.finalize()
+
+
 @pytest.mark.parametrize("n_stages", [1, 2])
 def test_count_windowed_on_the_card_equals_the_cpu_port(cuda, n_stages):
     rng = np.random.default_rng(7)
@@ -284,6 +358,28 @@ def test_stream_ingest_never_waits_for_the_card(cuda):
         torch.cuda.set_sync_debug_mode("default")
     cpu = streaming.count_stream(5000, [edges], block_size=8192, device="cpu")
     assert int(unbounded["count"]) == cpu
+
+
+def test_hybrid_ingest_never_waits_for_the_card(cuda):
+    """The hybrid ingest needs no host sync either: ``lost`` stays on the
+    card until checkpoint or finalize reads it."""
+    from repro_torch.core import streaming
+
+    rng = np.random.default_rng(4)
+    edges = rng.integers(0, 5000, size=(40_000, 2)).astype(np.int32)
+    blocks = list(streaming.padded_blocks([edges], 5000, 8192, device=cuda))
+    state = streaming.init_hybrid_state(5000, 512, 32, device=cuda)
+    streaming.ingest_block_hybrid(state, blocks[0], hub_threshold=32)  # first-use copies
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in blocks[1:]:
+            streaming.ingest_block_hybrid(state, b, hub_threshold=32)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert streaming.hybrid_lost(state) == 0
+    cpu = streaming.count_stream(5000, [edges], block_size=8192, device="cpu")
+    assert int(state["count"]) == cpu
 
 
 # --------------------------------------------------------------------------

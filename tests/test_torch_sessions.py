@@ -21,6 +21,7 @@ from repro.api import SessionCheckpoint as RefSessionCheckpoint  # noqa: E402
 from repro.api import TriangleCounter as RefTriangleCounter  # noqa: E402
 from repro.core.triangle_ref import count_triangles_brute  # noqa: E402
 from repro.graphs import generators as gen  # noqa: E402
+from repro.graphs.formats import canonical_edges  # noqa: E402
 from repro_torch.api import (  # noqa: E402
     GraphStats,
     Plan,
@@ -401,24 +402,32 @@ def test_checkpoint_that_contradicts_the_device_is_refused(tmp_path):
 
 
 def test_hybrid_plans_are_refused_until_the_hybrid_state_is_ported():
+    """The hybrid state is ported: each route that refused a hybrid plan
+    before (``open_stream``, ``count_stream``, ``count`` with a hybrid
+    plan) now counts through it, to the reference's count. The planner
+    still picks hybrid only when the bitset does not fit, and a windowed
+    hybrid plan is still refused."""
     c = _counter()
-    hyb = Plan(method="stream", state_layout="hybrid", hub_slots=4, tail_capacity=8,
-               hub_threshold=4)
-    todo = "hybrid stream state .* not ported yet .ROADMAP.md queue A, item 2"
-    with pytest.raises(RuntimeError, match=todo):
-        c.open_stream(100, plan=hyb)
-    with pytest.raises(RuntimeError, match=todo):
-        c.count_stream(100, [np.array([[0, 1]], np.int32)], plan=hyb)
+    hyb = Plan(method="stream", state_layout="hybrid", hub_slots=16, tail_capacity=8,
+               hub_threshold=8, block_size=64)
+    e = _edges(100, 200, 17)
+    ref_hyb = RefPlan(**{**hyb.to_dict(), "use_kernel": False, "interpret": True})
+    want = RefTriangleCounter().count_stream(100, [e], plan=ref_hyb).item()
+    assert want == count_triangles_brute(canonical_edges(e, 100)) > 0
+    s = c.open_stream(100, plan=hyb)
+    s.feed(e[:70])
+    s.feed(e[70:])
+    assert s.finalize().item() == want and s.state["hub_adj"].shape == (16, 4)
+    assert 0 < int((s.state["hub_slot"] >= 0).sum()) <= 16  # promotions ran
+    assert c.count_stream(100, [e], plan=hyb).item() == want
     g = graph_from_arrays(30, np.array([[0, 1], [1, 2], [0, 2]], np.int32))
-    with pytest.raises(RuntimeError, match=todo):
-        c.count(g, plan=hyb)
+    assert c.count(g, plan=hyb).item() == 1
     # the planner picks hybrid only when the bitset does not fit: small budget
     stats = GraphStats(n_nodes=200_000, n_edges=0, replication_factor=0, max_degree=0,
                        max_fwd_degree=0, edges_in_memory=False)
     assert plan(stats, Resources(memory_bytes=1 << 30)).state_layout == "hybrid"
     with pytest.raises(ValueError, match="hybrid"):
         c.open_stream(100, plan=Plan(method="stream", state_layout="hybrid", window_epochs=2))
-    assert c.cache_info["entries"] == 0
 
 
 def test_feed_rejects_bad_edges_at_session_front_door():
