@@ -8,7 +8,8 @@
    its plain PyTorch version on the card at several shapes: the counting
    kernels as exact integers (ragged sizes, phantom edges, the shapes the
    main path gives them at the paper's full Table-1 sizes), flash attention
-   (K6) and EmbeddingBag (K7) within the reference kernel tests'
+   (K6: the FMA kernel for f32, the wgmma kernel for bf16 at D = 64, 128)
+   and EmbeddingBag (K7) within the reference kernel tests'
    tolerances, at Yi-6B's and AutoInt's full widths among others. Float32
    products run in true float32 (TF32 off, asserted). Times each kernel, its plain
    version and, where one exists, a single PyTorch call computing the same
@@ -51,6 +52,14 @@
    prefill within 1e-3 of the largest logit; and ``prefill`` of a prompt
    less its last token plus one ``decode_step`` against ``forward`` of the
    whole prompt. The Yi-6B smoke config on the card against the CPU port.
+   [lm bf16] The same with bf16 weights (12.12 GB, norm scales f32): the
+   server, its chunked prefill timed as time to first token, and the flash
+   prefill (the wgmma K6 once per layer, the FMA K6 never) and decode steps
+   with a bf16 KV cache. The flash prefill's last-token logits must lie no
+   farther from f32 arithmetic on the same weights than twice the chunked
+   prefill's distance (FlashAttention's own accuracy test); their distance
+   from the chunked prefill's is printed against 2e-2 of the largest logit,
+   and where the two paths part, layer by layer.
 7. [recsys] AutoInt at its full config (3.9M-row table): ``ctr_logits`` and
    ``retrieval_scores`` (100,000 candidates) on 16,384 seeded rows, and
    ``lookup_multihot(use_kernel=True)`` (K7) on 16,384 × 39 bags of 8 ids
@@ -58,8 +67,8 @@
    CPU port.
 8. Profiles one planner-chosen count of FNA.5 and of NY, one planner-chosen
    ``count_stream`` of NY and of YT, and one Yi-6B flash prefill plus 32
-   decode steps, with ``torch.profiler``: host wall, device busy time, the
-   device's idle share.
+   decode steps in f32 and in bf16, with ``torch.profiler``: host wall,
+   device busy time, the device's idle share.
 
 Phases 2 to 7 are the main path: every kernel's launch count is set to 0
 before them and must be above 0 after them. Any mismatch or exception exits
@@ -103,10 +112,24 @@ PEAK_F32_FLOPS = 66.9e12
 PEAK_BF16_FLOPS = 989.4e12
 # Yi-6B's attention at a long prefill: K6 is timed at this shape.
 YI_ATTN = dict(b=1, hq=32, hkv=4, s=8192, d=128)
+# Long sequences of K6's bf16 sweep (many full 128-key tiles, a ragged last)
+K6_LONG_S = (4097, 8192)
 # K6 against its plain version at that shape: 1e-4 absolute in f32; in bf16
-# that plus one bf16 ulp of the output (7 stored mantissa bits), elementwise.
+# that plus one bf16 ulp of the output (7 stored mantissa bits) plus 2^-8 of
+# attention_ref(q, k, |v|) for the probabilities the wgmma kernel rounds to
+# bf16 before P·V, elementwise.
 F32_LONG_TOL = 1e-4
 BF16_ULP = 2.0**-7
+BF16_P_ROUND = 2.0**-8
+# The [lm] flash prefill's last-token logits against the server's chunked
+# prefill, as a fraction of the largest logit. bfloat16: both paths round P
+# and the attention output to bf16 at different places over 32 layers of
+# bf16 residual adds; bf16 keeps 8 significant bits (relative 2^-9 a
+# rounding), and 2e-2 lets about ten such roundings line up. In float32 this
+# is the gate; in bfloat16 it is printed beside the gate of
+# ``bf16_logits_check``, since each bf16 path alone lies about 2e-2 of the
+# largest logit from f32 arithmetic on the same weights (PERF.md).
+LOGITS_REL = {"float32": 1e-3, "bfloat16": 2e-2}
 # YT: SNAP com-Youtube's size (n nodes, m edge draws), the edges drawn by a
 # Chung-Lu power law (the reference's tests/test_hybrid_stream.py generator)
 YT = dict(n=1_134_890, m=2_987_624, alpha=0.85, seed=0)
@@ -383,7 +406,7 @@ def check_kernels(graphs: dict) -> dict:
                (ek.numel() * 4 + real * 2 * w * 4 + 8) / PEAK_BYTES))
     del adj, delta, ek
     torch.cuda.empty_cache()
-    rows["flash_attention"] = check_attention(gen)
+    rows["flash_attention"], rows["flash_attention_wgmma"] = check_attention(gen)
     rows["embedding_bag"] = check_embedding_bag(gen)
     return rows
 
@@ -467,82 +490,128 @@ def close(got, want, tol: float) -> tuple[float, bool]:
     return float(diff.max()), bool((diff <= tol + tol * want.abs()).all())
 
 
-def check_attention(gen) -> dict:
-    """K6 against its plain version: f32 and bf16, Hq/Hkv in {4/4, 8/2,
-    32/4}, D in {16, 64, 128}, S in {1, 127, 200, 1000}, causal and full,
-    within 2e-5 (f32) and 3e-2 (bf16) — the reference kernel test's
-    tolerances — then timed at Yi-6B's width (``YI_ATTN``) in both dtypes,
-    within 1e-4 in f32 there and within 1e-4 plus one bf16 ulp of the
-    output (2^-7·|want|, elementwise) in bf16. Returns the f32 row; the bf16 figures ride
-    along under ``bf16``."""
+def check_attention(gen) -> tuple[dict, dict]:
+    """K6 on both routes against its plain version. The sweep: f32 and
+    bf16, Hq/Hkv in {4/4, 8/2, 32/4}, D in {16, 64, 128}, S in {1, 127, 200,
+    1000}, causal and full, plus bf16 at D = 128, Hq/Hkv = 8/2, S in {4097,
+    8192}, within 2e-5 (f32) and 3e-2 (bf16) — the reference kernel test's
+    tolerances; bf16 at D = 64 and 128 must take the wgmma kernel, every
+    other case the FMA kernel. Then at Yi-6B's width (``YI_ATTN``): f32
+    through the FMA kernel within ``F32_LONG_TOL``; bf16 through the wgmma
+    kernel within ``F32_LONG_TOL`` + 2^-7·|want| + 2^-8·attention_ref(q, k,
+    |v|), elementwise. Times each route there beside its plain version and
+    SDPA, the FMA kernel on the same bf16 inputs (the wgmma kernel's
+    "before"), and the wgmma kernel at the LM's prefill shape. Returns the
+    FMA kernel's row (f32) and the wgmma kernel's (bf16)."""
     import torch
 
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    n = 0
-    for dtype in worst:
+    route_name = {"wgmma": "flash_attention_wgmma", "fma": "flash_attention"}
+
+    def run(q, k, v, causal=True):
+        """flash_attention, checking that it launched its route once."""
+        before = launch_counts()
+        out = ops.flash_attention(q, k, v, causal=causal)
+        want_route = ops.kernel_route(q.dtype, q.shape[-1])
+        after = launch_counts()
+        for route, name in route_name.items():
+            if after[name] - before[name] != (route == want_route):
+                raise AssertionError(f"flash_attention {q.dtype} D={q.shape[-1]}: launched "
+                                     f"{name} {after[name] - before[name]} times")
+        return out
+
+    def qkv(b, hq, hkv, s, d, dtype):
+        return tuple(torch.randn(b, h, s, d, generator=gen).to(dtype).to(DEVICE)
+                     for h in (hq, hkv, hkv))
+
+    cases = [(dtype, 2, hq, hkv, s, d) for dtype in (torch.float32, torch.bfloat16)
+             for hq, hkv in ((4, 4), (8, 2), (32, 4)) for d in (16, 64, 128)
+             for s in (1, 127, 200, 1000)]
+    cases += [(torch.bfloat16, 1, 8, 2, s, 128) for s in K6_LONG_S]
+    worst = {"fma": 0.0, "wgmma": 0.0}
+    n = {"fma": 0, "wgmma": 0}
+    for dtype, b, hq, hkv, s, d in cases:
         tol = 2e-5 if dtype == torch.float32 else 3e-2
-        for hq, hkv in ((4, 4), (8, 2), (32, 4)):
-            for d in (16, 64, 128):
-                for s in (1, 127, 200, 1000):
-                    q = torch.randn(2, hq, s, d, generator=gen).to(dtype).to(DEVICE)
-                    k = torch.randn(2, hkv, s, d, generator=gen).to(dtype).to(DEVICE)
-                    v = torch.randn(2, hkv, s, d, generator=gen).to(dtype).to(DEVICE)
-                    for causal in (True, False):
-                        err, ok = close(flash_attention(q, k, v, causal=causal),
-                                        attention_ref(q, k, v, causal=causal), tol)
-                        n += 1
-                        if not ok:
-                            raise AssertionError(
-                                f"flash_attention {dtype} Hq={hq} Hkv={hkv} D={d} S={s} "
-                                f"causal={causal}: max abs err {err}, not within "
-                                f"rtol = atol = {tol}")
-                        worst[dtype] = max(worst[dtype], err)
-    log(f"  flash_attention      {n} cases match within rtol = atol = 2e-5 (f32) and 3e-2 "
-        f"(bf16): max abs err f32 {worst[torch.float32]:.3e}, bf16 "
-        f"{worst[torch.bfloat16]:.3e}")
+        q, k, v = qkv(b, hq, hkv, s, d, dtype)
+        route = ops.kernel_route(dtype, d)
+        for causal in (True, False):
+            err, ok = close(run(q, k, v, causal), attention_ref(q, k, v, causal=causal), tol)
+            n[route] += 1
+            if not ok:
+                raise AssertionError(
+                    f"flash_attention ({route}) {dtype} B={b} Hq={hq} Hkv={hkv} D={d} S={s} "
+                    f"causal={causal}: max abs err {err}, not within rtol = atol = {tol}")
+            worst[route] = max(worst[route], err)
+        del q, k, v
+    log(f"  flash_attention      {n['fma']} cases through the FMA kernel (f32; bf16 at D = 16) "
+        f"and {n['wgmma']} through the wgmma kernel (bf16 at D = 64, 128) match within rtol = "
+        f"atol = 2e-5 (f32) and 3e-2 (bf16): max abs err FMA {worst['fma']:.3e}, wgmma "
+        f"{worst['wgmma']:.3e}")
+    torch.cuda.empty_cache()
+
     b, hq, hkv, s, d = (YI_ATTN[x] for x in ("b", "hq", "hkv", "s", "d"))
     flops = 4 * b * hq * d * s * (s + 1) / 2
-    timed = {}
+    rows = {}
     for dtype, peak in ((torch.float32, PEAK_F32_FLOPS), (torch.bfloat16, PEAK_BF16_FLOPS)):
-        q = torch.randn(b, hq, s, d, generator=gen).to(dtype).to(DEVICE)
-        k = torch.randn(b, hkv, s, d, generator=gen).to(dtype).to(DEVICE)
-        v = torch.randn(b, hkv, s, d, generator=gen).to(dtype).to(DEVICE)
+        route = ops.kernel_route(dtype, d)
+        q, k, v = qkv(b, hq, hkv, s, d, dtype)
         want = attention_ref(q, k, v).float()
-        diff = (flash_attention(q, k, v).float() - want).abs()
+        diff = (run(q, k, v).float() - want).abs()
         err = float(diff.max())
-        # f32: 1e-4 absolute. bf16: both sides round an f32 result to bf16,
-        # so they may differ by one bf16 ulp of the output (2^-7 of |want|)
-        # on top of the f32 limit.
-        limit = F32_LONG_TOL + (BF16_ULP * want.abs() if dtype == torch.bfloat16 else 0)
+        if dtype == torch.float32:
+            limit, text = F32_LONG_TOL, f"{F32_LONG_TOL:g}"
+        else:
+            # one bf16 rounding of the output (2^-7 of |want|), and the first-
+            # order bound of storing each unnormalised probability in bf16
+            # before P·V (relative 2^-9 each, twice for l): 2^-8 of Σ p|v| / l
+            limit = (F32_LONG_TOL + BF16_ULP * want.abs()
+                     + BF16_P_ROUND * attention_ref(q, k, v.abs()).float())
+            text = f"{F32_LONG_TOL:g} + 2^-7 |want| + 2^-8 attention_ref(q, k, |v|)"
         ratio = float((diff / limit).max())
-        log(f"  flash_attention      Yi-6B width {tuple(q.shape)} kv {tuple(k.shape)} {dtype}: "
-            f"max abs err {err:.3e}, max |diff| / limit {ratio:.3f} (limit {F32_LONG_TOL:g}"
-            + (" + 2^-7 |want|)" if dtype == torch.bfloat16 else ")"))
+        log(f"  flash_attention      Yi-6B width {tuple(q.shape)} kv {tuple(k.shape)} {dtype} "
+            f"({route_name[route]}): max abs err {err:.3e}, max |diff| / limit {ratio:.3f} "
+            f"(limit {text})")
         if not ratio <= 1.0:
             raise AssertionError(f"flash_attention at Yi-6B's width, {dtype}: max |diff| / "
                                  f"limit {ratio} > 1 (max abs err {err})")
-        del want, diff
+        del want, diff, limit
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
 
         def sdpa():
             return torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True)
-        timed[dtype] = dict(
-            shape=[b, hq, hkv, s, d], max_abs_err=max(worst[dtype], err),
-            ms=time_ms(lambda: flash_attention(q, k, v), reps=5),
+        rows[route] = dict(
+            shape=[b, hq, hkv, s, d], dtype=str(dtype).removeprefix("torch."),
+            max_abs_err=max(worst[route], err), match=True,
+            ms=time_ms(lambda: ops.flash_attention(q, k, v), reps=5 if route == "fma" else 20),
             plain_ms=time_ms(lambda: attention_ref(q, k, v), reps=2),
-            library_ms=time_ms(sdpa, reps=5),
+            library_ms=time_ms(sdpa, reps=20),
             bound=(flops / peak, nbytes / PEAK_BYTES))
+        if route == "wgmma":
+            # the FMA kernel on the same bf16 inputs: this route's "before"
+            rows[route]["fma_bf16_ms"] = time_ms(lambda: ops._launch_fma(q, k, v, True),
+                                                 reps=3)
+            log(f"  flash_attention      bf16 at Yi-6B's width: wgmma {rows[route]['ms']:.4f} "
+                f"ms, FMA kernel {rows[route]['fma_bf16_ms']:.4f} ms, SDPA "
+                f"{rows[route]['library_ms']:.4f} ms, bound {flops / peak * 1e3:.4f} ms")
         del q, k, v
         torch.cuda.empty_cache()
-    row = dict(timed[torch.float32], match=True)
-    bf = timed[torch.bfloat16]
-    row["bf16"] = dict(ms=bf["ms"], plain_ms=bf["plain_ms"], library_ms=bf["library_ms"],
-                       bound_ms=max(bf["bound"]) * 1e3, max_abs_err=bf["max_abs_err"])
-    return row
+    # the wgmma kernel at the LM's prefill shape: 4 prompts of 1,024 tokens
+    q, k, v = qkv(4, hq, hkv, 1024, d, torch.bfloat16)
+    pre = dict(shape=[4, hq, hkv, 1024, d],
+               ms=time_ms(lambda: ops.flash_attention(q, k, v), reps=50),
+               library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                   q, k, v, is_causal=True, enable_gqa=True), reps=50),
+               bound_ms=4 * 4 * hq * d * 1024 * 1025 / 2 / PEAK_BF16_FLOPS * 1e3)
+    rows["wgmma"]["at_prefill_shape"] = pre
+    log(f"  flash_attention      bf16 at the LM's prefill shape {tuple(q.shape)}: wgmma "
+        f"{pre['ms']:.4f} ms, SDPA {pre['library_ms']:.4f} ms, bound {pre['bound_ms']:.4f} ms")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return rows["fma"], rows["wgmma"]
 
 
 def check_embedding_bag(gen) -> dict:
@@ -1040,40 +1109,47 @@ def logits_agree(label: str, got, want, rel: float = 1e-3) -> float:
     return diff / top
 
 
-def lm_phase(arch: str = "yi_6b", n_prompts: int = 8, lengths=(256, 1024),
-             max_batch: int = 4, new_tokens: int = 32) -> dict:
-    """The LM path at full width and depth: the server, the flash prefill
-    and decode, and forward, as the module docstring says. Returns what
-    the profile phase reuses (the model and one batch)."""
+def lm_phase(arch: str = "yi_6b", dtype: str = "float32", n_prompts: int = 8,
+             lengths=(256, 1024), max_batch: int = 4, new_tokens: int = 32) -> dict:
+    """The LM path at full width and depth in ``dtype`` (float32 or
+    bfloat16): the server, the flash prefill and decode, and (float32)
+    forward, as the module docstring says. Returns what the profile phase
+    reuses (the model and one batch)."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config, get_smoke
     from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.flash_attention.ops import kernel_route
     from repro_torch.models import transformer as tf
     from repro_torch.serve import LMServer, ServeConfig
 
-    # the smoke config on the card against the CPU port, same weights
-    small = get_smoke(arch)
-    m_dev = tf.init_params(torch.Generator(device=DEVICE).manual_seed(1), small, device=DEVICE)
-    m_cpu = tf.Transformer(small, device="cpu")
-    m_cpu.load_state_dict({k: v.cpu() for k, v in m_dev.state_dict().items()})
-    toks = torch.from_numpy(np.random.default_rng(3).integers(0, small.vocab, (2, 33)))
-    a, _ = tf.prefill(m_dev, small, toks.to(DEVICE), 40, use_flash=True)
-    b, _ = tf.prefill(m_cpu, small, toks, 40, use_flash=True)
-    logits_agree(f"{small.name} flash prefill, card vs CPU port", a.cpu(), b)
-    del m_dev, m_cpu
+    wdtype = getattr(torch, dtype)
+    if dtype == "float32":
+        # the smoke config on the card against the CPU port, same weights
+        small = get_smoke(arch)
+        m_dev = tf.init_params(torch.Generator(device=DEVICE).manual_seed(1), small,
+                               device=DEVICE)
+        m_cpu = tf.Transformer(small, device="cpu")
+        m_cpu.load_state_dict({k: v.cpu() for k, v in m_dev.state_dict().items()})
+        toks = torch.from_numpy(np.random.default_rng(3).integers(0, small.vocab, (2, 33)))
+        a, _ = tf.prefill(m_dev, small, toks.to(DEVICE), 40, use_flash=True)
+        b, _ = tf.prefill(m_cpu, small, toks, 40, use_flash=True)
+        logits_agree(f"{small.name} flash prefill, card vs CPU port", a.cpu(), b)
+        del m_dev, m_cpu
 
     cfg = get_config(arch)
     torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()  # by earlier phases (the f32 model in bf16's pass)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = tf.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg, device=DEVICE)
+    model = tf.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg, wdtype,
+                           device=DEVICE)
     torch.cuda.synchronize()
     n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
         f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}: {cfg.n_params()} "
-        f"params, {n_bytes} B of f32 weights drawn on the card in "
+        f"params, {n_bytes} B of {dtype} weights (norm scales float32) drawn on the card in "
         f"{time.perf_counter() - t0:.3f} s")
     rng = np.random.default_rng(13)
     lens = rng.integers(lengths[0], lengths[1] + 1, n_prompts)
@@ -1081,7 +1157,8 @@ def lm_phase(arch: str = "yi_6b", n_prompts: int = 8, lengths=(256, 1024),
     prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32) for n in lens]
     log(f"  prompts: {sorted(int(n) for n in lens)} tokens, {max_batch} to a batch")
 
-    # (a) the server
+    # (a) the server (its KV cache is float32 whatever the weights, as the
+    # reference server's)
     server = LMServer(model, cfg, ServeConfig(max_batch=max_batch, max_new_tokens=new_tokens))
     t0 = time.perf_counter()
     out_a = server.generate(prompts)
@@ -1093,11 +1170,14 @@ def lm_phase(arch: str = "yi_6b", n_prompts: int = 8, lengths=(256, 1024),
     log(f"  generate: {n_prompts} prompts x {new_tokens} tokens in {gen_s:.3f} s (host wall, "
         f"synchronized): {n_prompts * new_tokens / gen_s:.2f} tokens/s")
 
-    # (b) the same batches through the flash prefill and decode_step; the
-    # server's own prefill (chunked attention) recomputed for its logits and
-    # timed: that is the served path's time to first token
-    k6 = launch_counts()["flash_attention"]
-    agree, flash_ms, ttft_ms, decode_ms, ratios = 0, [], [], [], []
+    # (b) the same batches through the flash prefill and decode_step (a KV
+    # cache in the weights' dtype); the server's own prefill (chunked
+    # attention) recomputed for its logits and timed: that is the served
+    # path's time to first token
+    route = {"wgmma": "flash_attention_wgmma",
+             "fma": "flash_attention"}[kernel_route(wdtype, cfg.hd)]
+    k6 = launch_counts()
+    agree, flash_ms, ttft_ms, decode_ms, ratios, kept = 0, [], [], [], [], []
     batch0 = None
     for i in range(0, n_prompts, max_batch):
         group = prompts[i:i + max_batch]
@@ -1114,11 +1194,15 @@ def lm_phase(arch: str = "yi_6b", n_prompts: int = 8, lengths=(256, 1024),
         torch.cuda.synchronize()
         ttft_ms.append((time.perf_counter() - t0) * 1e3)
         t0 = time.perf_counter()
-        got, cache = tf.prefill(model, cfg, tokens, s_max, use_flash=True)
+        got, cache = tf.prefill(model, cfg, tokens, s_max, cache_dtype=wdtype, use_flash=True)
         torch.cuda.synchronize()
         flash_ms.append((time.perf_counter() - t0) * 1e3)
-        ratios.append(logits_agree(f"batch {i // max_batch} (plen {plen}): flash prefill vs "
-                                   "the server's chunked prefill", got, want))
+        if dtype == "float32":
+            ratios.append(logits_agree(f"batch {i // max_batch} (plen {plen}): flash prefill "
+                                       "vs the server's chunked prefill", got, want,
+                                       LOGITS_REL[dtype]))
+        else:  # held to f32 arithmetic below, once this pass's peak is read
+            kept.append((tokens, s_max, got, want))
         tok = got.argmax(-1, keepdim=True)
         gen = [tok]
         t0 = time.perf_counter()
@@ -1130,36 +1214,114 @@ def lm_phase(arch: str = "yi_6b", n_prompts: int = 8, lengths=(256, 1024),
         decode_ms.append((time.perf_counter() - t0) * 1e3 / (new_tokens - 1))
         agree += int(sum((out_b[j] == out_a[i + j]).sum() for j in range(len(group))))
         del cache
-    k6 = launch_counts()["flash_attention"] - k6
+    after = launch_counts()
     n_batches = len(flash_ms)
-    if k6 != cfg.n_layers * n_batches:
-        raise AssertionError(f"flash prefills launched K6 {k6} times, not {cfg.n_layers} x "
-                             f"{n_batches}")
+    for name in ("flash_attention", "flash_attention_wgmma"):
+        want_n = cfg.n_layers * n_batches if name == route else 0
+        if after[name] - k6[name] != want_n:
+            raise AssertionError(f"{dtype} flash prefills launched {name} "
+                                 f"{after[name] - k6[name]} times, not {want_n}")
+    k6 = after[route] - k6[route]
     log(f"  greedy tokens equal between the server and the flash path: {agree} of "
         f"{n_prompts * new_tokens}")
-    log(f"  K6 launches: {k6} = {cfg.n_layers} layers x {n_batches} flash prefills")
+    log(f"  K6 launches: {k6} of {route} = {cfg.n_layers} layers x {n_batches} flash prefills "
+        f"(none of the other route)")
     for i, (c, f, d) in enumerate(zip(ttft_ms, flash_ms, decode_ms)):
         log(f"  batch {i}: time to first token {c:.3f} ms (the server's prefill, chunked "
             f"attention, as generate runs it); the flash prefill (K6) {f:.3f} ms; decode "
             f"{d:.3f} ms per token (host wall per step)")
 
-    # prefill of all but the last token plus one decode step == forward
-    t = torch.from_numpy(prompts[0][None].astype(np.int64)).to(DEVICE)
-    last, cache = tf.prefill(model, cfg, t[:, :-1], t.shape[1], use_flash=True)
-    step, _ = tf.decode_step(model, cfg, cache, t[:, -1:], t.shape[1] - 1)
-    full, _ = tf.forward(model, cfg, t, use_flash=True)
-    logits_agree("prefill(tokens[:, :-1]) vs forward[:, -2]", last, full[:, -2])
-    logits_agree("prefill + decode_step vs forward[:, -1]", step, full[:, -1])
-    del cache, full
+    if dtype == "float32":
+        # prefill of all but the last token plus one decode step == forward
+        t = torch.from_numpy(prompts[0][None].astype(np.int64)).to(DEVICE)
+        last, cache = tf.prefill(model, cfg, t[:, :-1], t.shape[1], use_flash=True)
+        step, _ = tf.decode_step(model, cfg, cache, t[:, -1:], t.shape[1] - 1)
+        full, _ = tf.forward(model, cfg, t, use_flash=True)
+        logits_agree("prefill(tokens[:, :-1]) vs forward[:, -2]", last, full[:, -2])
+        logits_agree("prefill + decode_step vs forward[:, -1]", step, full[:, -1])
+        del cache, full
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    log(f"  peak allocated {peak} B ({n_bytes} B of weights)")
-    return dict(model=model, cfg=cfg, batch=batch0, new_tokens=new_tokens,
-                summary=dict(generate_s=gen_s, tokens_per_s=n_prompts * new_tokens / gen_s,
+    peak = torch.cuda.max_memory_allocated() - held
+    log(f"  peak allocated by this pass {peak} B ({n_bytes} B of {dtype} weights; {held} B "
+        "held by earlier phases not counted)")
+    extra = {}
+    if dtype == "bfloat16":
+        extra["bf16_logits"] = bf16_logits_check(model, cfg, kept)
+        del kept
+        extra["parting_layers"] = parting_layers(model, cfg, batch0)
+        ratios = [r["flash_vs_f32"] / r["chunked_vs_f32"] for r in extra["bf16_logits"]]
+    return dict(model=model, cfg=cfg, batch=batch0, new_tokens=new_tokens, cache_dtype=wdtype,
+                summary=dict(dtype=dtype, generate_s=gen_s,
+                             tokens_per_s=n_prompts * new_tokens / gen_s,
                              ttft_ms=ttft_ms, flash_prefill_ms=flash_ms,
                              decode_ms_per_token=decode_ms, peak_bytes=peak,
-                             k6_launches=k6, tokens_equal=agree,
-                             logit_ratio=max(ratios)))
+                             weight_bytes=n_bytes, k6_route=route, k6_launches=k6,
+                             tokens_equal=agree, logit_ratio=max(ratios), **extra))
+
+
+def bf16_logits_check(model, cfg, kept: list) -> list:
+    """The bf16 flash prefill's last-token logits held to f32 arithmetic on
+    the same (bf16) weights: no farther from it than twice the distance of
+    the server's bf16 chunked prefill — the accuracy test of FlashAttention's
+    own suite (a kernel's error against an f32 reference at most twice that
+    of a plain implementation in the same dtype), as a fraction of the
+    largest logit. The two bf16 paths' distance from each other is printed
+    beside it against ``LOGITS_REL["bfloat16"]``: both are about 2e-2 of the
+    largest logit from f32 arithmetic, so that distance is bf16's own noise
+    floor here (PERF.md). Returns the three distances per batch."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    truth = tf.Transformer(cfg, torch.float32, device=DEVICE)
+    truth.load_state_dict(model.state_dict())  # every bf16 value is an f32 value
+    out = []
+    for i, (tokens, s_max, got, want) in enumerate(kept):
+        plen = tokens.shape[1]
+        exact, _ = tf.prefill(truth, cfg, tokens, s_max, chunk_q=min(512, plen))
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            raise AssertionError(f"bf16 batch {i}: logits are not finite")
+        top = float(exact.abs().max())
+        f_err = float((got - exact).abs().max()) / top
+        c_err = float((want - exact).abs().max()) / top
+        pair = float((got - want).abs().max()) / float(want.abs().max())
+        log(f"  batch {i} (plen {plen}), bf16: max |logit - f32 arithmetic| / max |logit|: "
+            f"flash prefill {f_err:.3e}, the server's chunked prefill {c_err:.3e} (flash must "
+            f"be <= 2x chunked: {f_err / c_err:.3f}x); flash vs chunked {pair:.3e} ("
+            f"{'within' if pair <= LOGITS_REL['bfloat16'] else 'above'} "
+            f"{LOGITS_REL['bfloat16']:g})")
+        if not f_err <= 2 * c_err:
+            raise AssertionError(f"bf16 batch {i}: the flash prefill is {f_err / c_err:.3f}x "
+                                 "as far from f32 arithmetic as the chunked prefill (> 2x)")
+        out.append(dict(flash_vs_f32=f_err, chunked_vs_f32=c_err, flash_vs_chunked=pair))
+        del exact
+    del truth
+    torch.cuda.empty_cache()
+    return out
+
+
+def parting_layers(model, cfg, tokens) -> list:
+    """Where the bf16 flash and chunked paths part: max |x_flash - x_chunked|
+    / max |x_chunked| of the residual stream after each layer, each path
+    fed its own previous output (batch 0)."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import rotary_cos_sin
+
+    with torch.no_grad():
+        xc = xf = model.embed[tokens.long()]
+        cos, sin = rotary_cos_sin(torch.arange(tokens.shape[1], device=xc.device), cfg.hd,
+                                  cfg.rope_theta)
+        chunk = min(512, tokens.shape[1])
+        out = []
+        for blk in model.layers:
+            xc = tf._block(cfg, blk, xc, cos, sin, use_flash=False, chunk_q=chunk)
+            xf = tf._block(cfg, blk, xf, cos, sin, use_flash=True, chunk_q=chunk)
+            out.append(float((xf - xc).abs().max() / xc.abs().max()))
+    log("  bf16 residual stream, flash vs chunked, per layer (batch 0): "
+        + " ".join(f"{r:.2e}" for r in out))
+    return out
 
 
 def recsys_phase(arch: str = "autoint", rows: int = 16_384, n_cand: int = 100_000,
@@ -1268,7 +1430,8 @@ def profile_lm(lm: dict) -> dict:
     model, cfg, tokens, n = lm["model"], lm["cfg"], lm["batch"], lm["new_tokens"]
 
     def run():
-        logits, cache = tf.prefill(model, cfg, tokens, tokens.shape[1] + n, use_flash=True)
+        logits, cache = tf.prefill(model, cfg, tokens, tokens.shape[1] + n,
+                                   cache_dtype=lm["cache_dtype"], use_flash=True)
         tok = logits.argmax(-1, keepdim=True)
         for step in range(n):
             logits, cache = tf.decode_step(model, cfg, cache, tok, tokens.shape[1] + step)
@@ -1284,7 +1447,8 @@ def profile_lm(lm: dict) -> dict:
     events = prof.key_averages()
     dev_rows = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev_rows) / 1e3
-    log(f"  {cfg.name} flash prefill {tuple(tokens.shape)} + {n} decode steps: "
+    log(f"  {cfg.name} {lm['summary']['dtype']} flash prefill {tuple(tokens.shape)} + {n} "
+        f"decode steps: "
         f"wall={wall_ms:.3f} ms device_busy={busy_ms:.3f} ms "
         f"device_idle_share={1 - busy_ms / wall_ms:.4f}")
     top_dev = sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:8]
@@ -1358,7 +1522,7 @@ def main() -> int:
     log(f"[build] {len(logs)} kernel libraries in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(w in line.lower() for w in ("registers", "spill", "error", "warning")):
                 log(f"  {name}: {line.strip()}")
 
     t0 = time.perf_counter()
@@ -1396,10 +1560,15 @@ def main() -> int:
     hybrid_table = hybrid_phase(graphs, table)
     log(f"[hybrid] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    log("[lm] Yi-6B at full width and depth: LMServer.generate, flash prefill + "
+    log("[lm] Yi-6B at full width and depth, f32 weights: LMServer.generate, flash prefill + "
         "decode_step, forward")
     lm = lm_phase()
     log(f"[lm] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log("[lm bf16] Yi-6B at full width and depth, bf16 weights: LMServer.generate, flash "
+        "prefill (wgmma K6) + decode_step with a bf16 cache, held to f32 arithmetic")
+    lm_bf16 = lm_phase(dtype="bfloat16")
+    log(f"[lm bf16] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     log("[recsys] AutoInt at its full config: ctr_logits, retrieval_scores, "
         "lookup_multihot through K7")
@@ -1413,9 +1582,10 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     t0 = time.perf_counter()
     log("[profile] one planner-chosen count each, a NY and a YT count_stream, and a Yi-6B "
-        "flash prefill + decode, torch.profiler (CPU + CUDA)")
-    lm["summary"]["profile"] = profile_lm(lm)
-    del lm["model"], lm["batch"]  # the counts' peaks below exclude the LM's weights
+        "flash prefill + decode in f32 and in bf16, torch.profiler (CPU + CUDA)")
+    for one in (lm, lm_bf16):
+        one["summary"]["profile"] = profile_lm(one)
+        del one["model"], one["batch"]  # the counts' peaks below exclude the LM's weights
     torch.cuda.empty_cache()
     profile_phase(graphs)
     log(f"[profile] done in {time.perf_counter() - t0:.1f} s")
@@ -1436,6 +1606,8 @@ def main() -> int:
                     "src/repro/kernels/bitset_count/bitset_count.py:86",
                 "flash_attention":
                     "src/repro/kernels/flash_attention/flash_attention.py:62",
+                "flash_attention_wgmma":
+                    "src/repro/kernels/flash_attention/flash_attention.py:62",
                 "embedding_bag": "src/repro/kernels/embedding_bag/embedding_bag.py:32",
             }[name],
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
@@ -1447,13 +1619,14 @@ def main() -> int:
             # unless every case is within its tolerance
             "match": r.get("match", r["max_abs_err"] == 0),
             "kernel_ms": r["ms"], "shape": r["shape"],
-            **({"bf16": r["bf16"]} if "bf16" in r else {}),
-            **({k: r[k] for k in ("k3_ms", "at_k3_shape") if k in r}),
+            **({k: r[k] for k in ("k3_ms", "at_k3_shape", "dtype", "fma_bf16_ms",
+                                  "at_prefill_shape") if k in r}),
         })
         log(f"  bound of {name}: operations {ops_ms:.6f} ms, bytes {bytes_ms:.6f} ms")
     log("[stream table] " + json.dumps(table))
     log("[hybrid table] " + json.dumps(hybrid_table))
     log("[lm summary] " + json.dumps(lm["summary"]))
+    log("[lm bf16 summary] " + json.dumps(lm_bf16["summary"]))
     log("[recsys summary] " + json.dumps(recsys))
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": out}))

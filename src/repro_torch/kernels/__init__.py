@@ -14,7 +14,8 @@ def kernels() -> dict:
     return {"triangle_count_live": tc.LIVE, "masked_matmul_sum": tc.MASKED,
             "bitset_edge_count": bs.EDGE, "bitset_pair_count": bs.PAIR,
             "bitset_edge_count_per_edge": bs.PER_EDGE,
-            "flash_attention": fa.FLASH, "embedding_bag": eb.BAG}
+            "flash_attention": fa.FLASH, "flash_attention_wgmma": fa.FLASH_WGMMA,
+            "embedding_bag": eb.BAG}
 
 
 def launch_counts() -> dict[str, int]:

@@ -3,15 +3,17 @@
 //
 // Replaces the Pallas kernel `flash_attention_kernel` of
 // src/repro/kernels/flash_attention/flash_attention.py: the decoder LM's
-// prefill/forward attention when `use_flash=True`.
+// prefill/forward attention when `use_flash=True`, for f32 inputs and for
+// bf16 inputs at head dims other than 64 and 128. bf16 at D = 64 or 128
+// goes to the tensor-core kernel of flash_attention_sm90.cu (`wgmma` fed by
+// TMA); the wrapper (ops.py) picks the route from (dtype, D) alone.
 //
 // What bounds it on this card: operations. A causal pass does
 // 4·B·Hq·D·S(S+1)/2 FLOPs against (|q| + |k| + |v| + |o|) bytes, hundreds
-// of operations per byte at S in the thousands. This first version runs on
-// the f32 FMA pipes (67 TFLOP/s at most), for f32 and bf16 inputs alike:
-// bf16 is widened to f32 on load, so both dtypes compute the plain
-// version's f32 arithmetic. `wgmma` on bf16 tiles and TMA loads are for a
-// later version.
+// of operations per byte at S in the thousands. It runs on the f32 FMA
+// pipes (67 TFLOP/s at most), for f32 and bf16 inputs alike: bf16 is
+// widened to f32 on load, so both dtypes compute the plain version's f32
+// arithmetic.
 //
 // Design against the TPU kernel: the Pallas grid walks (b, h, q block, kv
 // block) in order and keeps the running (m, l, acc) in VMEM scratch across

@@ -1,10 +1,14 @@
-"""Wrapper of the flash-attention CUDA kernel (``csrc/flash_attention.cu``),
-K6.
+"""Wrappers of the two flash-attention CUDA kernels, K6.
 
 On CPU tensors :func:`flash_attention` runs the plain version
-(``ref.attention_ref``); on CUDA tensors it launches the kernel or raises.
-The kernel masks a ragged sequence itself, so unlike the reference wrapper
-nothing is padded and ``causal=False`` is taken at any S."""
+(``ref.attention_ref``); on CUDA tensors it launches one of two kernels or
+raises, and :func:`kernel_route` alone decides which from (dtype, head
+dim): bf16 at D ∈ {64, 128} goes to ``csrc/flash_attention_sm90.cu``
+(``wgmma`` on the bf16 tensor cores, fed by TMA), everything else to the
+f32 FMA kernel of ``csrc/flash_attention.cu``. The choice is by shape,
+never by failure: a build or launch error raises. Both kernels mask a
+ragged sequence themselves, so unlike the reference wrapper nothing is
+padded and ``causal=False`` is taken at any S."""
 from __future__ import annotations
 
 import ctypes
@@ -23,8 +27,40 @@ FLASH = CudaKernel(
      _L, _L, _L, _L, _L, _L,         # v, out strides over (b, h, s)
      _I, ctypes.c_float, _I],        # causal, scale, dtype code
     "fa_error_string")
+FLASH_WGMMA = CudaKernel(
+    "flash_attention_sm90", "fa_forward_wgmma",
+    [_P, _P, _P, _P,                 # q, k, v, out
+     _I, _I, _I, _I, _I,             # B, Hq, Hkv, S, D
+     _L, _L, _L, _L, _L, _L,         # q, k strides over (b, h, s)
+     _L, _L, _L, _L, _L, _L,         # v, out strides over (b, h, s)
+     _I, ctypes.c_float],            # causal, scale
+    "fa_wgmma_error_string")
 MAX_HEAD_DIM = 256
+WGMMA_HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_TMA_ALIGN = 16  # bytes: TMA's rule for a base address and every stride
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call takes: ``"wgmma"`` for bf16 at a head dim in
+    :data:`WGMMA_HEAD_DIMS`, else ``"fma"``."""
+    return "wgmma" if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS else "fma"
+
+
+def _tma_strides(x: torch.Tensor) -> tuple[int, int, int] | None:
+    """x's (b, h, s) element strides as TMA takes them, or None when its
+    base or a stride breaks TMA's 16-byte rule. A dimension of size 1 is
+    never stepped over, so its stride is replaced by the contiguous one."""
+    if x.stride(-1) != 1 or x.data_ptr() % _TMA_ALIGN:
+        return None
+    b, h, s, d = x.shape
+    out = []
+    for st, n, dense in zip(x.stride()[:3], (b, h, s), (h * s * d, s * d, d)):
+        st = st if n > 1 else dense
+        if st <= 0 or st * x.element_size() % _TMA_ALIGN:
+            return None
+        out.append(st)
+    return tuple(out)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -35,8 +71,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     On the card q, k and v may be any strided views whose last dimension
     is contiguous (the transposed head views of ``attention._split_heads``
-    are read in place); anything else is copied contiguous first. The
-    output has q's layout, so transposing it back to (B, S, Hq·D) is free.
+    are read in place); on the ``wgmma`` route their bases and strides must
+    also keep TMA's 16-byte rule. Anything else is copied contiguous first.
+    The output has q's layout, so transposing it back to (B, S, Hq·D) is
+    free.
     """
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape or q.shape[0] != k.shape[0] \
             or q.shape[2:] != k.shape[2:] or k.shape[1] == 0 or q.shape[1] % k.shape[1]:
@@ -52,16 +90,40 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"the CUDA kernel takes float32 or bfloat16 q, k, v of one dtype, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    b, hq, s, d = q.shape
+    d = q.shape[-1]
     if d > MAX_HEAD_DIM:
         raise ValueError(f"the CUDA kernel takes head dims up to {MAX_HEAD_DIM}, got {d}")
+    if kernel_route(q.dtype, d) == "wgmma":
+        return _launch_wgmma(q, k, v, causal)
+    return _launch_fma(q, k, v, causal)
+
+
+def _launch_fma(q, k, v, causal: bool) -> torch.Tensor:
+    """The f32 FMA kernel (f32 or bf16 inputs, any D <= 256)."""
     q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
     out = torch.empty_like(q)  # q's layout; its last dimension is contiguous
+    b, hq, s, d = q.shape
     if out.numel():
-        with torch.cuda.device(dev):
+        with torch.cuda.device(q.device):
             FLASH(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   b, hq, k.shape[1], s, d,
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
                   int(causal), d**-0.5, _DTYPE_CODE[q.dtype],
-                  stream=torch.cuda.current_stream(dev).cuda_stream)
+                  stream=torch.cuda.current_stream(q.device).cuda_stream)
+    return out
+
+
+def _launch_wgmma(q, k, v, causal: bool) -> torch.Tensor:
+    """bf16 at D ∈ {64, 128}: the TMA + ``wgmma`` kernel. An input whose
+    base or strides break TMA's 16-byte rule is copied contiguous first."""
+    q, k, v = (x if _tma_strides(x) else x.contiguous() for x in (q, k, v))
+    out = torch.empty_like(q)  # q's layout; its last dimension is contiguous
+    b, hq, s, d = q.shape
+    if out.numel():
+        with torch.cuda.device(q.device):
+            FLASH_WGMMA(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                        b, hq, k.shape[1], s, d,
+                        *_tma_strides(q), *_tma_strides(k), *_tma_strides(v),
+                        *out.stride()[:3], int(causal), d**-0.5,
+                        stream=torch.cuda.current_stream(q.device).cuda_stream)
     return out

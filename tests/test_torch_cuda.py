@@ -41,7 +41,7 @@ from repro_torch.kernels.bitset_count.ref import (  # noqa: E402
 )
 from repro_torch.kernels.embedding_bag.ops import embedding_bag  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E402
-from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import flash_attention, kernel_route  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.triangle_count.ops import (  # noqa: E402
     masked_matmul_sum,
@@ -385,23 +385,96 @@ def test_hybrid_ingest_never_waits_for_the_card(cuda):
 # --------------------------------------------------------------------------
 # K6 and K7, and the LM and recsys paths on the card
 # --------------------------------------------------------------------------
+_K6 = {"wgmma": "flash_attention_wgmma", "fma": "flash_attention"}
+
+
+def _assert_one_launch(before: dict, route: str, n: int = 1) -> None:
+    """Exactly ``n`` launches of K6's ``route`` since ``before``, none of the
+    other route."""
+    now = launch_counts()
+    for r, name in _K6.items():
+        assert now[name] - before[name] == (n if r == route else 0), (name, route)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hq,hkv,d", [(4, 4, 16), (8, 2, 64), (32, 4, 128), (4, 1, 200)])
 @pytest.mark.parametrize("s", [1, 127, 200])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel_equals_plain(cuda, dtype, hq, hkv, d, s, causal):
-    """Tolerances of the reference's kernel test: 2e-5 (f32), 3e-2 (bf16)."""
+    """Tolerances of the reference's kernel test: 2e-5 (f32), 3e-2 (bf16).
+    bf16 at D = 64 and 128 takes the wgmma kernel, every other case the FMA
+    kernel: one launch of that route and none of the other."""
     g = torch.Generator(device=cuda).manual_seed(hq * s + d)
     q = torch.randn(2, hq, s, d, generator=g, device=cuda).to(dtype)
     k = torch.randn(2, hkv, s, d, generator=g, device=cuda).to(dtype)
     v = torch.randn(2, hkv, s, d, generator=g, device=cuda).to(dtype)
-    before = launch_counts()["flash_attention"]
+    before = launch_counts()
     got = flash_attention(q, k, v, causal=causal)
-    assert launch_counts()["flash_attention"] == before + 1
+    _assert_one_launch(before, kernel_route(dtype, d))
     assert got.dtype == dtype and got.shape == q.shape
     want = attention_ref(q, k, v, causal=causal)
     tol = 2e-5 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (32, 4)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 63, 127, 128, 129, 200, 1000, 4097])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_wgmma_equals_plain(cuda, hq, hkv, d, s, causal):
+    """The bf16 tensor-core kernel (TMA ring, wgmma) against the plain
+    version at rtol = atol = 3e-2, the reference kernel test's bf16
+    tolerance, across ragged and whole 128-key tiles. At S = 4097 also the
+    Yi-width limit of chip_smoke.py, elementwise: 1e-4 + 2^-7 |want| +
+    2^-8 attention_ref(q, k, |v|) — the second term one bf16 rounding of the
+    output, the third the first-order bound of storing each unnormalised
+    probability in bf16 before P·V (relative 2^-9 each, twice for l)."""
+    g = torch.Generator(device=cuda).manual_seed(hq * s + d + causal)
+    b = 2 if s < 4097 else 1
+    q = torch.randn(b, hq, s, d, generator=g, device=cuda).bfloat16()
+    k = torch.randn(b, hkv, s, d, generator=g, device=cuda).bfloat16()
+    v = torch.randn(b, hkv, s, d, generator=g, device=cuda).bfloat16()
+    before = launch_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    _assert_one_launch(before, "wgmma")
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = attention_ref(q, k, v, causal=causal).float()
+    torch.testing.assert_close(got.float(), want, rtol=3e-2, atol=3e-2)
+    if s == 4097:
+        limit = 1e-4 + 2.0**-7 * want.abs() + 2.0**-8 * attention_ref(
+            q, k, v.abs(), causal=causal).float()
+        assert bool(((got.float() - want).abs() <= limit).all())
+
+
+def test_flash_attention_wgmma_reads_head_views_in_place(cuda):
+    """The transposed head views of attention._split_heads keep TMA's
+    16-byte rule: they are read in place, so the output keeps q's layout."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(2, 300, 8 * 128, generator=g, device=cuda).bfloat16()
+    y = torch.randn(2, 300, 2 * 128, generator=g, device=cuda).bfloat16()
+    q = x.reshape(2, 300, 8, 128).transpose(1, 2)
+    kv = y.reshape(2, 300, 2, 128).transpose(1, 2)
+    before = launch_counts()
+    got = flash_attention(q, kv, kv)
+    _assert_one_launch(before, "wgmma")
+    assert got.stride() == q.stride()
+    torch.testing.assert_close(got.float(), attention_ref(q, kv, kv).float(), rtol=3e-2,
+                               atol=3e-2)
+
+
+def test_flash_attention_wgmma_copies_what_tma_cannot_read(cuda):
+    """A base 2 bytes off 16-byte alignment and rows of 65 elements (130
+    bytes) break TMA's rule: the wrapper copies them, never refuses them."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(2, 4, 130, 65, generator=g, device=cuda).bfloat16()
+    q = x[..., 1:]                       # base +2 bytes, row stride 65
+    kv = torch.randn(2, 2, 130, 72, generator=g, device=cuda).bfloat16()[..., 8:]
+    assert q.data_ptr() % 16 and q.stride(2) == 65
+    before = launch_counts()
+    got = flash_attention(q, kv, kv, causal=False)
+    _assert_one_launch(before, "wgmma")
+    torch.testing.assert_close(got.float(), attention_ref(q, kv, kv, causal=False).float(),
+                               rtol=3e-2, atol=3e-2)
 
 
 def test_flash_attention_kernel_reads_head_views_in_place(cuda):
@@ -461,6 +534,31 @@ def test_lm_flash_prefill_launches_k6_per_layer_and_matches_the_cpu_port(cuda, a
     step, _ = tf.decode_step(model, cfg, cache, nxt, 37)
     host_step, _ = tf.decode_step(host, cfg, host_cache, nxt.cpu(), 37)
     torch.testing.assert_close(step.cpu(), host_step, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("head_dim", [None, 128], ids=["smoke", "hd128"])
+def test_lm_bf16_flash_prefill_matches_the_cpu_port(cuda, head_dim):
+    """The Yi-6B smoke config in bf16 with a bf16 cache, on the card against
+    the CPU port on the same weights, within 2e-2 of the largest logit (as
+    chip_smoke.py holds the bf16 flash prefill to the chunked one). Its head
+    dim 16 takes the FMA route; widened to 128 it takes the wgmma route, one
+    launch per layer either way."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(get_smoke("yi_6b"), head_dim=head_dim)
+    model = tf.init_params(torch.Generator(device=cuda).manual_seed(4), cfg, torch.bfloat16,
+                           device=cuda)
+    host = tf.Transformer(cfg, torch.bfloat16, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, (2, 150)))
+    before = launch_counts()
+    got, cache = tf.prefill(model, cfg, toks.to(cuda), 160, use_flash=True,
+                            cache_dtype=torch.bfloat16)
+    _assert_one_launch(before, kernel_route(torch.bfloat16, cfg.hd), cfg.n_layers)
+    want, _ = tf.prefill(host, cfg, toks, 160, use_flash=True, cache_dtype=torch.bfloat16)
+    assert cache["dense"]["k"].dtype == torch.bfloat16
+    assert float((got.cpu() - want).abs().max()) <= 2e-2 * float(want.abs().max())
 
 
 def test_lm_server_on_the_card(cuda):

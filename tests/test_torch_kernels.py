@@ -39,7 +39,11 @@ from repro_torch.kernels.bitset_count.ref import (  # noqa: E402
 )
 from repro_torch.kernels.embedding_bag.ops import embedding_bag  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E402
-from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    _tma_strides,
+    flash_attention,
+    kernel_route,
+)
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.triangle_count.ops import (  # noqa: E402
     live_grid_size,
@@ -281,6 +285,35 @@ def test_flash_attention_reads_head_views_and_rejects_bad_shapes():
             flash_attention(*bad)
 
 
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.float32, 64, "fma"), (torch.float32, 128, "fma"),
+    (torch.bfloat16, 16, "fma"), (torch.bfloat16, 200, "fma")])
+def test_flash_attention_route_is_chosen_by_dtype_and_head_dim(dtype, d, route):
+    """On the card bf16 at D in {64, 128} launches the wgmma kernel and
+    everything else the FMA kernel; nothing but (dtype, D) decides."""
+    assert kernel_route(dtype, d) == route
+
+
+def test_tma_strides_take_head_views_and_refuse_what_tma_cannot_read():
+    """The wgmma route reads q, k, v in place when their bases and strides
+    keep TMA's 16-byte rule, and copies them contiguous otherwise."""
+    x = torch.zeros(2, 300, 8 * 64, dtype=torch.bfloat16)
+    q = x.reshape(2, 300, 8, 64).transpose(1, 2)          # _split_heads' layout
+    assert _tma_strides(q) == q.stride()[:3] == (300 * 512, 64, 512)
+    # a dimension of size 1 is never stepped over: its stride may be anything
+    one = torch.zeros(1, 4, 5, 64, dtype=torch.bfloat16).as_strided((1, 4, 5, 64),
+                                                                   (3, 320, 64, 1))
+    assert _tma_strides(one) == (1280, 320, 64)
+    wide = torch.zeros(2, 3, 5, 72, dtype=torch.bfloat16)
+    assert _tma_strides(wide[..., :64]) == (1080, 360, 72)  # 144-byte rows
+    assert _tma_strides(torch.zeros(2, 3, 5, 68, dtype=torch.bfloat16)[..., :64]) is None
+    assert _tma_strides(wide[..., 1:65]) is None           # base 2 bytes off
+    assert _tma_strides(wide[..., :64].transpose(-1, -2)) is None  # last dim strided
+    assert _tma_strides(torch.zeros(1, 2, 5, 64, dtype=torch.bfloat16).expand(
+        3, 2, 5, 64)) is None                               # a zero stride
+
+
 # --------------------------------------------------------------------------
 # K7: sum-mode EmbeddingBag (tolerances of tests/test_kernel_embedding_bag.py)
 # --------------------------------------------------------------------------
@@ -342,7 +375,7 @@ def test_cpu_tensors_run_the_plain_versions_and_launch_nothing():
 
 def test_kernel_sources_are_found():
     assert set(_build.sources()) == {"triangle_count", "bitset_count", "flash_attention",
-                                     "embedding_bag"}
+                                     "flash_attention_sm90", "embedding_bag"}
     for name in _build.sources():
         path = _build.library_path(name)
         assert path.parent == _build.BUILD_DIR and path.name.startswith(name + "-")

@@ -346,6 +346,57 @@ def test_flash_prefill_on_the_cpu_launches_nothing(lm):
 
 
 # --------------------------------------------------------------------------
+# The model in bf16 (the configuration chip_smoke.py serves Yi-6B in)
+# --------------------------------------------------------------------------
+BF16_REL = 2e-2  # of the largest |value|: bf16 keeps 8 significant bits, and
+# XLA's and PyTorch's CPU products round at different places over the layers
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def lm_bf16(request):
+    """(reference cfg, reference bf16 params, port cfg, port bf16 model):
+    the reference's ``init_params(dtype=bfloat16)`` carried across exactly
+    (every bf16 value is an f32 value) into a bf16 ``Transformer`` whose
+    norm scales stay float32, as the reference's do."""
+    cfg = ref_get_smoke(request.param)
+    params = ref_tf.init_params(jax.random.PRNGKey(0), cfg, dtype=jnp.bfloat16)
+    pcfg = get_smoke(request.param)
+    f32 = lm_params_from_numpy(jax.tree.map(np.asarray, params), pcfg, device="cpu")
+    model = tf.Transformer(pcfg, torch.bfloat16, device="cpu")
+    model.load_state_dict(f32.state_dict())
+    return cfg, params, pcfg, model
+
+
+def _close_rel(got, want, rel=BF16_REL):
+    got = np.asarray(got.float() if isinstance(got, torch.Tensor) else got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert np.isfinite(got).all() and got.shape == want.shape
+    assert np.abs(got - want).max() <= rel * np.abs(want).max()
+
+
+def test_bf16_flash_prefill_and_decode_match_reference(lm_bf16):
+    """prefill(use_flash=True) with a bf16 cache (the reference's Pallas
+    kernel in interpret mode, K6's plain version here), then one
+    decode_step: logits and every cache entry within 2e-2 of the largest."""
+    cfg, params, pcfg, model = lm_bf16
+    assert model.embed.dtype == torch.bfloat16 and model.layers[0].ln1.dtype == torch.float32
+    toks = _tokens(cfg, (2, 11), 6)
+    want, ref_cache = ref_tf.prefill(params, cfg, jnp.asarray(toks), 20, use_flash=True,
+                                     cache_dtype=jnp.bfloat16)
+    got, cache = tf.prefill(model, pcfg, _t(toks), 20, use_flash=True,
+                            cache_dtype=torch.bfloat16)
+    assert got.dtype == torch.float32
+    _close_rel(got, want)
+    for name in ("k", "v"):
+        assert cache["dense"][name].dtype == torch.bfloat16
+        _close_rel(cache["dense"][name], ref_cache["dense"][name].astype(jnp.float32))
+    tok = np.asarray(jnp.argmax(want, -1))[:, None].astype(np.int32)
+    want, _ = ref_tf.decode_step(params, cfg, ref_cache, jnp.asarray(tok), jnp.int32(11))
+    got, _ = tf.decode_step(model, pcfg, cache, _t(tok), 11)
+    _close_rel(got, want)
+
+
+# --------------------------------------------------------------------------
 # The server
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("lengths", [(6, 6, 6), (3, 9, 5, 7)], ids=["equal", "mixed"])
