@@ -4,17 +4,21 @@
     python3 chip_smoke.py
 
 1. Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
-   (one ``nvcc`` per source, all in parallel) and holds each kernel against
+   (one ``nvcc`` per source, all in parallel), runs K2's first launches in
+   a child process (``chip_smoke.py --probe``) under a time limit, and
+   holds each kernel against
    its plain PyTorch version on the card at several shapes: the counting
    kernels as exact integers (ragged sizes, phantom edges, the shapes the
-   main path gives them at the paper's full Table-1 sizes), flash attention
+   main path gives them at the paper's full Table-1 sizes; K2 also all ones
+   past 2³¹ and a ring whose rows break TMA's 16-byte rule), flash attention
    (K6: the FMA kernel for f32, the wgmma kernel for bf16 at D = 64, 128)
    and EmbeddingBag (K7) within the reference kernel tests'
    tolerances, at Yi-6B's and AutoInt's full widths among others. Float32
    products run in true float32 (TF32 off, asserted). Times each kernel, its plain
    version and, where one exists, a single PyTorch call computing the same
    function (``library_ms``; the port never calls it). The per-edge closure
-   (K5) is timed beside K3 at K3's shape and at the hybrid stream's.
+   (K5) is timed beside K3 at K3's shape and at the hybrid stream's; K2 at
+   FNA.5's ring visit and at FB107x9's (``at_fb107x9_shape``).
 2. Serves the Table-1 graphs at full scale (DSJC.1/.5/.9, FB107, FNA.5, NY),
    the FB107 family scaled to n = 17,199, and 16 small graphs through
    ``TriangleServer(device="cuda").serve``.
@@ -68,7 +72,12 @@
 8. Profiles one planner-chosen count of FNA.5 and of NY, one planner-chosen
    ``count_stream`` of NY and of YT, and one Yi-6B flash prefill plus 32
    decode steps in f32 and in bf16, with ``torch.profiler``: host wall,
-   device busy time, the device's idle share.
+   device busy time, the device's idle share. Each window opens with marker
+   kernels, and a profile counts only when it is consistent (a marker
+   survived the profiler's loss of a session's first records, device busy
+   above 0, CUDA kernel rows at least the port's launches in the run, a
+   host-to-device copy row for each count); an inconsistent one is profiled
+   again with four times the markers, and the third raises.
 
 Phases 2 to 7 are the main path: every kernel's launch count is set to 0
 before them and must be above 0 after them. Any mismatch or exception exits
@@ -112,6 +121,22 @@ PEAK_F32_FLOPS = 66.9e12
 PEAK_BF16_FLOPS = 989.4e12
 # Yi-6B's attention at a long prefill: K6 is timed at this shape.
 YI_ATTN = dict(b=1, hq=32, hkv=4, s=8192, d=128)
+# K2 against its plain version (each with and without the upper-triangular
+# skip): ragged single tiles, several output tiles and contraction slices
+K2_SHAPES = ((64, 64, 64), (100, 70, 130), (33, 1, 17), (512, 2048, 2048),
+             (300, 513, 129), (129, 8200, 130), (200, 300, 9000))
+# The first K2 launches run in a child process under this limit: a wrong
+# mbarrier parity hangs the card rather than failing
+PROBE_TIMEOUT_S = 180
+# [profile] profiles a run again while its device rows disagree with the
+# port's launches or lack its copies, this many times in all, then raises
+PROFILE_TRIES = 3
+# Marker kernels (torch.cuda._sleep's spin_kernel) that lead each profiled
+# window: on the card the profiler drops the first few device records of a
+# session, more of them the longer the process has run (PERF.md §6),
+# so a window counts only when one of its markers survives. Four times as
+# many on each retry.
+PROFILE_MARKERS = 64
 # Long sequences of K6's bf16 sweep (many full 128-key tiles, a ragged last)
 K6_LONG_S = (4097, 8192)
 # K6 against its plain version at that shape: 1e-4 absolute in f32; in bf16
@@ -249,7 +274,10 @@ def check_kernels(graphs: dict) -> dict:
     from repro_torch.core.triangle_pipeline import (
         build_bitset_ring_operands,
         build_dense_ring_operands,
+        count_triangles_ring,
     )
+    from repro_torch.core.triangle_ref import count_triangles_brute
+    from repro_torch.graphs import generators as small_gen
     from repro_torch.kernels.bitset_count.ops import bitset_edge_count, bitset_pair_count
     from repro_torch.kernels.bitset_count.ref import (
         bitset_edge_count_ref,
@@ -301,34 +329,72 @@ def check_kernels(graphs: dict) -> dict:
         bound=(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES))
     del cases, u, u8
 
-    # ---- K2: masked matmul-sum ----
+    # ---- K2: masked matmul-sum (int8 wgmma fed by TMA) ----
     err = 0
-    for (R, K, N) in ((64, 64, 64), (100, 70, 130), (33, 1, 17), (512, 2048, 2048)):
+    for (R, K, N) in K2_SHAPES:
         a, b, m = rand01(R, K, p=0.4), rand01(K, N, p=0.4), rand01(R, N, p=0.5)
         for up in (False, True):
             err = max(err, agree(f"masked_matmul_sum{'(up)' if up else ''}", (R, K, N),
                                  masked_matmul_sum(a, b, m, upper_triangular=up),
                                  masked_matmul_sum_ref(a, b, m, upper_triangular=up)))
-    # the ring's own operands: FNA.5 over 4 stages, one (stage, block) visit
-    pad_to = bucket(-(-fna.n_nodes // 4), minimum=8)
-    part, blocks = build_dense_ring_operands(fna, 4, pad_to=pad_to, device=DEVICE)
+    # all ones: the count R·K·N = 3.4e10 is past 2³¹, against its closed form
+    R, K, N = 2048, 2048, 8192
+    a, b, m = (torch.ones(s, dtype=torch.uint8, device=DEVICE) for s in ((R, K), (K, N), (R, N)))
+    err = max(err, agree("masked_matmul_sum", ("ones", R, K, N), masked_matmul_sum(a, b, m),
+                         torch.tensor(R * K * N)))
+    del a, b, m
+    # a ring whose n_pad (24) breaks TMA's 16-byte row rule: every visit
+    # takes the wrapper's copy path, and the ring's count equals the brute one
+    tiny = small_gen.gnp(20, 0.5, seed=0)
+    part, blocks = build_dense_ring_operands(tiny, 3, pad_to=8, device=DEVICE)
     R = part.rows_per_stage
-    u_s, u_k = blocks[0], blocks[1]
-    cols = u_s[:, R:2 * R]
-    err = max(err, agree("masked_matmul_sum", ("ring", R, R, part.n_pad),
-                         masked_matmul_sum(cols, u_k, u_s),
-                         masked_matmul_sum_ref(cols, u_k, u_s)))
-    cols_c = cols.contiguous()
-    c8, k8 = cols_c.view(torch.int8), u_k.view(torch.int8)
-    ops = 2 * R * R * part.n_pad
-    nbytes = R * R + 2 * R * part.n_pad + 8
+    if part.n_pad % 16 == 0:
+        raise AssertionError(f"the copy-path ring has n_pad {part.n_pad}, a multiple of 16")
+    for s_ in range(3):
+        for k in range(3):
+            cols = blocks[s_][:, k * R:(k + 1) * R]
+            err = max(err, agree("masked_matmul_sum", ("ring", R, R, part.n_pad, s_, k),
+                                 masked_matmul_sum(cols, blocks[k], blocks[s_]),
+                                 masked_matmul_sum_ref(cols, blocks[k], blocks[s_])))
+    err = max(err, agree("  (ring count)", ("n_pad", part.n_pad),
+                         torch.tensor(count_triangles_ring(tiny, n_stages=3, device=DEVICE)),
+                         torch.tensor(count_triangles_brute(tiny))))
+    # the ring's own operands, one (stage, block) visit over 4 stages: FNA.5
+    # (timed as in earlier PRs) and FB107x9 (n = 17,199, the [compare] ring's
+    # largest visit)
+    timed = {}
+    for name in ("FNA.5", LARGE_NAME):
+        g = graphs[name]
+        pad_to = bucket(-(-g.n_nodes // 4), minimum=8)
+        part, blocks = build_dense_ring_operands(g, 4, pad_to=pad_to, device=DEVICE)
+        R, n_pad = part.rows_per_stage, part.n_pad
+        u_s, u_k = blocks[0], blocks[1]
+        cols = u_s[:, R:2 * R]
+        err = max(err, agree("masked_matmul_sum", (name, "ring", R, R, n_pad),
+                             masked_matmul_sum(cols, u_k, u_s),
+                             masked_matmul_sum_ref(cols, u_k, u_s)))
+        c8, k8 = cols.contiguous().view(torch.int8), u_k.view(torch.int8)
+        ops = 2 * R * R * n_pad
+        big = name == LARGE_NAME
+        timed[name] = dict(
+            shape=[R, R, n_pad],
+            ms=time_ms(lambda: masked_matmul_sum(cols, u_k, u_s), reps=10 if big else 50),
+            plain_ms=time_ms(lambda: masked_matmul_sum_ref(cols, u_k, u_s), reps=1 if big else 3),
+            library_ms=time_ms(lambda: (torch._int_mm(c8, k8) * u_s).sum(), reps=3),
+            bound=(ops / PEAK_INT8_OPS, (R * R + 2 * R * n_pad + 8) / PEAK_BYTES))
+        log(f"  masked_matmul_sum at {name}'s ring visit {timed[name]['shape']}: "
+            f"kernel {timed[name]['ms']:.4f} ms, plain {timed[name]['plain_ms']:.3f} ms, "
+            f"_int_mm + mask + sum {timed[name]['library_ms']:.4f} ms, bound "
+            f"{max(timed[name]['bound']) * 1e3:.4f} ms")
+        del blocks, u_s, u_k, cols, c8, k8
+        torch.cuda.empty_cache()
+    big = timed[LARGE_NAME]
     rows["masked_matmul_sum"] = dict(
-        shape=[R, R, part.n_pad], max_abs_err=err,
-        ms=time_ms(lambda: masked_matmul_sum(cols, u_k, u_s), reps=10),
-        plain_ms=time_ms(lambda: masked_matmul_sum_ref(cols, u_k, u_s), reps=3),
-        library_ms=time_ms(lambda: (torch._int_mm(c8, k8) * u_s).sum(), reps=3),
-        bound=(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES))
-    del blocks, u_s, u_k, cols, cols_c, c8, k8
+        timed["FNA.5"], max_abs_err=err,
+        at_fb107x9_shape=dict(
+            shape=big["shape"], ms=big["ms"], plain_ms=big["plain_ms"],
+            library_ms=big["library_ms"], bound_ms=max(big["bound"]) * 1e3,
+            bound_by="operations" if big["bound"][0] >= big["bound"][1] else "bytes"))
 
     # ---- K3: bitset edge count ----
     err = 0
@@ -343,6 +409,7 @@ def check_kernels(graphs: dict) -> dict:
         err = max(err, agree("bitset_edge_count", (npad, w, nb),
                              bitset_edge_count(masks, e), bitset_edge_count_ref(masks, e)))
     # the bitset ring's own operands: FNA.5 over 4 stages
+    pad_to = bucket(-(-fna.n_nodes // 4), minimum=8)
     edge_block = bucket(-(-fna.n_edges // 4), minimum=128)
     part, masks, edges = build_bitset_ring_operands(
         fna, 4, pad_to=pad_to, edge_block=edge_block, device=DEVICE)
@@ -1422,8 +1489,6 @@ def profile_lm(lm: dict) -> dict:
     decode steps under ``torch.profiler``, after a warm-up run: host wall,
     device busy time, idle share, the largest device items."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import transformer as tf
 
@@ -1440,54 +1505,141 @@ def profile_lm(lm: dict) -> dict:
 
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    dev_rows = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in dev_rows) / 1e3
-    log(f"  {cfg.name} {lm['summary']['dtype']} flash prefill {tuple(tokens.shape)} + {n} "
-        f"decode steps: "
-        f"wall={wall_ms:.3f} ms device_busy={busy_ms:.3f} ms "
-        f"device_idle_share={1 - busy_ms / wall_ms:.4f}")
-    top_dev = sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:8]
+    label = (f"{cfg.name} {lm['summary']['dtype']} flash prefill {tuple(tokens.shape)} + {n} "
+             "decode steps")
+    p = profiled(label, run, need_h2d=False)
+    log(f"  {label}: wall={p['wall_ms']:.3f} ms device_busy={p['busy_ms']:.3f} ms "
+        f"device_idle_share={1 - p['busy_ms'] / p['wall_ms']:.4f} {p['check']}")
+    top_dev = sorted(p["dev_rows"], key=lambda e: -e.self_device_time_total)[:8]
     log("    device: " + "; ".join(f"{e.key[:90]} {e.self_device_time_total / 1e3:.3f} ms "
                                    f"x{e.count}" for e in top_dev))
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms)
+    return dict(wall_ms=p["wall_ms"], busy_ms=p["busy_ms"],
+                idle_share=1 - p["busy_ms"] / p["wall_ms"])
 
 
 def profile_one(label: str, run, want: int) -> None:
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     run().item()
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        c = run().item()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    peak = torch.cuda.max_memory_allocated()
-    if c != want:
-        raise AssertionError(f"{label}: profiled count {c} != served {want}")
-    # device rows (kernels, copies, fills) carry the device time once; a
-    # host op's own device time repeats that of the kernels it launched
-    events = prof.key_averages()
-    dev_rows = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in dev_rows) / 1e3
+    # every profiled run here is a resident count or a stream over host
+    # edge blocks: its operands reach the card by host-to-device copies
+    p = profiled(label, lambda: run().item(), need_h2d=True)
+    if p["result"] != want:
+        raise AssertionError(f"{label}: profiled count {p['result']} != served {want}")
+    events, wall_ms, busy_ms = p["events"], p["wall_ms"], p["busy_ms"]
     ops_ms = sum(e.self_cpu_time_total for e in events
                  if e.device_type == DeviceType.CPU) / 1e3
     log(f"  {label}: wall={wall_ms:.3f} ms device_busy={busy_ms:.3f} ms "
         f"device_idle_share={1 - busy_ms / wall_ms:.4f} host_in_torch_ops={ops_ms:.3f} ms "
-        f"host_outside_torch_ops={wall_ms - ops_ms:.3f} ms peak_allocated={peak} B")
-    top_dev = sorted(dev_rows, key=lambda e: -e.self_device_time_total)[:8]
+        f"host_outside_torch_ops={wall_ms - ops_ms:.3f} ms peak_allocated={p['peak']} B "
+        f"{p['check']}")
+    top_dev = sorted(p["dev_rows"], key=lambda e: -e.self_device_time_total)[:8]
     top_host = sorted(events, key=lambda e: -e.self_cpu_time_total)[:5]
     log("    device: " + "; ".join(f"{e.key[:90]} {e.self_device_time_total / 1e3:.3f} ms "
                                    f"x{e.count}" for e in top_dev))
     log("    host:   " + "; ".join(f"{e.key[:48]} {e.self_cpu_time_total / 1e3:.3f} ms "
                                    f"x{e.count}" for e in top_host))
+
+
+def profiled(label: str, run, *, need_h2d: bool) -> dict:
+    """``run()`` under ``torch.profiler`` (CPU + CUDA), profiled again (up
+    to ``PROFILE_TRIES`` in all) until the profile is consistent. Each
+    window opens with ``PROFILE_MARKERS`` marker kernels, synchronised
+    before the run starts. The profiler drops the first records of a
+    session, so a profile is consistent when at least one marker survives
+    (no record of the run itself was dropped), the device busy time is
+    above 0, there are at least as many CUDA kernel rows (device rows that
+    are neither a memcpy nor a memset) as the port's kernels launched in
+    the run, and, where ``need_h2d``, a host-to-device memcpy row. Each
+    retry is logged with its reason; the last inconsistent profile raises,
+    so no idle share is printed from lost device events. Returns the run's
+    result, its host wall, the device busy time of the run's rows (device
+    rows carry the device time once; a host op's own device time repeats
+    that of the kernels it launched), the key averages, those device rows,
+    the peak allocated memory and the ``check`` text printed on the
+    profile line. The markers are outside the wall and the device rows;
+    their launches (a few µs each) are among the host rows."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import launch_counts
+
+    def is_copy(e):
+        return any(w in e.key.lower() for w in ("memcpy", "memset"))
+
+    markers = PROFILE_MARKERS
+    for tries in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k0 = launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(markers):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        k1 = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        port = sum(k1[name] - k0[name] for name in k1)
+        events = prof.key_averages()
+        dev_all = [e for e in events if e.device_type == DeviceType.CUDA]
+        kept = sum(e.count for e in dev_all if "spin_kernel" in e.key)
+        dev_rows = [e for e in dev_all if "spin_kernel" not in e.key]
+        busy_ms = sum(e.self_device_time_total for e in dev_rows) / 1e3
+        kernel_rows = sum(e.count for e in dev_rows if not is_copy(e))
+        h2d = any(is_copy(e) and "htod" in e.key.lower() for e in dev_rows)
+        faults = ([] if kept else [f"all {markers} leading markers lost"]) \
+            + ([] if busy_ms > 0 else ["device busy 0"]) \
+            + ([] if kernel_rows >= port else [f"{kernel_rows} kernel rows < {port} port "
+                                               "launches"]) \
+            + ([] if h2d or not need_h2d else ["no host-to-device memcpy row"])
+        if not faults:
+            return dict(result=result, wall_ms=wall_ms, busy_ms=busy_ms, events=events,
+                        dev_rows=dev_rows, peak=peak,
+                        check=f"device_rows={kernel_rows} port_launches={port} tries={tries} "
+                              f"markers_lost={markers - kept}/{markers}")
+        log(f"  {label}: inconsistent profile, try {tries} of {PROFILE_TRIES}: "
+            f"{'; '.join(faults)} ({markers - kept} of {markers} markers lost; device rows: "
+            + ", ".join(f"{e.key[:40]} x{e.count}" for e in dev_rows[:6]) + ")")
+        markers *= 4
+    raise AssertionError(f"{label}: {PROFILE_TRIES} inconsistent profiles in a row "
+                         f"({'; '.join(faults)}): the profiler lost device events")
+
+
+def probe_k2() -> int:
+    """``chip_smoke.py --probe``: K2's first launches, at small shapes and
+    at FNA.5's ring-visit shape, against its plain version. The full run
+    starts this in a child process under a time limit, so that a kernel
+    that never ends is killed with its process instead of holding the card."""
+    import torch
+
+    from repro_torch.kernels import _build, launch_counts
+    from repro_torch.kernels.triangle_count.ops import masked_matmul_sum
+    from repro_torch.kernels.triangle_count.ref import masked_matmul_sum_ref
+
+    for line in _build.build_all(["triangle_count_sm90"], verbose=True)[
+            "triangle_count_sm90"].splitlines():
+        if any(w in line.lower() for w in ("registers", "spill", "error", "warning")):
+            print(f"probe build: {line.strip()}", flush=True)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    for (R, K, N) in ((64, 64, 64), (100, 70, 130), (300, 513, 129), (2048, 2048, 8192)):
+        a, b, m = ((torch.rand(*s, generator=gen) < 0.4).to(torch.uint8).to(DEVICE)
+                   for s in ((R, K), (K, N), (R, N)))
+        for up in (False, True):
+            got = int(masked_matmul_sum(a, b, m, upper_triangular=up))
+            torch.cuda.synchronize()
+            want = int(masked_matmul_sum_ref(a, b, m, upper_triangular=up))
+            print(f"probe masked_matmul_sum{'(up)' if up else ''} {(R, K, N)}: kernel={got} "
+                  f"plain={want} {'match' if got == want else 'MISMATCH'}", flush=True)
+            if got != want:
+                return 1
+    print(f"probe launches: {launch_counts()['masked_matmul_sum']}", flush=True)
+    return 0
 
 
 def main() -> int:
@@ -1513,6 +1665,8 @@ def main() -> int:
         raise AssertionError("float32 matmuls would run in TF32: the plain versions "
                              "need true float32")
 
+    if sys.argv[1:] == ["--probe"]:
+        return probe_k2()
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t_all = time.perf_counter()
@@ -1524,6 +1678,21 @@ def main() -> int:
         for line in text.splitlines():
             if any(w in line.lower() for w in ("registers", "spill", "error", "warning")):
                 log(f"  {name}: {line.strip()}")
+
+    t0 = time.perf_counter()
+    log(f"[probe] K2's first launches in a child process, limited to {PROBE_TIMEOUT_S} s")
+    try:
+        child = subprocess.run([sys.executable, os.path.abspath(__file__), "--probe"],
+                               capture_output=True, text=True, timeout=PROBE_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"K2's probe did not finish in {PROBE_TIMEOUT_S} s (killed): "
+                             "a kernel that never ends, such as a wrong mbarrier "
+                             f"parity\n{e.stdout or ''}{e.stderr or ''}") from None
+    for line in (child.stdout + child.stderr).splitlines():
+        log(f"  {line}")
+    if child.returncode != 0:
+        raise AssertionError(f"K2's probe exited {child.returncode}")
+    log(f"[probe] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     graphs = {name: datasets.load(name, scale=1.0) for name in TABLE1}
@@ -1620,7 +1789,7 @@ def main() -> int:
             "match": r.get("match", r["max_abs_err"] == 0),
             "kernel_ms": r["ms"], "shape": r["shape"],
             **({k: r[k] for k in ("k3_ms", "at_k3_shape", "dtype", "fma_bf16_ms",
-                                  "at_prefill_shape") if k in r}),
+                                  "at_prefill_shape", "at_fb107x9_shape") if k in r}),
         })
         log(f"  bound of {name}: operations {ops_ms:.6f} ms, bytes {bytes_ms:.6f} ms")
     log("[stream table] " + json.dumps(table))

@@ -1,15 +1,17 @@
-// Masked matmul-reduce on 0/1 uint8 operands for Hopper (sm_90a):
-//   sum((A @ B) ⊙ M), accumulated exactly in integers.
+// Live-grid triangle count on 0/1 uint8 operands for Hopper (sm_90a):
+//   sum(U ⊙ (U @ U)) for strictly upper triangular U, exact in integers.
 //
-// Replaces the Pallas kernels of src/repro/kernels/triangle_count/
-// triangle_count.py: `triangle_count_live_kernel` (tc_live below) and
-// `masked_matmul_sum_kernel` (tc_masked below).
+// Replaces the Pallas kernel `triangle_count_live_kernel` of
+// src/repro/kernels/triangle_count/triangle_count.py (tc_live below). The
+// masked matmul-sum, `masked_matmul_sum_kernel` of the same file, runs on the
+// int8 tensor cores in triangle_count_sm90.cu.
 //
 // What bounds it on this card: the live count at n = 8192 is ~9.4e10
 // multiply-adds on 64 MB of operands, so it is bound by operations, not
 // bytes. This first version runs the products on the integer cores with
 // __dp4a (four 8-bit products per instruction) from 64x64 tiles staged in
-// shared memory; the tensor cores (mma / wgmma s8) are later work.
+// shared memory; the int8 tensor cores (triangle_count_sm90.cu's tile) are
+// later work.
 //
 // Design against the TPU kernel: the Pallas grid walks (i, j, k) in order on
 // one core and carries an f32 VMEM accumulator between steps. Here one CTA
@@ -149,24 +151,6 @@ live_kernel(const uint8_t* u, long long n, bool vec, unsigned long long* out) {
                   out + blockIdx.z);
 }
 
-// Full (R/64) x (N/64) output grid, k over all of K — or over [i, j] with
-// tiles j < i skipped under `upper` (the structural skip for U·U⊙U).
-__global__ void __launch_bounds__(THREADS)
-masked_kernel(const uint8_t* a, long long lda, const uint8_t* b,
-              long long ldb, const uint8_t* m, long long ldm, long long R,
-              long long K, long long N, bool upper, bool vec,
-              unsigned long long* out) {
-  const long long tj = blockIdx.x, ti = blockIdx.y;
-  const long long nkt = (K + TILE - 1) / TILE;
-  long long lo = 0, hi = nkt - 1;
-  if (upper) {
-    if (tj < ti) return;
-    lo = ti;
-    hi = tj < hi ? tj : hi;
-  }
-  tile_masked_sum(a, lda, b, ldb, m, ldm, R, K, N, ti, tj, lo, hi, vec, out);
-}
-
 bool aligned16(const void* p) { return ((uintptr_t)p % 16) == 0; }
 
 }  // namespace
@@ -182,19 +166,6 @@ int tc_live(const void* u, long long n, long long batch, void* out,
   dim3 grid((unsigned)(nb * (nb + 1) / 2), 1, (unsigned)batch);
   live_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)u, n, vec, (unsigned long long*)out);
-  return (int)cudaGetLastError();
-}
-
-// out[0] += Σ (A @ B) ⊙ M; row strides lda/ldb/ldm, unit column stride.
-int tc_masked(const void* a, long long lda, const void* b, long long ldb,
-              const void* m, long long ldm, long long R, long long K,
-              long long N, int upper, void* out, void* stream) {
-  const bool vec = aligned16(a) && aligned16(b) && lda % 16 == 0 &&
-                   ldb % 16 == 0;
-  dim3 grid((unsigned)((N + TILE - 1) / TILE), (unsigned)((R + TILE - 1) / TILE));
-  masked_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)a, lda, (const uint8_t*)b, ldb, (const uint8_t*)m, ldm,
-      R, K, N, upper != 0, vec, (unsigned long long*)out);
   return (int)cudaGetLastError();
 }
 

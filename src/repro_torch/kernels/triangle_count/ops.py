@@ -1,11 +1,22 @@
-"""Wrappers of the triangle-count CUDA kernels (``csrc/triangle_count.cu``).
+"""Wrappers of the triangle-count CUDA kernels.
 
-On a CPU tensor a wrapper runs the kernel's plain version (``ref.py``); on a
-CUDA tensor it launches the kernel or raises. Operands are uint8 0/1
-matrices; counts come back as int64 on the operands' device."""
+K1, the live-grid count, is ``tc_live`` of ``csrc/triangle_count.cu``; K2,
+the masked matmul-sum, is ``tc_masked_wgmma`` of
+``csrc/triangle_count_sm90.cu`` (int8 ``wgmma`` fed by TMA, the contraction
+split across CTAs). On a CPU tensor a wrapper runs the kernel's plain
+version (``ref.py``); on a CUDA tensor it launches the kernel or raises.
+Operands are uint8 0/1 matrices; counts come back as int64 on the operands'
+device.
+
+K2 computes Σ (A·B) ⊙ M as Σ A ⊙ (M·Bᵀ), so the tensor cores contract over
+N, the contiguous dimension of both M and B. :func:`split_plan` and
+:func:`work_item` are the kernel's work decomposition, written here so that
+the CPU tests can pin what the kernel decodes; :func:`tma_row_stride` is
+TMA's rule for the operands it loads."""
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -19,9 +30,19 @@ from repro_torch.kernels.triangle_count.ref import (
 _P, _L = ctypes.c_void_p, ctypes.c_longlong
 _GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
 LIVE = CudaKernel("triangle_count", "tc_live", [_P, _L, _L, _P], "tc_error_string")
-MASKED = CudaKernel("triangle_count", "tc_masked",
-                    [_P, _L, _P, _L, _P, _L, _L, _L, _L, ctypes.c_int, _P],
-                    "tc_error_string")
+MASKED = CudaKernel("triangle_count_sm90", "tc_masked_wgmma",
+                    [_P, _L, _P, _L, _P, _L, _L, _L, _L, ctypes.c_int, _L, _L, _P],
+                    "tc_wgmma_error_string")
+# TMA's box coordinates are signed 32-bit, and a 1-D grid holds at most
+# this many CTAs
+_INT32_MAX = 2**31 - 1
+_TMA_ALIGN = 16  # bytes: TMA's rule for a base address and a row stride
+# K2's split: aim for this many waves of CTAs, one CTA an SM (130 KB of
+# shared memory each), but give no slice fewer chunks than MIN_SLICE, so
+# that its pipeline fill and epilogue stay small beside its products
+SPLIT_WAVES = 8
+MIN_SLICE = 8
+GROUP = 8  # row tiles per raster group (csrc/triangle_count_sm90.cu)
 
 
 def _check_cuda(*xs: torch.Tensor) -> torch.device:
@@ -36,9 +57,8 @@ def _check_cuda(*xs: torch.Tensor) -> torch.device:
     return dev
 
 
-def _rows(x: torch.Tensor) -> torch.Tensor:
-    """x with unit column stride (row stride free), as the kernel reads it."""
-    return x if x.stride(-1) == 1 else x.contiguous()
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def live_grid_size(n_blocks: int) -> int:
@@ -46,13 +66,126 @@ def live_grid_size(n_blocks: int) -> int:
     return n_blocks * (n_blocks + 1) * (n_blocks + 2) // 6
 
 
+def _upper_pairs(x: int, nr: int) -> int:
+    """Output tiles rb ≤ kb < x with rb < nr."""
+    if x <= 0:
+        return 0
+    if x <= nr:
+        return x * (x + 1) // 2
+    return nr * (nr + 1) // 2 + (x - nr) * nr
+
+
+def split_plan(R: int, K: int, N: int, upper: bool, sms: int) -> tuple[int, int]:
+    """K2's work decomposition for A (R, K), B (K, N), M (R, N) on a card
+    with ``sms`` SMs: ``(slice, items)``, the contraction chunks (of
+    ``TILE`` bytes of N) per slice and the number of work items, one CTA
+    each. Output tiles are ``TILE`` × ``TILE`` of M·Bᵀ; under ``upper`` only
+    tiles kb ≥ rb live, over chunks cb ≥ kb. Few output tiles are split
+    along N until the grid fills the card ``SPLIT_WAVES`` times, with no
+    slice under ``MIN_SLICE`` chunks."""
+    nr, nk, nc = _cdiv(R, TILE), _cdiv(K, TILE), _cdiv(N, TILE)
+    tiles = _upper_pairs(min(nk, nc), nr) if upper else nr * nk
+    if tiles == 0:
+        return max(nc, 1), 0
+    want = _cdiv(SPLIT_WAVES * sms, tiles)
+    slice_ = min(max(MIN_SLICE, _cdiv(nc, want)), nc)
+    if upper:
+        items = sum(_upper_pairs(min(nk, nc - j * slice_), nr)
+                    for j in range(_cdiv(nc, slice_)))
+    else:
+        items = tiles * _cdiv(nc, slice_)
+    return slice_, items
+
+
+def work_item(i: int, R: int, K: int, N: int, upper: bool,
+              slice_: int) -> tuple[int, int, int, int]:
+    """Work item ``i`` of :func:`split_plan`'s grid → (rb, kb, c0, c1):
+    output tile (rb, kb) over chunks [c0, c1). The kernel's ``work_item``
+    decodes ``blockIdx.x`` by the same steps."""
+    nr, nk, nc = _cdiv(R, TILE), _cdiv(K, TILE), _cdiv(N, TILE)
+    if not upper:
+        # slices outermost; within a slice, groups of GROUP row tiles, each
+        # group walked column by column
+        tiles = nr * nk
+        j, t = divmod(i, tiles)
+        per_group = GROUP * nk
+        rb0 = (t // per_group) * GROUP
+        gm = min(GROUP, nr - rb0)
+        t %= per_group
+        rb, kb = rb0 + t % gm, t // gm
+        c0 = j * slice_
+    else:
+        # slice j of tile (rb, kb) starts at chunk kb + j·slice; slice j has
+        # _upper_pairs(min(nk, nc - j·slice)) live tiles, kb-major
+        j = 0
+        while True:
+            x = min(nk, nc - j * slice_)
+            cnt = _upper_pairs(x, nr)
+            if i < cnt:
+                break
+            i -= cnt
+            j += 1
+        y = min(x, nr)
+        tri = y * (y + 1) // 2
+        if i < tri:
+            kb = int(((8 * i + 1) ** 0.5 - 1) / 2)
+            while (kb + 1) * (kb + 2) // 2 <= i:
+                kb += 1
+            while kb * (kb + 1) // 2 > i:
+                kb -= 1
+            rb = i - kb * (kb + 1) // 2
+        else:
+            i -= tri
+            kb, rb = nr + i // nr, i % nr
+        c0 = kb + j * slice_
+    return rb, kb, c0, min(c0 + slice_, nc)
+
+
+def tma_row_stride(x: torch.Tensor) -> int | None:
+    """The row stride in bytes at which TMA reads the uint8 matrix ``x``,
+    or None when x breaks TMA's rule: unit column stride, a 16-byte aligned
+    base, and a row stride that is a multiple of 16 and covers a row. A
+    single row is never stepped over, so its stride is the row rounded up
+    to 16."""
+    rows, cols = x.shape
+    if (x.stride(1) != 1 and cols > 1) or x.data_ptr() % _TMA_ALIGN:
+        return None
+    if rows == 1:
+        return _cdiv(cols, _TMA_ALIGN) * _TMA_ALIGN
+    st = x.stride(0)
+    if st < cols or st % _TMA_ALIGN:
+        return None
+    return st
+
+
+def _tma_operand(x: torch.Tensor) -> torch.Tensor:
+    """x itself when TMA can read it, else a copy into zeros whose rows are
+    rounded up to 16 bytes (the padding is never read: the tensor map's
+    width stays x's)."""
+    if tma_row_stride(x) is not None:
+        return x
+    rows, cols = x.shape
+    buf = torch.zeros((rows, _cdiv(cols, _TMA_ALIGN) * _TMA_ALIGN), dtype=x.dtype,
+                      device=x.device)
+    buf[:, :cols] = x
+    return buf
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def masked_matmul_sum(a: torch.Tensor, b: torch.Tensor, m: torch.Tensor, *,
                       upper_triangular: bool = False) -> torch.Tensor:
     """sum((A @ B) ⊙ M) for A (R, K), B (K, N), M (R, N), as an int64 scalar.
 
-    Any sizes; the kernel zero-fills ragged tiles. ``upper_triangular`` adds
-    the structural skip of the single-matrix count U·U⊙U (output tiles
-    j < i skipped, k over [i, j])."""
+    Any sizes; the kernel's loads zero-fill ragged tiles. A is read in place
+    through its row stride; B and M are copied only where they break TMA's
+    16-byte rule (:func:`tma_row_stride`). ``upper_triangular`` adds the
+    structural skip of the single-matrix count U·U⊙U at ``TILE``: output
+    tiles of M·Bᵀ below the diagonal skipped, contraction chunks from the
+    tile's column on."""
     if a.dim() != 2 or b.dim() != 2 or m.dim() != 2 \
             or a.shape[1] != b.shape[0] or m.shape != (a.shape[0], b.shape[1]):
         raise ValueError(f"shapes {tuple(a.shape)} @ {tuple(b.shape)} vs mask "
@@ -60,17 +193,25 @@ def masked_matmul_sum(a: torch.Tensor, b: torch.Tensor, m: torch.Tensor, *,
     if a.device.type == "cpu":
         return masked_matmul_sum_ref(a, b, m, upper_triangular=upper_triangular)
     dev = _check_cuda(a, b, m)
-    if -(-a.shape[0] // TILE) > _GRID_YZ:
-        raise ValueError(f"{a.shape[0]} rows exceed the kernel's grid "
-                         f"({_GRID_YZ} row tiles of {TILE})")
-    a, b, m = _rows(a), _rows(b), _rows(m)
-    out = torch.zeros(1, dtype=torch.int64, device=dev)
     (R, K), N = a.shape, b.shape[1]
-    if R and K and N:
+    if max(R, K, N) > _INT32_MAX:
+        raise ValueError(f"{R} rows, {K} inner and {N} columns exceed the kernel's "
+                         f"reach: TMA's 32-bit coordinates take at most {_INT32_MAX}")
+    out = torch.zeros(1, dtype=torch.int64, device=dev)
+    if not (R and K and N):
+        return out[0]
+    slice_, items = split_plan(R, K, N, upper_triangular, _sm_count(dev.index))
+    if items > _INT32_MAX:
+        raise ValueError(f"{items} work items exceed the kernel's 1-D grid "
+                         f"({_INT32_MAX} CTAs)")
+    a = a if a.stride(1) == 1 else a.contiguous()
+    b, m = _tma_operand(b), _tma_operand(m)
+    if items:
         with torch.cuda.device(dev):
-            MASKED(a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
-                   m.data_ptr(), m.stride(0), R, K, N, int(upper_triangular),
-                   out.data_ptr(), stream=torch.cuda.current_stream(dev).cuda_stream)
+            MASKED(a.data_ptr(), a.stride(0), b.data_ptr(), tma_row_stride(b),
+                   m.data_ptr(), tma_row_stride(m), R, K, N, int(upper_triangular),
+                   slice_, items, out.data_ptr(),
+                   stream=torch.cuda.current_stream(dev).cuda_stream)
     return out[0]
 
 
@@ -80,8 +221,8 @@ def triangle_count(u: torch.Tensor, *, live_grid: bool = True) -> torch.Tensor:
     ``u`` is (n, n) → int64 scalar, or a (B, n, n) batch → (B,) int64.
     ``live_grid=True`` runs the live-grid kernel: one CTA per output tile
     i ≤ j, k over [i, j] — C(nb+2, 3) tile products instead of nb³.
-    ``live_grid=False`` runs the full-grid kernel with the upper-triangular
-    skip, kept as the comparison baseline."""
+    ``live_grid=False`` runs K2 with the upper-triangular skip, one launch
+    per matrix, kept as the comparison baseline."""
     if u.dim() not in (2, 3) or u.shape[-1] != u.shape[-2]:
         raise ValueError(f"expected (n, n) or (B, n, n), got {tuple(u.shape)}")
     if u.device.type == "cpu":
@@ -92,16 +233,13 @@ def triangle_count(u: torch.Tensor, *, live_grid: bool = True) -> torch.Tensor:
                          f"({_GRID_YZ} matrices)")
     ub = (u if u.dim() == 3 else u[None]).contiguous()
     batch, n = ub.shape[0], ub.shape[-1]
+    if not live_grid:
+        out = torch.stack([masked_matmul_sum(x, x, x, upper_triangular=True) for x in ub]) \
+            if batch else torch.zeros(0, dtype=torch.int64, device=dev)
+        return out if u.dim() == 3 else out[0]
     out = torch.zeros(batch, dtype=torch.int64, device=dev)
     if batch and n:
         with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            if live_grid:
-                LIVE(ub.data_ptr(), n, batch, out.data_ptr(), stream=stream)
-            else:
-                for i in range(batch):
-                    MASKED(ub[i].data_ptr(), n, ub[i].data_ptr(), n,
-                           ub[i].data_ptr(), n, n, n, n, 1, out[i:].data_ptr(),
-                           stream=stream)
+            LIVE(ub.data_ptr(), n, batch, out.data_ptr(),
+                 stream=torch.cuda.current_stream(dev).cuda_stream)
     return out if u.dim() == 3 else out[0]
-

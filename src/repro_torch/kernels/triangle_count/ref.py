@@ -8,7 +8,9 @@ from __future__ import annotations
 
 import torch
 
-TILE = 64  # the CUDA kernels' output tile edge and k-chunk
+# K2's output tile edge and contraction chunk, and so the block of its
+# upper-triangular skip: the reference kernel's own default block (128)
+TILE = 128
 
 
 def masked_matmul_sum_ref(a: torch.Tensor, b: torch.Tensor, m: torch.Tensor, *,

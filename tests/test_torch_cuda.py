@@ -84,15 +84,31 @@ def test_triangle_count_kernel_batch_equals_plain(cuda):
     assert triangle_count(u).tolist() == triangle_count_ref(u).tolist()
 
 
-@pytest.mark.parametrize("shape", [(64, 64, 64), (100, 70, 130), (33, 1, 17), (300, 513, 129)])
+@pytest.mark.parametrize("shape", [(64, 64, 64), (100, 70, 130), (33, 1, 17), (300, 513, 129),
+                                   (129, 8200, 130), (1000, 2048, 4096), (200, 300, 9000)])
 @pytest.mark.parametrize("upper", [False, True])
 def test_masked_matmul_sum_kernel_equals_plain(cuda, shape, upper):
+    """K2 (int8 wgmma) against its plain version as exact integers: ragged
+    tiles, several output tiles and contraction slices, one launch a call."""
     R, K, N = shape
     rng = np.random.default_rng(R * K + N)
     a, b = _rand01(rng, (R, K), 0.4, cuda), _rand01(rng, (K, N), 0.4, cuda)
     m = _rand01(rng, (R, N), 0.5, cuda)
-    assert int(masked_matmul_sum(a, b, m, upper_triangular=upper)) == \
-        int(masked_matmul_sum_ref(a, b, m, upper_triangular=upper))
+    before = launch_counts()["masked_matmul_sum"]
+    got = masked_matmul_sum(a, b, m, upper_triangular=upper)
+    assert launch_counts()["masked_matmul_sum"] == before + 1
+    assert got.dtype == torch.int64 and got.device.type == "cuda"
+    assert int(got) == int(masked_matmul_sum_ref(a, b, m, upper_triangular=upper))
+
+
+def test_masked_matmul_sum_kernel_is_exact_past_2_31(cuda):
+    """All ones at FNA.5's ring shape: the count R·K·N = 3.4e10 is past
+    2³¹. Each CTA's s32 tile holds at most its slice's bytes of N; the sums
+    past it are int64."""
+    R, K, N = 2048, 2048, 8192
+    a, b, m = (torch.ones(shape, dtype=torch.uint8, device=cuda)
+               for shape in ((R, K), (K, N), (R, N)))
+    assert int(masked_matmul_sum(a, b, m)) == R * K * N
 
 
 def test_masked_matmul_sum_kernel_reads_strided_columns(cuda):
@@ -100,6 +116,22 @@ def test_masked_matmul_sum_kernel_reads_strided_columns(cuda):
     big, b = _rand01(rng, (200, 1000), 0.5, cuda), _rand01(rng, (200, 1000), 0.5, cuda)
     cols = big[:, 203:403]  # unaligned base and a row stride of 1000
     assert int(masked_matmul_sum(cols, b, big)) == int(masked_matmul_sum_ref(cols, b, big))
+
+
+def test_masked_matmul_sum_kernel_copies_what_tma_cannot_read(cuda):
+    """B and M whose base or row stride breaks TMA's 16-byte rule are copied
+    (into rows rounded up to 16), not refused; one launch a call."""
+    rng = np.random.default_rng(2)
+    big = _rand01(rng, (700, 1000), 0.5, cuda)
+    a = _rand01(rng, (150, 300), 0.5, cuda)
+    wide = _rand01(rng, (150, 1024), 0.5, cuda)
+    for b, m in ((big[:300, 3:403], big[300:450, 7:407]),           # unaligned bases
+                 (_rand01(rng, (300, 24), 0.5, cuda), big[:150, :24]),  # row stride 24
+                 (_rand01(rng, (300, 320), 0.5, cuda), wide[:, 16:336])):  # read in place
+        before = launch_counts()["masked_matmul_sum"]
+        got = masked_matmul_sum(a, b, m)
+        assert launch_counts()["masked_matmul_sum"] == before + 1
+        assert int(got) == int(masked_matmul_sum_ref(a, b, m))
 
 
 @pytest.mark.parametrize("n_pad,w,b", [(64, 2, 32), (96, 1, 16), (1000, 100, 5000),
@@ -174,8 +206,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     # past CUDA's 65,535 on gridDim.y / gridDim.z
     with pytest.raises(ValueError, match="batch of 65536"):
         triangle_count(torch.zeros(65536, 1, 1, dtype=torch.uint8, device=cuda))
-    tall = torch.zeros(64 * 65535 + 1, 1, dtype=torch.uint8, device=cuda)
-    with pytest.raises(ValueError, match="rows exceed"):
+    # past TMA's 32-bit coordinates (a stride-0 view: no memory)
+    tall = torch.zeros(1, 1, dtype=torch.uint8, device=cuda).expand(2**31, 1)
+    with pytest.raises(ValueError, match="rows.*exceed"):
         masked_matmul_sum(tall, tall[:1], tall)
     h = torch.zeros(1, 2, 3, 8, dtype=torch.float16, device=cuda)
     with pytest.raises(TypeError):

@@ -46,9 +46,14 @@ from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
 )
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.triangle_count.ops import (  # noqa: E402
+    MIN_SLICE,
+    SPLIT_WAVES,
     live_grid_size,
     masked_matmul_sum,
+    split_plan,
+    tma_row_stride,
     triangle_count,
+    work_item,
 )
 from repro_torch.kernels.triangle_count.ref import TILE  # noqa: E402
 
@@ -96,7 +101,7 @@ def test_live_grid_size_is_closed_form():
 # K2: masked matmul-sum
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("shape", [(128, 128, 128), (256, 128, 384), (64, 64, 64),
-                                   (100, 70, 130)])
+                                   (100, 70, 130), (300, 513, 260), (384, 256, 640)])
 @pytest.mark.parametrize("upper", [False, True])
 def test_masked_matmul_sum_matches_reference_kernel(shape, upper):
     R, N, K = shape
@@ -123,6 +128,87 @@ def test_masked_matmul_sum_on_ring_column_slices():
                        jnp.asarray(u[:32].numpy()), block_m=32, block_n=32, block_k=32,
                        interpret=True))
     assert int(masked_matmul_sum(cols, u[32:64], u[:32])) == want
+
+
+def _live_pairs(R, K, N, upper):
+    """Every (output tile, chunk) pair the kernel must visit once."""
+    nr, nk, nc = (-(-x // TILE) for x in (R, K, N))
+    return {(rb, kb, c) for rb in range(nr) for kb in range(nk) for c in range(nc)
+            if not upper or rb <= kb <= c}
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("upper", [False, True])
+def test_split_plan_work_items_cover_each_live_pair_once(seed, upper):
+    """K2's grid: the items of split_plan, decoded by work_item as the kernel
+    decodes blockIdx.x, visit every live (output tile, chunk) pair exactly
+    once, each item a non-empty run of at most `slice` chunks."""
+    rng = np.random.default_rng(seed)
+    for _ in range(8):
+        R, K, N = (int(x) for x in rng.integers(1, 3000, 3))
+        sms = int(rng.choice([1, 7, 132]))
+        slice_, items = split_plan(R, K, N, upper, sms)
+        seen = []
+        for i in range(items):
+            rb, kb, c0, c1 = work_item(i, R, K, N, upper, slice_)
+            assert 0 < c1 - c0 <= slice_
+            seen += [(rb, kb, c) for c in range(c0, c1)]
+        assert len(seen) == len(set(seen))
+        assert set(seen) == _live_pairs(R, K, N, upper)
+
+
+def test_split_plan_fills_the_card_at_the_ring_shapes():
+    """FNA.5's ring visit (256 output tiles) is split along N until the grid
+    fills 132 SMs SPLIT_WAVES times; FB107x9's (4,096 tiles) is not split;
+    no slice is shorter than MIN_SLICE chunks unless N is."""
+    assert split_plan(2048, 2048, 8192, False, 132) == (13, 1280)
+    assert 1280 >= SPLIT_WAVES * 132
+    assert split_plan(8192, 8192, 32768, False, 132) == (256, 4096)
+    assert split_plan(128, 128, 128 * 1000, False, 132) == (MIN_SLICE, 125)
+    assert split_plan(100, 70, 130, True, 132) == (2, 1)
+    assert split_plan(300, 100, 1000, True, 132) == (8, 1)  # one live tile, (0, 0)
+    assert split_plan(8192, 8192, 8192, True, 132) == (64, 64 * 65 // 2)
+
+
+@pytest.mark.parametrize("shape", [(300, 513, 260), (129, 1000, 130), (200, 300, 2000),
+                                   (1, 1, 1), (33, 1, 17)])
+@pytest.mark.parametrize("upper", [False, True])
+def test_work_decomposition_computes_the_masked_sum(shape, upper):
+    """The kernel's arithmetic in numpy: per work item the s32 tile
+    M[rb]·B[kb]ᵀ over its chunks, masked with A[rb, kb] and summed — the
+    reassociation Σ (A·B) ⊙ M = Σ A ⊙ (M·Bᵀ) — equals the plain version."""
+    R, K, N = shape
+    rng = np.random.default_rng(R + K + N)
+    a = (rng.random((R, K)) < 0.4).astype(np.int64)
+    b = (rng.random((K, N)) < 0.4).astype(np.int64)
+    m = (rng.random((R, N)) < 0.5).astype(np.int64)
+    slice_, items = split_plan(R, K, N, upper, 4)
+    total = 0
+    for i in range(items):
+        rb, kb, c0, c1 = work_item(i, R, K, N, upper, slice_)
+        rows, inner = slice(rb * TILE, (rb + 1) * TILE), slice(kb * TILE, (kb + 1) * TILE)
+        cols = slice(c0 * TILE, c1 * TILE)
+        acc = m[rows, cols] @ b[inner, cols].T
+        assert acc.max(initial=0) <= (c1 - c0) * TILE  # s32 is exact
+        total += int((acc * a[rows, inner]).sum())
+    want = masked_matmul_sum(*(torch.from_numpy(x.astype(np.uint8)) for x in (a, b, m)),
+                             upper_triangular=upper)
+    assert total == int(want)
+
+
+def test_tma_row_stride_takes_aligned_rows_and_refuses_what_tma_cannot_read():
+    """K2's B and M go to TMA as they lie only with a 16-byte aligned base
+    and a row stride that is a multiple of 16 covering the row; the wrapper
+    copies anything else into rows rounded up to 16."""
+    big = torch.zeros(40, 1024, dtype=torch.uint8)
+    assert tma_row_stride(big) == 1024
+    assert tma_row_stride(big[3:9, 16:200]) == 1024       # aligned offset and stride
+    assert tma_row_stride(big[:, 5:100]) is None           # base 5 bytes off
+    assert tma_row_stride(torch.zeros(8, 24, dtype=torch.uint8)) is None  # stride 24
+    assert tma_row_stride(torch.zeros(1, 17, dtype=torch.uint8)) == 32    # one row
+    assert tma_row_stride(torch.zeros(8, 32, dtype=torch.uint8).t()) is None  # column stride 8
+    assert tma_row_stride(torch.zeros(1, 32, dtype=torch.uint8).expand(5, 32)) is None
+    assert tma_row_stride(torch.zeros(4, 32, dtype=torch.uint8)[:, :16]) == 32
 
 
 def test_masked_matmul_sum_rejects_bad_shapes():
@@ -374,8 +460,8 @@ def test_cpu_tensors_run_the_plain_versions_and_launch_nothing():
 
 
 def test_kernel_sources_are_found():
-    assert set(_build.sources()) == {"triangle_count", "bitset_count", "flash_attention",
-                                     "flash_attention_sm90", "embedding_bag"}
+    assert set(_build.sources()) == {"triangle_count", "triangle_count_sm90", "bitset_count",
+                                     "flash_attention", "flash_attention_sm90", "embedding_bag"}
     for name in _build.sources():
         path = _build.library_path(name)
         assert path.parent == _build.BUILD_DIR and path.name.startswith(name + "-")
