@@ -4,17 +4,20 @@
     python3 chip_smoke.py
 
 1. Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
-   (one ``nvcc`` per source, all in parallel), runs K2's first launches in
-   a child process (``chip_smoke.py --probe``) under a time limit, and
+   (one ``nvcc`` per source, all in parallel), runs the first launches of
+   K2 and of the three-pass TF32 K6 in a child process (``chip_smoke.py
+   --probe``) under a time limit, and
    holds each kernel against
    its plain PyTorch version on the card at several shapes: the counting
    kernels as exact integers (ragged sizes, phantom edges, the shapes the
    main path gives them at the paper's full Table-1 sizes; K2 also all ones
    past 2³¹ and a ring whose rows break TMA's 16-byte rule), flash attention
-   (K6: the FMA kernel for f32, the wgmma kernel for bf16 at D = 64, 128)
+   (K6: at D = 64, 128 the wgmma kernel for bf16 and the three-pass TF32
+   kernel for f32, at other head dims the FMA kernel)
    and EmbeddingBag (K7) within the reference kernel tests'
-   tolerances, at Yi-6B's and AutoInt's full widths among others. Float32
-   products run in true float32 (TF32 off, asserted). Times each kernel, its plain
+   tolerances, at Yi-6B's and AutoInt's full widths among others. The plain
+   versions' float32 products run in true float32 (PyTorch's TF32 off,
+   asserted). Times each kernel, its plain
    version and, where one exists, a single PyTorch call computing the same
    function (``library_ms``; the port never calls it). The per-edge closure
    (K5) is timed beside K3 at K3's shape and at the hybrid stream's; K2 at
@@ -51,14 +54,15 @@
    heads, d_ff 11,008, vocab 64,000; f32 weights drawn on the card from a
    seeded generator): ``LMServer.generate`` on 8 seeded prompts of 256 to
    1,024 tokens, 4 to a batch, 32 new tokens each; the same batches through
-   ``prefill(use_flash=True)`` (K6 once per layer) and ``decode_step``,
+   ``prefill(use_flash=True)`` (the tf32x3 K6 once per layer, the other K6
+   routes never) and ``decode_step``,
    whose last-token logits must agree with the server's chunked-attention
    prefill within 1e-3 of the largest logit; and ``prefill`` of a prompt
    less its last token plus one ``decode_step`` against ``forward`` of the
    whole prompt. The Yi-6B smoke config on the card against the CPU port.
    [lm bf16] The same with bf16 weights (12.12 GB, norm scales f32): the
    server, its chunked prefill timed as time to first token, and the flash
-   prefill (the wgmma K6 once per layer, the FMA K6 never) and decode steps
+   prefill (the wgmma K6 once per layer, the other K6 routes never) and decode steps
    with a bf16 KV cache. The flash prefill's last-token logits must lie no
    farther from f32 arithmetic on the same weights than twice the chunked
    prefill's distance (FlashAttention's own accuracy test); their distance
@@ -115,18 +119,24 @@ NOT_RUN = {"FNA.5": {"sparse", "mapreduce"}, LARGE_NAME: {"mapreduce"}}
 # the device memory rate.
 PEAK_INT8_OPS = 1.979e15
 PEAK_BYTES = 3.35e12
-# Float rates of the same data sheet: FP32 on the CUDA cores, and bf16 on
-# the tensor cores (dense).
+# Float rates of the same data sheet: FP32 on the CUDA cores, and bf16 and
+# TF32 on the tensor cores (dense).
 PEAK_F32_FLOPS = 66.9e12
 PEAK_BF16_FLOPS = 989.4e12
+PEAK_TF32_FLOPS = 494.7e12
+# The f32 tensor-core K6 does each product as three TF32 passes
+TF32X3_PASSES = 3
+# K6's routes (ops.kernel_route) and the kernel each launches
+K6_ROUTES = {"fma": "flash_attention", "wgmma": "flash_attention_wgmma",
+             "tf32x3": "flash_attention_tf32x3"}
 # Yi-6B's attention at a long prefill: K6 is timed at this shape.
 YI_ATTN = dict(b=1, hq=32, hkv=4, s=8192, d=128)
 # K2 against its plain version (each with and without the upper-triangular
 # skip): ragged single tiles, several output tiles and contraction slices
 K2_SHAPES = ((64, 64, 64), (100, 70, 130), (33, 1, 17), (512, 2048, 2048),
              (300, 513, 129), (129, 8200, 130), (200, 300, 9000))
-# The first K2 launches run in a child process under this limit: a wrong
-# mbarrier parity hangs the card rather than failing
+# The first launches of K2 and of the tf32x3 K6 run in a child process under
+# this limit: a wrong mbarrier parity hangs the card rather than failing
 PROBE_TIMEOUT_S = 180
 # [profile] profiles a run again while its device rows disagree with the
 # port's launches or lack its copies, this many times in all, then raises
@@ -137,7 +147,8 @@ PROFILE_TRIES = 3
 # so a window counts only when one of its markers survives. Four times as
 # many on each retry.
 PROFILE_MARKERS = 64
-# Long sequences of K6's bf16 sweep (many full 128-key tiles, a ragged last)
+# Long sequences of K6's sweep at D = 128 (many full key tiles, a ragged
+# last), f32 and bf16
 K6_LONG_S = (4097, 8192)
 # K6 against its plain version at that shape: 1e-4 absolute in f32; in bf16
 # that plus one bf16 ulp of the output (7 stored mantissa bits) plus 2^-8 of
@@ -473,7 +484,7 @@ def check_kernels(graphs: dict) -> dict:
                (ek.numel() * 4 + real * 2 * w * 4 + 8) / PEAK_BYTES))
     del adj, delta, ek
     torch.cuda.empty_cache()
-    rows["flash_attention"], rows["flash_attention_wgmma"] = check_attention(gen)
+    rows.update(check_attention(gen))
     rows["embedding_bag"] = check_embedding_bag(gen)
     return rows
 
@@ -557,26 +568,27 @@ def close(got, want, tol: float) -> tuple[float, bool]:
     return float(diff.max()), bool((diff <= tol + tol * want.abs()).all())
 
 
-def check_attention(gen) -> tuple[dict, dict]:
-    """K6 on both routes against its plain version. The sweep: f32 and
+def check_attention(gen) -> dict:
+    """K6 on its three routes against its plain version. The sweep: f32 and
     bf16, Hq/Hkv in {4/4, 8/2, 32/4}, D in {16, 64, 128}, S in {1, 127, 200,
-    1000}, causal and full, plus bf16 at D = 128, Hq/Hkv = 8/2, S in {4097,
-    8192}, within 2e-5 (f32) and 3e-2 (bf16) — the reference kernel test's
-    tolerances; bf16 at D = 64 and 128 must take the wgmma kernel, every
-    other case the FMA kernel. Then at Yi-6B's width (``YI_ATTN``): f32
-    through the FMA kernel within ``F32_LONG_TOL``; bf16 through the wgmma
-    kernel within ``F32_LONG_TOL`` + 2^-7·|want| + 2^-8·attention_ref(q, k,
-    |v|), elementwise. Times each route there beside its plain version and
-    SDPA, the FMA kernel on the same bf16 inputs (the wgmma kernel's
-    "before"), and the wgmma kernel at the LM's prefill shape. Returns the
-    FMA kernel's row (f32) and the wgmma kernel's (bf16)."""
+    1000}, causal and full, within 2e-5 (f32) and 3e-2 (bf16) — the
+    reference kernel test's tolerances — plus f32 and bf16 at D = 128,
+    Hq/Hkv = 8/2, S in ``K6_LONG_S``, within ``F32_LONG_TOL`` (f32) and
+    3e-2 (bf16); at D = 64 and 128 bf16 must take the wgmma kernel and f32
+    the tf32x3 kernel, every other case the FMA kernel. Then at Yi-6B's
+    width (``YI_ATTN``): f32 through the tf32x3 kernel and through the FMA
+    kernel within ``F32_LONG_TOL``; bf16 through the wgmma kernel within
+    ``F32_LONG_TOL`` + 2^-7·|want| + 2^-8·attention_ref(q, k, |v|),
+    elementwise. Times each tensor-core route there beside its plain
+    version, SDPA and the FMA kernel on the same inputs (the route's
+    "before"), and again at the LM's prefill shape (4 × 1,024 tokens), where
+    f32 is also held within 2e-5. Returns each kernel's row by its registry
+    name (the FMA kernel's at ``YI_ATTN`` in f32)."""
     import torch
 
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
-
-    route_name = {"wgmma": "flash_attention_wgmma", "fma": "flash_attention"}
 
     def run(q, k, v, causal=True):
         """flash_attention, checking that it launched its route once."""
@@ -584,24 +596,32 @@ def check_attention(gen) -> tuple[dict, dict]:
         out = ops.flash_attention(q, k, v, causal=causal)
         want_route = ops.kernel_route(q.dtype, q.shape[-1])
         after = launch_counts()
-        for route, name in route_name.items():
+        for route, name in K6_ROUTES.items():
             if after[name] - before[name] != (route == want_route):
                 raise AssertionError(f"flash_attention {q.dtype} D={q.shape[-1]}: launched "
                                      f"{name} {after[name] - before[name]} times")
         return out
 
+    def fma(q, k, v):
+        return ops._launch_fma(q, k, v, True)
+
     def qkv(b, hq, hkv, s, d, dtype):
         return tuple(torch.randn(b, h, s, d, generator=gen).to(dtype).to(DEVICE)
                      for h in (hq, hkv, hkv))
 
+    def sdpa(q, k, v):
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                enable_gqa=True)
+
     cases = [(dtype, 2, hq, hkv, s, d) for dtype in (torch.float32, torch.bfloat16)
              for hq, hkv in ((4, 4), (8, 2), (32, 4)) for d in (16, 64, 128)
              for s in (1, 127, 200, 1000)]
-    cases += [(torch.bfloat16, 1, 8, 2, s, 128) for s in K6_LONG_S]
-    worst = {"fma": 0.0, "wgmma": 0.0}
-    n = {"fma": 0, "wgmma": 0}
+    cases += [(dtype, 1, 8, 2, s, 128) for dtype in (torch.float32, torch.bfloat16)
+              for s in K6_LONG_S]
+    worst = dict.fromkeys(K6_ROUTES, 0.0)
+    n = dict.fromkeys(K6_ROUTES, 0)
     for dtype, b, hq, hkv, s, d in cases:
-        tol = 2e-5 if dtype == torch.float32 else 3e-2
+        tol = 3e-2 if dtype == torch.bfloat16 else 2e-5 if s <= 1000 else F32_LONG_TOL
         q, k, v = qkv(b, hq, hkv, s, d, dtype)
         route = ops.kernel_route(dtype, d)
         for causal in (True, False):
@@ -613,21 +633,22 @@ def check_attention(gen) -> tuple[dict, dict]:
                     f"causal={causal}: max abs err {err}, not within rtol = atol = {tol}")
             worst[route] = max(worst[route], err)
         del q, k, v
-    log(f"  flash_attention      {n['fma']} cases through the FMA kernel (f32; bf16 at D = 16) "
-        f"and {n['wgmma']} through the wgmma kernel (bf16 at D = 64, 128) match within rtol = "
-        f"atol = 2e-5 (f32) and 3e-2 (bf16): max abs err FMA {worst['fma']:.3e}, wgmma "
+    log(f"  flash_attention      {n['fma']} cases through the FMA kernel (D = 16), "
+        f"{n['tf32x3']} through the tf32x3 kernel (f32 at D = 64, 128) and {n['wgmma']} "
+        f"through the wgmma kernel (bf16 at D = 64, 128) match within rtol = atol = 2e-5 "
+        f"(f32; {F32_LONG_TOL:g} at S = {', '.join(map(str, K6_LONG_S))}) and 3e-2 (bf16): "
+        f"max abs err FMA {worst['fma']:.3e}, tf32x3 {worst['tf32x3']:.3e}, wgmma "
         f"{worst['wgmma']:.3e}")
     torch.cuda.empty_cache()
 
     b, hq, hkv, s, d = (YI_ATTN[x] for x in ("b", "hq", "hkv", "s", "d"))
     flops = 4 * b * hq * d * s * (s + 1) / 2
+    peaks = {"tf32x3": PEAK_TF32_FLOPS / TF32X3_PASSES, "wgmma": PEAK_BF16_FLOPS}
     rows = {}
-    for dtype, peak in ((torch.float32, PEAK_F32_FLOPS), (torch.bfloat16, PEAK_BF16_FLOPS)):
+    for dtype in (torch.float32, torch.bfloat16):
         route = ops.kernel_route(dtype, d)
         q, k, v = qkv(b, hq, hkv, s, d, dtype)
         want = attention_ref(q, k, v).float()
-        diff = (run(q, k, v).float() - want).abs()
-        err = float(diff.max())
         if dtype == torch.float32:
             limit, text = F32_LONG_TOL, f"{F32_LONG_TOL:g}"
         else:
@@ -637,48 +658,75 @@ def check_attention(gen) -> tuple[dict, dict]:
             limit = (F32_LONG_TOL + BF16_ULP * want.abs()
                      + BF16_P_ROUND * attention_ref(q, k, v.abs()).float())
             text = f"{F32_LONG_TOL:g} + 2^-7 |want| + 2^-8 attention_ref(q, k, |v|)"
-        ratio = float((diff / limit).max())
-        log(f"  flash_attention      Yi-6B width {tuple(q.shape)} kv {tuple(k.shape)} {dtype} "
-            f"({route_name[route]}): max abs err {err:.3e}, max |diff| / limit {ratio:.3f} "
-            f"(limit {text})")
-        if not ratio <= 1.0:
-            raise AssertionError(f"flash_attention at Yi-6B's width, {dtype}: max |diff| / "
-                                 f"limit {ratio} > 1 (max abs err {err})")
-        del want, diff, limit
+        errs = {}
+        checks = [(K6_ROUTES[route], run)]
+        if dtype == torch.float32:
+            checks.append(("flash_attention", fma))
+        for name, fn in checks:
+            diff = (fn(q, k, v).float() - want).abs()
+            errs[name] = float(diff.max())
+            ratio = float((diff / limit).max())
+            log(f"  flash_attention      Yi-6B width {tuple(q.shape)} kv {tuple(k.shape)} "
+                f"{dtype} ({name}): max abs err {errs[name]:.3e}, max |diff| / limit "
+                f"{ratio:.3f} (limit {text})")
+            if not ratio <= 1.0:
+                raise AssertionError(f"{name} at Yi-6B's width, {dtype}: max |diff| / limit "
+                                     f"{ratio} > 1 (max abs err {errs[name]})")
+            del diff
+        del want, limit
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-
-        def sdpa():
-            return torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True)
-        rows[route] = dict(
+        peak = peaks[route]
+        row = rows[K6_ROUTES[route]] = dict(
             shape=[b, hq, hkv, s, d], dtype=str(dtype).removeprefix("torch."),
-            max_abs_err=max(worst[route], err), match=True,
-            ms=time_ms(lambda: ops.flash_attention(q, k, v), reps=5 if route == "fma" else 20),
+            max_abs_err=max(worst[route], errs[K6_ROUTES[route]]), match=True,
+            ms=time_ms(lambda: ops.flash_attention(q, k, v), reps=20),
             plain_ms=time_ms(lambda: attention_ref(q, k, v), reps=2),
-            library_ms=time_ms(sdpa, reps=20),
+            library_ms=time_ms(lambda: sdpa(q, k, v), reps=5 if route == "tf32x3" else 20),
             bound=(flops / peak, nbytes / PEAK_BYTES))
-        if route == "wgmma":
-            # the FMA kernel on the same bf16 inputs: this route's "before"
-            rows[route]["fma_bf16_ms"] = time_ms(lambda: ops._launch_fma(q, k, v, True),
-                                                 reps=3)
-            log(f"  flash_attention      bf16 at Yi-6B's width: wgmma {rows[route]['ms']:.4f} "
-                f"ms, FMA kernel {rows[route]['fma_bf16_ms']:.4f} ms, SDPA "
-                f"{rows[route]['library_ms']:.4f} ms, bound {flops / peak * 1e3:.4f} ms")
+        # the FMA kernel on the same inputs: this route's "before"
+        before_ms = time_ms(lambda: fma(q, k, v), reps=3)
+        if route == "tf32x3":
+            rows["flash_attention"] = dict(
+                row, max_abs_err=max(worst["fma"], errs["flash_attention"]), ms=before_ms,
+                bound=(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES))
+            row.update(fma_f32_ms=before_ms, fma_bound_ms=flops / PEAK_F32_FLOPS * 1e3)
+        else:
+            row["fma_bf16_ms"] = before_ms
+        log(f"  flash_attention      {dtype} at Yi-6B's width: {route} {row['ms']:.4f} ms, "
+            f"FMA kernel {before_ms:.4f} ms, SDPA {row['library_ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {flops / peak * 1e3:.4f} ms"
+            + (f" (FMA pipes {flops / PEAK_F32_FLOPS * 1e3:.4f} ms)" if route == "tf32x3"
+               else ""))
         del q, k, v
         torch.cuda.empty_cache()
-    # the wgmma kernel at the LM's prefill shape: 4 prompts of 1,024 tokens
-    q, k, v = qkv(4, hq, hkv, 1024, d, torch.bfloat16)
-    pre = dict(shape=[4, hq, hkv, 1024, d],
-               ms=time_ms(lambda: ops.flash_attention(q, k, v), reps=50),
-               library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                   q, k, v, is_causal=True, enable_gqa=True), reps=50),
-               bound_ms=4 * 4 * hq * d * 1024 * 1025 / 2 / PEAK_BF16_FLOPS * 1e3)
-    rows["wgmma"]["at_prefill_shape"] = pre
-    log(f"  flash_attention      bf16 at the LM's prefill shape {tuple(q.shape)}: wgmma "
-        f"{pre['ms']:.4f} ms, SDPA {pre['library_ms']:.4f} ms, bound {pre['bound_ms']:.4f} ms")
-    del q, k, v
-    torch.cuda.empty_cache()
-    return rows["fma"], rows["wgmma"]
+
+    # both tensor-core routes at the LM's prefill shape: 4 prompts of 1,024
+    # tokens, f32 held within 2e-5
+    pre_flops = 4 * 4 * hq * d * 1024 * 1025 / 2
+    for dtype in (torch.float32, torch.bfloat16):
+        route = ops.kernel_route(dtype, d)
+        q, k, v = qkv(4, hq, hkv, 1024, d, dtype)
+        peak = peaks[route]
+        pre = dict(shape=[4, hq, hkv, 1024, d],
+                   ms=time_ms(lambda: ops.flash_attention(q, k, v), reps=50),
+                   library_ms=time_ms(lambda: sdpa(q, k, v), reps=50),
+                   bound_ms=pre_flops / peak * 1e3)
+        if route == "tf32x3":
+            err, ok = close(run(q, k, v), attention_ref(q, k, v), 2e-5)
+            if not ok:
+                raise AssertionError(f"flash_attention (tf32x3) at the LM's prefill shape: max "
+                                     f"abs err {err}, not within rtol = atol = 2e-5")
+            pre.update(max_abs_err=err, fma_ms=time_ms(lambda: fma(q, k, v), reps=10),
+                       fma_bound_ms=pre_flops / PEAK_F32_FLOPS * 1e3)
+        rows[K6_ROUTES[route]]["at_prefill_shape"] = pre
+        log(f"  flash_attention      {dtype} at the LM's prefill shape {tuple(q.shape)}: "
+            f"{route} {pre['ms']:.4f} ms, SDPA {pre['library_ms']:.4f} ms, bound "
+            f"{pre['bound_ms']:.4f} ms"
+            + (f"; FMA kernel {pre['fma_ms']:.4f} ms (bound {pre['fma_bound_ms']:.4f} ms), "
+               f"max abs err {pre['max_abs_err']:.3e}" if route == "tf32x3" else ""))
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
 
 
 def check_embedding_bag(gen) -> dict:
@@ -1241,8 +1289,7 @@ def lm_phase(arch: str = "yi_6b", dtype: str = "float32", n_prompts: int = 8,
     # cache in the weights' dtype); the server's own prefill (chunked
     # attention) recomputed for its logits and timed: that is the served
     # path's time to first token
-    route = {"wgmma": "flash_attention_wgmma",
-             "fma": "flash_attention"}[kernel_route(wdtype, cfg.hd)]
+    route = K6_ROUTES[kernel_route(wdtype, cfg.hd)]
     k6 = launch_counts()
     agree, flash_ms, ttft_ms, decode_ms, ratios, kept = 0, [], [], [], [], []
     batch0 = None
@@ -1283,7 +1330,7 @@ def lm_phase(arch: str = "yi_6b", dtype: str = "float32", n_prompts: int = 8,
         del cache
     after = launch_counts()
     n_batches = len(flash_ms)
-    for name in ("flash_attention", "flash_attention_wgmma"):
+    for name in K6_ROUTES.values():
         want_n = cfg.n_layers * n_batches if name == route else 0
         if after[name] - k6[name] != want_n:
             raise AssertionError(f"{dtype} flash prefills launched {name} "
@@ -1292,7 +1339,7 @@ def lm_phase(arch: str = "yi_6b", dtype: str = "float32", n_prompts: int = 8,
     log(f"  greedy tokens equal between the server and the flash path: {agree} of "
         f"{n_prompts * new_tokens}")
     log(f"  K6 launches: {k6} of {route} = {cfg.n_layers} layers x {n_batches} flash prefills "
-        f"(none of the other route)")
+        f"(none of the other routes)")
     for i, (c, f, d) in enumerate(zip(ttft_ms, flash_ms, decode_ms)):
         log(f"  batch {i}: time to first token {c:.3f} ms (the server's prefill, chunked "
             f"attention, as generate runs it); the flash prefill (K6) {f:.3f} ms; decode "
@@ -1612,7 +1659,7 @@ def profiled(label: str, run, *, need_h2d: bool) -> dict:
 
 
 def probe_k2() -> int:
-    """``chip_smoke.py --probe``: K2's first launches, at small shapes and
+    """``chip_smoke.py --probe``, first part: K2's first launches, at small shapes and
     at FNA.5's ring-visit shape, against its plain version. The full run
     starts this in a child process under a time limit, so that a kernel
     that never ends is killed with its process instead of holding the card."""
@@ -1642,6 +1689,36 @@ def probe_k2() -> int:
     return 0
 
 
+def probe_k6_tf32x3() -> int:
+    """``chip_smoke.py --probe``, second part: the three-pass TF32 K6's
+    first launches, at small and ragged shapes, causal and full, against its
+    plain version within the reference kernel test's 2e-5."""
+    import torch
+
+    from repro_torch.kernels import _build, launch_counts
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    name = "flash_attention_tf32x3_sm90"
+    for line in _build.build_all([name], verbose=True)[name].splitlines():
+        if any(w in line.lower() for w in ("registers", "spill", "error", "warning")):
+            print(f"probe build: {line.strip()}", flush=True)
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    for (b, hq, hkv, s, d) in ((1, 4, 4, 1, 64), (2, 4, 2, 63, 64), (1, 8, 2, 129, 128),
+                               (2, 4, 1, 300, 128), (1, 32, 4, 1024, 128)):
+        q, k, v = (torch.randn(b, h, s, d, generator=gen).to(DEVICE) for h in (hq, hkv, hkv))
+        for causal in (True, False):
+            got = flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err, ok = close(got, attention_ref(q, k, v, causal=causal), 2e-5)
+            print(f"probe flash_attention tf32x3 {(b, hq, hkv, s, d)} causal={causal}: max abs "
+                  f"err {err:.3e} {'match' if ok else 'MISMATCH'}", flush=True)
+            if not ok:
+                return 1
+    print(f"probe launches: {launch_counts()['flash_attention_tf32x3']}", flush=True)
+    return 0
+
+
 def main() -> int:
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
@@ -1666,7 +1743,7 @@ def main() -> int:
                              "need true float32")
 
     if sys.argv[1:] == ["--probe"]:
-        return probe_k2()
+        return probe_k2() or probe_k6_tf32x3()
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t_all = time.perf_counter()
@@ -1680,18 +1757,19 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     t0 = time.perf_counter()
-    log(f"[probe] K2's first launches in a child process, limited to {PROBE_TIMEOUT_S} s")
+    log(f"[probe] the first launches of K2 and of the tf32x3 K6 in a child process, "
+        f"limited to {PROBE_TIMEOUT_S} s")
     try:
         child = subprocess.run([sys.executable, os.path.abspath(__file__), "--probe"],
                                capture_output=True, text=True, timeout=PROBE_TIMEOUT_S)
     except subprocess.TimeoutExpired as e:
-        raise AssertionError(f"K2's probe did not finish in {PROBE_TIMEOUT_S} s (killed): "
+        raise AssertionError(f"the probe did not finish in {PROBE_TIMEOUT_S} s (killed): "
                              "a kernel that never ends, such as a wrong mbarrier "
                              f"parity\n{e.stdout or ''}{e.stderr or ''}") from None
     for line in (child.stdout + child.stderr).splitlines():
         log(f"  {line}")
     if child.returncode != 0:
-        raise AssertionError(f"K2's probe exited {child.returncode}")
+        raise AssertionError(f"the probe exited {child.returncode}")
     log(f"[probe] done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1729,8 +1807,8 @@ def main() -> int:
     hybrid_table = hybrid_phase(graphs, table)
     log(f"[hybrid] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    log("[lm] Yi-6B at full width and depth, f32 weights: LMServer.generate, flash prefill + "
-        "decode_step, forward")
+    log("[lm] Yi-6B at full width and depth, f32 weights: LMServer.generate, flash prefill "
+        "(tf32x3 K6) + decode_step, forward")
     lm = lm_phase()
     log(f"[lm] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -1777,6 +1855,8 @@ def main() -> int:
                     "src/repro/kernels/flash_attention/flash_attention.py:62",
                 "flash_attention_wgmma":
                     "src/repro/kernels/flash_attention/flash_attention.py:62",
+                "flash_attention_tf32x3":
+                    "src/repro/kernels/flash_attention/flash_attention.py:62",
                 "embedding_bag": "src/repro/kernels/embedding_bag/embedding_bag.py:32",
             }[name],
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
@@ -1789,7 +1869,8 @@ def main() -> int:
             "match": r.get("match", r["max_abs_err"] == 0),
             "kernel_ms": r["ms"], "shape": r["shape"],
             **({k: r[k] for k in ("k3_ms", "at_k3_shape", "dtype", "fma_bf16_ms",
-                                  "at_prefill_shape", "at_fb107x9_shape") if k in r}),
+                                  "fma_f32_ms", "fma_bound_ms", "at_prefill_shape",
+                                  "at_fb107x9_shape") if k in r}),
         })
         log(f"  bound of {name}: operations {ops_ms:.6f} ms, bytes {bytes_ms:.6f} ms")
     log("[stream table] " + json.dumps(table))

@@ -15,7 +15,7 @@ def kernels() -> dict:
             "bitset_edge_count": bs.EDGE, "bitset_pair_count": bs.PAIR,
             "bitset_edge_count_per_edge": bs.PER_EDGE,
             "flash_attention": fa.FLASH, "flash_attention_wgmma": fa.FLASH_WGMMA,
-            "embedding_bag": eb.BAG}
+            "flash_attention_tf32x3": fa.FLASH_TF32X3, "embedding_bag": eb.BAG}
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,14 +1,21 @@
-"""Wrappers of the two flash-attention CUDA kernels, K6.
+"""Wrappers of the three flash-attention CUDA kernels, K6.
 
 On CPU tensors :func:`flash_attention` runs the plain version
-(``ref.attention_ref``); on CUDA tensors it launches one of two kernels or
-raises, and :func:`kernel_route` alone decides which from (dtype, head
-dim): bf16 at D ∈ {64, 128} goes to ``csrc/flash_attention_sm90.cu``
-(``wgmma`` on the bf16 tensor cores, fed by TMA), everything else to the
-f32 FMA kernel of ``csrc/flash_attention.cu``. The choice is by shape,
-never by failure: a build or launch error raises. Both kernels mask a
-ragged sequence themselves, so unlike the reference wrapper nothing is
-padded and ``causal=False`` is taken at any S."""
+(``ref.attention_ref``); on CUDA tensors it launches one of three kernels
+or raises, and :func:`kernel_route` alone decides which from (dtype, head
+dim): at D ∈ {64, 128} bf16 goes to ``csrc/flash_attention_sm90.cu``
+(``wgmma`` on the bf16 tensor cores, fed by TMA) and f32 to
+``csrc/flash_attention_tf32x3_sm90.cu`` (three-pass TF32 ``wgmma``, fed by
+TMA); every other head dim goes to the f32 FMA kernel of
+``csrc/flash_attention.cu``. The choice is by shape, never by failure: a
+build or launch error raises. All three kernels mask a ragged sequence
+themselves, so unlike the reference wrapper nothing is padded and
+``causal=False`` is taken at any S.
+
+The three-pass kernel's arithmetic is pinned here by pure functions that
+the CPU tests hold against the reference: :func:`tf32_split` (what a TF32
+``wgmma`` reads of an f32 word, and the rest) and :func:`pv_key_order` /
+:func:`vt_operand` (the layout in which its prep kernel writes Vᵀ)."""
 from __future__ import annotations
 
 import ctypes
@@ -35,16 +42,59 @@ FLASH_WGMMA = CudaKernel(
      _L, _L, _L, _L, _L, _L,         # v, out strides over (b, h, s)
      _I, ctypes.c_float],            # causal, scale
     "fa_wgmma_error_string")
+FLASH_TF32X3 = CudaKernel(
+    "flash_attention_tf32x3_sm90", "fa_forward_tf32x3",
+    [_P, _P, _P, _P,                 # q, k, v, out
+     _P, _P, _P,                     # scratch: k_lo, vt, vt_lo
+     _I, _I, _I, _I, _I,             # B, Hq, Hkv, S, D
+     _L, _L, _L, _L, _L, _L,         # q, k strides over (b, h, s)
+     _L, _L, _L, _L, _L, _L,         # v, out strides over (b, h, s)
+     _I, ctypes.c_float],            # causal, scale
+    "fa_tf32x3_error_string")
 MAX_HEAD_DIM = 256
 WGMMA_HEAD_DIMS = (64, 128)
+_TC_ROUTE = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
+TF32_MASK = -(1 << 13)  # 0xFFFFE000 as int32: the bits of an f32 word a TF32 wgmma reads
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _TMA_ALIGN = 16  # bytes: TMA's rule for a base address and every stride
 
 
 def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel a CUDA call takes: ``"wgmma"`` for bf16 at a head dim in
-    :data:`WGMMA_HEAD_DIMS`, else ``"fma"``."""
-    return "wgmma" if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS else "fma"
+    """The kernel a CUDA call takes: at a head dim in
+    :data:`WGMMA_HEAD_DIMS`, ``"wgmma"`` for bf16 and ``"tf32x3"`` for f32;
+    else ``"fma"``."""
+    return _TC_ROUTE.get(dtype, "fma") if head_dim in WGMMA_HEAD_DIMS else "fma"
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of f32 ``x``: hi is what a TF32 ``wgmma`` reads of each
+    word (its 13 low mantissa bits dropped, so truncated toward zero) and
+    lo = x - hi, exact in f32. The tensor cores read lo truncated in turn,
+    which leaves hi + tf32(lo) within 2^-21 |x| of x."""
+    hi = (x.view(torch.int32) & TF32_MASK).view(torch.float32)
+    return hi, x - hi
+
+
+def pv_key_order() -> tuple[int, ...]:
+    """Which key of each 8-key group sits at position p of P·V's
+    contraction in the three-pass kernel. Position p of a TF32 ``wgmma``
+    register A fragment is register p // 4 of the quad's thread p % 4, and
+    that register holds the Q·Kᵀ accumulator's column 2·(p % 4) + p // 4,
+    so the softmax's registers feed P·V unchanged when Vᵀ's keys are in this
+    order (the C copy: ``key_order`` in the kernel's source)."""
+    return tuple(2 * (p % 4) + p // 4 for p in range(8))
+
+
+def vt_operand(v: torch.Tensor) -> torch.Tensor:
+    """Vᵀ as the three-pass kernel's prep writes it: (B, Hkv, D, S8), S8 = S
+    rounded up to 8, keys ≥ S zero, each 8-key group in
+    :func:`pv_key_order`."""
+    b, h, s, d = v.shape
+    s8 = -(-s // 8) * 8
+    padded = v.new_zeros(b, h, s8, d)
+    padded[:, :, :s] = v
+    keys = torch.arange(s8, device=v.device).view(-1, 8)[:, list(pv_key_order())]
+    return padded[:, :, keys.reshape(-1)].transpose(-1, -2).contiguous()
 
 
 def _tma_strides(x: torch.Tensor) -> tuple[int, int, int] | None:
@@ -63,6 +113,13 @@ def _tma_strides(x: torch.Tensor) -> tuple[int, int, int] | None:
     return tuple(out)
 
 
+def _tma_ready(x: torch.Tensor) -> torch.Tensor:
+    """x itself when TMA can read it in place, else a fresh contiguous copy
+    (a new allocation, so an already contiguous x whose base breaks the
+    16-byte rule is copied too)."""
+    return x if _tma_strides(x) else x.clone(memory_format=torch.contiguous_format)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Causal (or full) GQA attention, scale D^-½, f32 accumulation, out in
@@ -71,8 +128,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     On the card q, k and v may be any strided views whose last dimension
     is contiguous (the transposed head views of ``attention._split_heads``
-    are read in place); on the ``wgmma`` route their bases and strides must
-    also keep TMA's 16-byte rule. Anything else is copied contiguous first.
+    are read in place); on the ``wgmma`` route q, k and v, and on the
+    ``tf32x3`` route q and k, must also keep TMA's 16-byte rule in their
+    bases and strides. Anything else is copied contiguous first.
     The output has q's layout, so transposing it back to (B, S, Hq·D) is
     free.
     """
@@ -93,8 +151,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     d = q.shape[-1]
     if d > MAX_HEAD_DIM:
         raise ValueError(f"the CUDA kernel takes head dims up to {MAX_HEAD_DIM}, got {d}")
-    if kernel_route(q.dtype, d) == "wgmma":
+    route = kernel_route(q.dtype, d)
+    if route == "wgmma":
         return _launch_wgmma(q, k, v, causal)
+    if route == "tf32x3":
+        return _launch_tf32x3(q, k, v, causal)
     return _launch_fma(q, k, v, causal)
 
 
@@ -116,7 +177,7 @@ def _launch_fma(q, k, v, causal: bool) -> torch.Tensor:
 def _launch_wgmma(q, k, v, causal: bool) -> torch.Tensor:
     """bf16 at D ∈ {64, 128}: the TMA + ``wgmma`` kernel. An input whose
     base or strides break TMA's 16-byte rule is copied contiguous first."""
-    q, k, v = (x if _tma_strides(x) else x.contiguous() for x in (q, k, v))
+    q, k, v = (_tma_ready(x) for x in (q, k, v))
     out = torch.empty_like(q)  # q's layout; its last dimension is contiguous
     b, hq, s, d = q.shape
     if out.numel():
@@ -126,4 +187,27 @@ def _launch_wgmma(q, k, v, causal: bool) -> torch.Tensor:
                         *_tma_strides(q), *_tma_strides(k), *_tma_strides(v),
                         *out.stride()[:3], int(causal), d**-0.5,
                         stream=torch.cuda.current_stream(q.device).cuda_stream)
+    return out
+
+
+def _launch_tf32x3(q, k, v, causal: bool) -> torch.Tensor:
+    """f32 at D ∈ {64, 128}: the three-pass TF32 kernel. TMA reads q and k,
+    so those that break its 16-byte rule are copied; v is read by the prep
+    kernel through its strides. The scratch the prep writes (K_lo, and Vᵀ
+    and Vᵀ_lo as :func:`vt_operand` lays them out) is allocated here."""
+    q, k = _tma_ready(q), _tma_ready(k)
+    v = v if v.stride(-1) == 1 else v.contiguous()
+    out = torch.empty_like(q)  # q's layout; its last dimension is contiguous
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    if out.numel():
+        k_lo = torch.empty(b, hkv, s, d, dtype=torch.float32, device=q.device)
+        vt = torch.empty(2, b, hkv, d, -(-s // 8) * 8, dtype=torch.float32, device=q.device)
+        with torch.cuda.device(q.device):
+            FLASH_TF32X3(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                         k_lo.data_ptr(), vt[0].data_ptr(), vt[1].data_ptr(),
+                         b, hq, hkv, s, d,
+                         *_tma_strides(q), *_tma_strides(k), *v.stride()[:3],
+                         *out.stride()[:3], int(causal), d**-0.5,
+                         stream=torch.cuda.current_stream(q.device).cuda_stream)
     return out

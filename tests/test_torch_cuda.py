@@ -418,12 +418,13 @@ def test_hybrid_ingest_never_waits_for_the_card(cuda):
 # --------------------------------------------------------------------------
 # K6 and K7, and the LM and recsys paths on the card
 # --------------------------------------------------------------------------
-_K6 = {"wgmma": "flash_attention_wgmma", "fma": "flash_attention"}
+_K6 = {"wgmma": "flash_attention_wgmma", "fma": "flash_attention",
+       "tf32x3": "flash_attention_tf32x3"}
 
 
 def _assert_one_launch(before: dict, route: str, n: int = 1) -> None:
     """Exactly ``n`` launches of K6's ``route`` since ``before``, none of the
-    other route."""
+    other routes."""
     now = launch_counts()
     for r, name in _K6.items():
         assert now[name] - before[name] == (n if r == route else 0), (name, route)
@@ -435,8 +436,9 @@ def _assert_one_launch(before: dict, route: str, n: int = 1) -> None:
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel_equals_plain(cuda, dtype, hq, hkv, d, s, causal):
     """Tolerances of the reference's kernel test: 2e-5 (f32), 3e-2 (bf16).
-    bf16 at D = 64 and 128 takes the wgmma kernel, every other case the FMA
-    kernel: one launch of that route and none of the other."""
+    At D = 64 and 128 bf16 takes the wgmma kernel and f32 the three-pass
+    TF32 kernel, every other case the FMA kernel: one launch of that route
+    and none of the others."""
     g = torch.Generator(device=cuda).manual_seed(hq * s + d)
     q = torch.randn(2, hq, s, d, generator=g, device=cuda).to(dtype)
     k = torch.randn(2, hkv, s, d, generator=g, device=cuda).to(dtype)
@@ -508,6 +510,63 @@ def test_flash_attention_wgmma_copies_what_tma_cannot_read(cuda):
     _assert_one_launch(before, "wgmma")
     torch.testing.assert_close(got.float(), attention_ref(q, kv, kv, causal=False).float(),
                                rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (32, 4)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 63, 127, 128, 129, 200, 1000, 4097])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_tf32x3_equals_plain(cuda, hq, hkv, d, s, causal):
+    """The f32 tensor-core kernel (three TF32 passes, TMA ring, wgmma)
+    against the plain version across ragged and whole 32-key tiles: the
+    reference kernel test's 2e-5 up to S = 1000, and chip_smoke.py's
+    F32_LONG_TOL (1e-4) at S = 4097, where the online softmax has run over
+    129 key tiles."""
+    g = torch.Generator(device=cuda).manual_seed(hq * s + d + causal)
+    b = 2 if s < 4097 else 1
+    q = torch.randn(b, hq, s, d, generator=g, device=cuda)
+    k = torch.randn(b, hkv, s, d, generator=g, device=cuda)
+    v = torch.randn(b, hkv, s, d, generator=g, device=cuda)
+    before = launch_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    _assert_one_launch(before, "tf32x3")
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    tol = 2e-5 if s <= 1000 else 1e-4
+    torch.testing.assert_close(got, attention_ref(q, k, v, causal=causal), rtol=tol, atol=tol)
+
+
+def test_flash_attention_tf32x3_reads_head_views_in_place(cuda):
+    """f32 head views of attention._split_heads keep TMA's 16-byte rule:
+    q and k are read in place (v by the prep kernel through its strides), so
+    the output keeps q's layout."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(2, 300, 8 * 128, generator=g, device=cuda)
+    y = torch.randn(2, 300, 2 * 2 * 128, generator=g, device=cuda)
+    q = x.reshape(2, 300, 8, 128).transpose(1, 2)
+    k = y[..., :256].reshape(2, 300, 2, 128).transpose(1, 2)
+    v = y[..., 256:].reshape(2, 300, 2, 128).transpose(1, 2)
+    before = launch_counts()
+    got = flash_attention(q, k, v)
+    _assert_one_launch(before, "tf32x3")
+    assert got.stride() == q.stride()
+    torch.testing.assert_close(got, attention_ref(q, k, v), rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_tf32x3_copies_what_tma_cannot_read(cuda):
+    """A base 4 bytes off 16-byte alignment, rows of 65 elements (260
+    bytes), and a contiguous tensor whose base is 4 bytes off: the wrapper
+    copies them, never refuses them."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn(2, 4, 130, 65, generator=g, device=cuda)[..., 1:]  # base +4, stride 65
+    flat = torch.randn(1 + 2 * 2 * 130 * 64, generator=g, device=cuda)
+    k = flat[1:].view(2, 2, 130, 64)                                    # contiguous, base +4
+    v = torch.randn(2, 2, 130, 72, generator=g, device=cuda)[..., 8:]
+    assert q.data_ptr() % 16 and q.stride(2) == 65
+    assert k.is_contiguous() and k.data_ptr() % 16
+    before = launch_counts()
+    got = flash_attention(q, k, v, causal=False)
+    _assert_one_launch(before, "tf32x3")
+    torch.testing.assert_close(got, attention_ref(q, k, v, causal=False), rtol=2e-5, atol=2e-5)
 
 
 def test_flash_attention_kernel_reads_head_views_in_place(cuda):
@@ -592,6 +651,29 @@ def test_lm_bf16_flash_prefill_matches_the_cpu_port(cuda, head_dim):
     want, _ = tf.prefill(host, cfg, toks, 160, use_flash=True, cache_dtype=torch.bfloat16)
     assert cache["dense"]["k"].dtype == torch.bfloat16
     assert float((got.cpu() - want).abs().max()) <= 2e-2 * float(want.abs().max())
+
+
+def test_lm_f32_flash_prefill_at_head_dim_128_matches_the_cpu_port(cuda):
+    """The Yi-6B smoke config widened to head dim 128 in f32: its flash
+    prefill takes the three-pass TF32 route, one launch per layer and none
+    of the other routes, and agrees with the CPU port on the same weights
+    within 2e-4, as the head-dim-16 (FMA) prefill does."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(get_smoke("yi_6b"), head_dim=128)
+    assert kernel_route(torch.float32, cfg.hd) == "tf32x3"
+    model = tf.init_params(torch.Generator(device=cuda).manual_seed(7), cfg, device=cuda)
+    host = tf.Transformer(cfg, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    toks = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab, (2, 150)))
+    before = launch_counts()
+    got, cache = tf.prefill(model, cfg, toks.to(cuda), 160, use_flash=True)
+    _assert_one_launch(before, "tf32x3", cfg.n_layers)
+    want, host_cache = tf.prefill(host, cfg, toks, 160, use_flash=True)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(cache["dense"]["k"].cpu(), host_cache["dense"]["k"],
+                               rtol=2e-4, atol=2e-4)
 
 
 def test_lm_server_on_the_card(cuda):

@@ -40,9 +40,13 @@ from repro_torch.kernels.bitset_count.ref import (  # noqa: E402
 from repro_torch.kernels.embedding_bag.ops import embedding_bag  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    _tma_ready,
     _tma_strides,
     flash_attention,
     kernel_route,
+    pv_key_order,
+    tf32_split,
+    vt_operand,
 )
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.triangle_count.ops import (  # noqa: E402
@@ -373,12 +377,126 @@ def test_flash_attention_reads_head_views_and_rejects_bad_shapes():
 
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.float32, 64, "fma"), (torch.float32, 128, "fma"),
-    (torch.bfloat16, 16, "fma"), (torch.bfloat16, 200, "fma")])
+    (torch.float32, 64, "tf32x3"), (torch.float32, 128, "tf32x3"),
+    (torch.bfloat16, 16, "fma"), (torch.bfloat16, 200, "fma"),
+    (torch.float32, 16, "fma"), (torch.float32, 200, "fma")])
 def test_flash_attention_route_is_chosen_by_dtype_and_head_dim(dtype, d, route):
-    """On the card bf16 at D in {64, 128} launches the wgmma kernel and
-    everything else the FMA kernel; nothing but (dtype, D) decides."""
+    """On the card, at D in {64, 128}, bf16 launches the bf16 wgmma kernel
+    and f32 the three-pass TF32 one; every other head dim the FMA kernel.
+    Nothing but (dtype, D) decides."""
     assert kernel_route(dtype, d) == route
+
+
+# The three-pass TF32 kernel's arithmetic, emulated from the pure functions
+# it shares with ops.py: every product a tensor-core product of TF32
+# operands (exact in f32: 11 x 11 significant bits), summed in f32.
+def _tf32(x):
+    return tf32_split(x)[0]
+
+
+def _tf32x3_emulation(q, k, v, *, causal=True, passes=3):
+    """The kernel on the CPU: S = Q·K + Q·K_lo + Q_lo·K (the wgmma reads
+    each f32 word as TF32), P·V = P·Vᵀ + P_lo·Vᵀ + P·Vᵀ_lo with P's columns
+    and V's keys both in pv_key_order (Vᵀ from vt_operand, padded to S8).
+    ``passes=1`` keeps only the first product of each: one TF32 pass."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    k, v = k.repeat_interleave(group, 1), v.repeat_interleave(group, 1)
+    q_hi, q_lo = tf32_split(q)
+    k_hi, k_lo = tf32_split(k)
+    sc = q_hi @ k_hi.mT
+    if passes == 3:
+        sc = sc + q_hi @ _tf32(k_lo).mT + _tf32(q_lo) @ k_hi.mT
+    sc = sc * d**-0.5
+    if causal:
+        sc = sc.masked_fill(~torch.ones(s, s, dtype=torch.bool).tril(), float("-inf"))
+    p = (sc - sc.amax(-1, keepdim=True)).exp()
+    den = p.sum(-1, keepdim=True)
+    vt = vt_operand(v)
+    s8 = vt.shape[-1]
+    keys = torch.arange(s8).view(-1, 8)[:, list(pv_key_order())].reshape(-1)
+    p_hi, p_lo = tf32_split(torch.nn.functional.pad(p, (0, s8 - s))[..., keys])
+    vt_hi, vt_lo = tf32_split(vt)
+    o = p_hi @ vt_hi.mT
+    if passes == 3:
+        o = o + _tf32(p_lo) @ vt_hi.mT + p_hi @ _tf32(vt_lo).mT
+    return o / den
+
+
+def test_tf32_split_reconstructs_x_and_bounds_what_the_tensor_cores_drop():
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.standard_normal(100_000)
+                          * 10.0 ** rng.uniform(-20, 20, 100_000)).astype(np.float32))
+    hi, lo = tf32_split(x)
+    assert torch.equal(hi + lo, x)                                  # lo is exact
+    assert torch.equal(hi.view(torch.int32) & 0x1FFF, torch.zeros_like(x, dtype=torch.int32))
+    assert bool((hi.abs() <= x.abs()).all())                       # truncated toward zero
+    assert bool((lo.abs() < 2.0**-10 * x.abs()).all())
+    # the tensor cores read lo truncated in turn: hi + tf32(lo) is within
+    # 2^-21 |x| of x, where one pass keeps only 2^-10
+    assert bool(((x - (hi + _tf32(lo))).abs() <= 2.0**-21 * x.abs()).all())
+    assert float(((x - hi).abs() / x.abs()).max()) > 2.0**-11
+
+
+def test_pv_key_order_hands_the_accumulator_to_the_tf32_a_fragment():
+    """Thread t of a quad holds accumulator columns 2t and 2t + 1 of each
+    8-key group (registers e = 0, 1) and passes them as TF32 A-fragment
+    registers a0 and a2, which wgmma reads as columns t and t + 4
+    (PTX ISA, wgmma .tf32 register fragments): position p of the
+    contraction holds key pv_key_order()[p]."""
+    key_at = {}
+    for t in range(4):
+        key_at[t] = 2 * t          # a0 <- accumulator register 0
+        key_at[t + 4] = 2 * t + 1  # a2 <- accumulator register 1
+    assert pv_key_order() == tuple(key_at[p] for p in range(8)) == (0, 2, 4, 6, 1, 3, 5, 7)
+    assert sorted(pv_key_order()) == list(range(8))
+
+
+@pytest.mark.parametrize("s", [1, 13, 16])
+def test_vt_operand_is_v_transposed_padded_and_in_key_order(s):
+    v = torch.from_numpy(np.random.default_rng(s).standard_normal((2, 3, s, 4)).astype(
+        np.float32))
+    vt = vt_operand(v)
+    s8 = -(-s // 8) * 8
+    assert vt.shape == (2, 3, 4, s8) and vt.is_contiguous()
+    order = pv_key_order()
+    for pos in range(s8):
+        key = 8 * (pos // 8) + order[pos % 8]
+        want = v[:, :, key] if key < s else torch.zeros(2, 3, 4)
+        assert torch.equal(vt[..., pos], want)
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (8, 1)])
+@pytest.mark.parametrize("s", [128, 256, 200])
+def test_tf32x3_emulation_matches_reference_kernel(hq, hkv, s):
+    """Three TF32 passes, emulated, against the reference's Pallas kernel at
+    its own f32 tolerance, at that test's shapes."""
+    q, k, v = _qkv(2, hq, hkv, s, 64, hq * s)
+    got = _tf32x3_emulation(*(torch.from_numpy(x) for x in (q, k, v)))
+    want = ref_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=128,
+                     block_k=128, interpret=True)
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("s", [1, 77, 200])
+def test_tf32x3_emulation_takes_full_attention_at_a_ragged_length(s):
+    q, k, v = _qkv(2, 4, 2, s, 128, s + 1)
+    got = _tf32x3_emulation(*(torch.from_numpy(x) for x in (q, k, v)), causal=False)
+    _close(got, ref_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False),
+           2e-5)
+
+
+@pytest.mark.parametrize("s", [128, 200])
+def test_one_tf32_pass_misses_the_reference_tolerance(s):
+    """Why three passes: one TF32 product of each operand pair (11
+    significant bits) lands far outside the reference kernel test's 2e-5."""
+    q, k, v = _qkv(2, 4, 2, s, 64, 7 * s)
+    got = _tf32x3_emulation(*(torch.from_numpy(x) for x in (q, k, v)), passes=1)
+    want = np.asarray(ref_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=128,
+                                block_k=128, interpret=True))
+    err = np.abs(got.numpy() - want)
+    assert not bool((err <= 2e-5 + 2e-5 * np.abs(want)).all())
+    assert float(err.max()) > 10 * 2e-5
 
 
 def test_tma_strides_take_head_views_and_refuse_what_tma_cannot_read():
@@ -398,6 +516,30 @@ def test_tma_strides_take_head_views_and_refuse_what_tma_cannot_read():
     assert _tma_strides(wide[..., :64].transpose(-1, -2)) is None  # last dim strided
     assert _tma_strides(torch.zeros(1, 2, 5, 64, dtype=torch.bfloat16).expand(
         3, 2, 5, 64)) is None                               # a zero stride
+
+
+def test_tma_strides_in_f32_reckon_in_four_byte_elements():
+    """The tf32x3 route reads f32 q and k in place when every stride is a
+    multiple of 4 elements (16 bytes) and the base is 16-byte aligned."""
+    x = torch.zeros(2, 300, 8 * 128)
+    q = x.reshape(2, 300, 8, 128).transpose(1, 2)         # _split_heads' layout
+    assert _tma_strides(q) == q.stride()[:3] == (300 * 1024, 128, 1024)
+    assert _tma_strides(torch.zeros(2, 3, 5, 68)[..., :64]) == (1020, 340, 68)  # 272 bytes
+    assert _tma_strides(torch.zeros(2, 3, 5, 66)[..., :64]) is None  # 264-byte rows
+    assert _tma_strides(torch.zeros(2, 3, 5, 72)[..., 2:66]) is None  # base 8 bytes off
+    assert _tma_strides(torch.zeros(2, 3, 5, 72)[..., 4:68]) == (1080, 360, 72)
+
+
+def test_tma_ready_copies_a_contiguous_tensor_whose_base_tma_cannot_read():
+    """A contiguous view 4 bytes past an aligned base keeps its strides but
+    not TMA's rule: it is copied into a fresh (aligned) tensor, not passed on
+    as it is, which ``contiguous()`` would do."""
+    x = torch.arange(1 + 2 * 4 * 8 * 64, dtype=torch.float32)[1:].view(2, 4, 8, 64)
+    assert x.is_contiguous() and _tma_strides(x) is None
+    y = _tma_ready(x)
+    assert y.data_ptr() != x.data_ptr() and _tma_strides(y) and torch.equal(y, x)
+    z = torch.zeros(2, 4, 8, 64)
+    assert _tma_ready(z) is z
 
 
 # --------------------------------------------------------------------------
@@ -461,7 +603,8 @@ def test_cpu_tensors_run_the_plain_versions_and_launch_nothing():
 
 def test_kernel_sources_are_found():
     assert set(_build.sources()) == {"triangle_count", "triangle_count_sm90", "bitset_count",
-                                     "flash_attention", "flash_attention_sm90", "embedding_bag"}
+                                     "flash_attention", "flash_attention_sm90",
+                                     "flash_attention_tf32x3_sm90", "embedding_bag"}
     for name in _build.sources():
         path = _build.library_path(name)
         assert path.parent == _build.BUILD_DIR and path.name.startswith(name + "-")
