@@ -5,13 +5,15 @@
 
 1. Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
    (one ``nvcc`` per source, all in parallel), runs the first launches of
-   K2 and of the three-pass TF32 K6 in a child process (``chip_smoke.py
-   --probe``) under a time limit, and
-   holds each kernel against
-   its plain PyTorch version on the card at several shapes: the counting
-   kernels as exact integers (ragged sizes, phantom edges, the shapes the
-   main path gives them at the paper's full Table-1 sizes; K2 also all ones
-   past 2³¹ and a ring whose rows break TMA's 16-byte rule), flash attention
+   K2, K1 and the three-pass TF32 K6 in a child process (``chip_smoke.py
+   --probe``) under a time limit, and holds each kernel against its plain
+   PyTorch version on the card at several shapes: the counting kernels as
+   exact integers (ragged sizes, phantom edges, the shapes the main path
+   gives them at the paper's full Table-1 sizes; K1 — the live-grid count
+   on K2's int8 tensor-core tile, a batch a launch — also on views of a
+   padded buffer, a batch of views, rows that break TMA's 16-byte rule,
+   and FNA.5's 4,472 rows of its 8,192 bucket as the main path gives them;
+   K2 also all ones past 2³¹ and a ring whose rows break TMA's rule), flash attention
    (K6: at D = 64, 128 the wgmma kernel for bf16 and the three-pass TF32
    kernel for f32, at other head dims the FMA kernel)
    and EmbeddingBag (K7) within the reference kernel tests'
@@ -19,7 +21,8 @@
    versions' float32 products run in true float32 (PyTorch's TF32 off,
    asserted). Times each kernel, its plain
    version and, where one exists, a single PyTorch call computing the same
-   function (``library_ms``; the port never calls it). The per-edge closure
+   function (``library_ms``; the port never calls it). K1 is timed at
+   FNA.5's view and at its bucket (``at_bucket_shape``). The per-edge closure
    (K5) is timed beside K3 at K3's shape and at the hybrid stream's; K2 at
    FNA.5's ring visit and at FB107x9's (``at_fb107x9_shape``).
 2. Serves the Table-1 graphs at full scale (DSJC.1/.5/.9, FB107, FNA.5, NY),
@@ -147,6 +150,13 @@ PROFILE_TRIES = 3
 # so a window counts only when one of its markers survives. Four times as
 # many on each retry.
 PROFILE_MARKERS = 64
+# Cycles of torch.cuda._sleep's spin kernel per millisecond, at an SM clock
+# of 2 GHz, above the H100's maximum (1,980 MHz): a spin lasts at least as
+# many milliseconds as asked
+SPIN_CYCLES_PER_MS = 2_000_000
+# time_ms queues its runs behind a spin this long: longer than the host
+# takes to launch 50 runs of the quickest kernels (tens of µs each)
+TIME_SPIN_MS = 20
 # Long sequences of K6's sweep at D = 128 (many full key tiles, a ragged
 # last), f32 and bf16
 K6_LONG_S = (4097, 8192)
@@ -188,12 +198,16 @@ def card_line() -> str:
 
 
 def time_ms(fn, *, reps: int, warmup: int = 1) -> float:
-    """Mean device time of ``fn`` over ``reps`` runs, CUDA events."""
+    """Mean device time of ``fn`` over ``reps`` runs, CUDA events. A spin
+    kernel of ``TIME_SPIN_MS`` runs first, so the host queues the runs while
+    the card spins and the events time the card alone, also for a kernel
+    that takes less time than its launch's host work."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(int(TIME_SPIN_MS * SPIN_CYCLES_PER_MS))
     t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0.record()
     for _ in range(reps):
@@ -294,8 +308,15 @@ def check_kernels(graphs: dict) -> dict:
         bitset_edge_count_ref,
         bitset_pair_count_ref,
     )
-    from repro_torch.kernels.triangle_count.ops import masked_matmul_sum, triangle_count
+    from repro_torch.kernels.triangle_count.ops import (
+        _sm_count,
+        live_grid_size,
+        masked_matmul_sum,
+        split_plan,
+        triangle_count,
+    )
     from repro_torch.kernels.triangle_count.ref import (
+        TILE,
         masked_matmul_sum_ref,
         triangle_count_ref,
     )
@@ -317,28 +338,60 @@ def check_kernels(graphs: dict) -> dict:
 
     fna = graphs["FNA.5"]
     n_b = bucket(fna.n_nodes)  # 8192, as the dense path pads it
-    # ---- K1: live-grid triangle count ----
-    cases = [rand01(n, n, p=0.3).triu(1) for n in (1, 63, 100, 257, 1000)]
-    cases += [rand01(16, 512, 512, p=0.5).triu(1), forward_u(fna, n_b, DEVICE)]
+    # ---- K1: live-grid triangle count (K2's int8 wgmma tile, a batch a launch) ----
+    n = fna.n_nodes
+    fna_u = forward_u(fna, n_b, DEVICE)  # the dense path's bucket; its corner is FNA.5
+    pad = rand01(8, 1024, 1024, p=0.3).triu(1)
+    cases = [rand01(n_, n_, p=0.3).triu(1) for n_ in (1, 63, 100, 257, 1000)]
+    cases += [rand01(16, 512, 512, p=0.5).triu(1),
+              pad[0, :129, :129], pad[1, :1000, :1000],  # views of a padded buffer
+              pad[:, :700, :700],                        # a batch of views
+              pad[:3, :300, :300].contiguous(),          # rows of 300 bytes: the copy path
+              fna_u, fna_u[:n, :n]]                      # the bucket, and the main path's view
     err = 0
     for u in cases:
         err = max(err, agree("triangle_count_live", tuple(u.shape), triangle_count(u),
                              triangle_count_ref(u)))
         err = max(err, agree("  (full-grid K2)", tuple(u.shape),
                              triangle_count(u, live_grid=False), triangle_count_ref(u)))
-    u = cases[-1]
-    u8 = u.view(torch.int8)
-    lib_got = (torch._int_mm(u8, u8) * u).sum()
-    agree("  (library _int_mm)", tuple(u.shape), lib_got, triangle_count_ref(u))
-    ops = 2 * math.comb(n_b, 3)
-    nbytes = n_b * n_b + 8
+    if int(triangle_count(fna_u[:n, :n])) != math.comb(n, 3):
+        raise AssertionError("FNA.5 is complete: K1 must count C(n, 3)")
+    del cases, pad
+    timed = {}
+    for label, u in (("view", fna_u[:n, :n]), ("bucket", fna_u)):
+        m = u.shape[0]
+        uc = u.contiguous()  # _int_mm takes dense operands; copied outside the timing
+        u8 = uc.view(torch.int8)
+        agree("  (library _int_mm)", tuple(u.shape), (torch._int_mm(u8, u8) * uc).sum(),
+              triangle_count_ref(u))
+        # operations: 2·C(m, 3), the live multiply-adds of a strictly upper
+        # U; the kernel's tiles do 2·128³ for each live block triple
+        nb = -(-m // TILE)
+        slice_, items = split_plan(m, m, m, True, _sm_count(0))
+        timed[label] = dict(
+            shape=[m, m],
+            ms=time_ms(lambda: triangle_count(u), reps=50),
+            plain_ms=time_ms(lambda: triangle_count_ref(u), reps=3),
+            library_ms=time_ms(lambda: (torch._int_mm(u8, u8) * uc).sum(), reps=3),
+            bound=(2 * math.comb(m, 3) / PEAK_INT8_OPS, (m * m + 8) / PEAK_BYTES),
+            live_block_bound_ms=2 * TILE**3 * live_grid_size(nb) / PEAK_INT8_OPS * 1e3,
+            work_items=items, slice=slice_)
+        t = timed[label]
+        log(f"  triangle_count_live at FNA.5's {label} {t['shape']}: kernel {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.3f} ms, _int_mm + mask + sum {t['library_ms']:.4f} ms, "
+            f"bound {max(t['bound']) * 1e3:.4f} ms (live block triples "
+            f"{t['live_block_bound_ms']:.4f}), {items} work items of up to {slice_} chunks")
+        del uc, u8
+    big = timed["bucket"]
     rows["triangle_count_live"] = dict(
-        shape=[n_b, n_b], max_abs_err=err,
-        ms=time_ms(lambda: triangle_count(u), reps=10),
-        plain_ms=time_ms(lambda: triangle_count_ref(u), reps=3),
-        library_ms=time_ms(lambda: (torch._int_mm(u8, u8) * u).sum(), reps=3),
-        bound=(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES))
-    del cases, u, u8
+        timed["view"], max_abs_err=err,
+        at_bucket_shape=dict(
+            shape=big["shape"], ms=big["ms"], plain_ms=big["plain_ms"],
+            library_ms=big["library_ms"], bound_ms=max(big["bound"]) * 1e3,
+            bound_by="operations" if big["bound"][0] >= big["bound"][1] else "bytes",
+            live_block_bound_ms=big["live_block_bound_ms"]))
+    del fna_u
+    torch.cuda.empty_cache()
 
     # ---- K2: masked matmul-sum (int8 wgmma fed by TMA) ----
     err = 0
@@ -1689,8 +1742,35 @@ def probe_k2() -> int:
     return 0
 
 
+def probe_k1() -> int:
+    """``chip_smoke.py --probe``, second part: K1's first launches (the
+    live-grid count on K2's tile, a batch a launch) against its plain
+    version: single matrices, views of a padded buffer, a batch of views, a
+    batch whose rows break TMA's rule (the copy path), and the whole buffer."""
+    import torch
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.triangle_count.ops import triangle_count
+    from repro_torch.kernels.triangle_count.ref import triangle_count_ref
+
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    buf = (torch.rand(4, 1024, 1024, generator=gen) < 0.3).to(torch.uint8).to(DEVICE).triu(1)
+    cases = [buf[0, :n, :n] for n in (1, 63, 128, 129, 1000)]
+    cases += [buf[:, :700, :700], buf[:, :300, :300].contiguous(), buf]
+    for u in cases:
+        got = triangle_count(u).reshape(-1).tolist()
+        torch.cuda.synchronize()
+        want = triangle_count_ref(u).reshape(-1).tolist()
+        print(f"probe triangle_count_live {tuple(u.shape)} strides {u.stride()}: kernel={got} "
+              f"plain={want} {'match' if got == want else 'MISMATCH'}", flush=True)
+        if got != want:
+            return 1
+    print(f"probe launches: {launch_counts()['triangle_count_live']}", flush=True)
+    return 0
+
+
 def probe_k6_tf32x3() -> int:
-    """``chip_smoke.py --probe``, second part: the three-pass TF32 K6's
+    """``chip_smoke.py --probe``, third part: the three-pass TF32 K6's
     first launches, at small and ragged shapes, causal and full, against its
     plain version within the reference kernel test's 2e-5."""
     import torch
@@ -1743,7 +1823,7 @@ def main() -> int:
                              "need true float32")
 
     if sys.argv[1:] == ["--probe"]:
-        return probe_k2() or probe_k6_tf32x3()
+        return probe_k2() or probe_k1() or probe_k6_tf32x3()
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t_all = time.perf_counter()
@@ -1757,7 +1837,7 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     t0 = time.perf_counter()
-    log(f"[probe] the first launches of K2 and of the tf32x3 K6 in a child process, "
+    log(f"[probe] the first launches of K2, K1 and the tf32x3 K6 in a child process, "
         f"limited to {PROBE_TIMEOUT_S} s")
     try:
         child = subprocess.run([sys.executable, os.path.abspath(__file__), "--probe"],
@@ -1870,7 +1950,9 @@ def main() -> int:
             "kernel_ms": r["ms"], "shape": r["shape"],
             **({k: r[k] for k in ("k3_ms", "at_k3_shape", "dtype", "fma_bf16_ms",
                                   "fma_f32_ms", "fma_bound_ms", "at_prefill_shape",
-                                  "at_fb107x9_shape") if k in r}),
+                                  "at_fb107x9_shape", "at_bucket_shape",
+                                  "live_block_bound_ms", "work_items", "slice")
+                 if k in r}),
         })
         log(f"  bound of {name}: operations {ops_ms:.6f} ms, bytes {bytes_ms:.6f} ms")
     log("[stream table] " + json.dumps(table))

@@ -417,8 +417,10 @@ class TriangleCounter:
         fixed single-graph plan rarely describes a batch; pass ``plan=``
         explicitly to force one. Non-``dense`` plans are rejected. Recorded
         under ``(("batch_dense",) + plan.cache_key(), (batch bucket, node
-        bucket))``. Graphs pad to the node bucket; the batch itself is not
-        padded, since an eager launch needs no fixed batch shape."""
+        bucket))``. Graphs pad to the node bucket, which keys the cache, but
+        the kernel runs over the largest graph's own rows, a view of the
+        bucket; the batch itself is not padded, since an eager launch needs
+        no fixed batch shape."""
         if not graphs:
             raise ValueError("empty batch")
         p = plan or self.batch_plan()
@@ -430,11 +432,12 @@ class TriangleCounter:
         from repro_torch.core.triangle_pipeline import count_triangles_dense
 
         t0 = time.perf_counter()
-        n_b = bucket(max(g.n_nodes for g in graphs))
+        n_max = max(g.n_nodes for g in graphs)
+        n_b = bucket(n_max)
         b_b = bucket(len(graphs), minimum=8)
         us = _forward_adjacency_batch(graphs, n_b, self.device)
         key = (("batch_dense",) + p.cache_key(), (b_b, n_b))
-        counts = count_triangles_dense(us)
+        counts = count_triangles_dense(us[:, :n_max, :n_max])
         return CountResult(
             count=counts, plan=p, wall_s=time.perf_counter() - t0,
             stats={"cache": self._note(key),
@@ -445,9 +448,11 @@ class TriangleCounter:
     def _run_dense(self, g, p: Plan):
         from repro_torch.core.triangle_pipeline import count_triangles_dense
 
-        n_b = bucket(g.n_nodes)
+        n, n_b = g.n_nodes, bucket(g.n_nodes)
         u = _forward_adjacency_batch([g], n_b, self.device)[0]
-        return count_triangles_dense(u), {"cache": self._note((p.cache_key(), (n_b,)))}
+        # the bucket keys the cache; the kernel runs over the graph's own rows
+        count = count_triangles_dense(u[:n, :n])
+        return count, {"cache": self._note((p.cache_key(), (n_b,)))}
 
     def _run_sparse(self, g, p: Plan):
         from repro_torch.core.triangle_pipeline import count_triangles_sparse

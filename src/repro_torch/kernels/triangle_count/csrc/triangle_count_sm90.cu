@@ -1,12 +1,17 @@
-// Masked matmul-sum on Hopper's int8 tensor cores (sm_90a):
-//   out += Σ (A·B) ⊙ M  for 0/1 uint8 A (R x K), B (K x N), M (R x N),
-// exact in integers, optionally restricted to the live block triples of the
-// upper-triangular skip.
+// Masked matmul-sum and live-grid triangle count on Hopper's int8 tensor
+// cores (sm_90a), exact in integers, both on one kernel body:
+//   K2: out += Σ (A·B) ⊙ M  for 0/1 uint8 A (R x K), B (K x N), M (R x N),
+//       optionally restricted to the live block triples of the
+//       upper-triangular skip;
+//   K1: out[b] += Σ U_b ⊙ (U_b·U_b)  for a batch of strictly upper
+//       triangular 0/1 uint8 U_b (n x n), one launch for the whole batch.
 //
-// Replaces the Pallas kernel `masked_matmul_sum_kernel` of
-// src/repro/kernels/triangle_count/triangle_count.py (line 79, its
-// `pallas_call` at line 99): one dense-ring visit Σ (U_s[:, kR:(k+1)R]·U_k)
-// ⊙ U_s, and the full-grid count U·U ⊙ U under the structural skip.
+// Replaces the Pallas kernels of src/repro/kernels/triangle_count/
+// triangle_count.py: `masked_matmul_sum_kernel` (line 79, its `pallas_call`
+// at line 99: one dense-ring visit Σ (U_s[:, kR:(k+1)R]·U_k) ⊙ U_s, and the
+// full-grid count U·U ⊙ U under the structural skip), and
+// `triangle_count_live_kernel` (line 162, its `pallas_call` at line 191: the
+// count over the live block triples i <= k <= j).
 //
 // Reassociation. For .u8/.s8 operands `wgmma.mma_async` reads shared memory
 // only K-major (the transpose immediates exist for 16-bit types alone), and
@@ -17,13 +22,16 @@
 // both M and B, so TMA loads both as they lie in memory and nothing is
 // transposed. A becomes the epilogue's mask, read in place through its row
 // stride (in the ring a strided column slice). The operations are the same,
-// 2·R·K·N.
+// 2·R·K·N. K1 is K2 with A = B = M = U under the skip:
+//   Σ_{i<k} U_ik Σ_j U_ij U_kj,
+// one tensor map over U serving as both M and B, and U's own tile the mask.
 //
 // What bounds it on this card: operations. A ring visit at FNA.5's shape
 // (R = K = 2,048, N = 8,192) is 6.9e10 int8 operations on 32 MB, 34.7 µs
 // at the 1,979 TOPS of the int8 tensor cores against 10 µs of device-memory
-// bytes. But a 128 x 128 output tile reads 32 KB from L2 for each 128-byte
-// contraction chunk, one byte for every 128 operations: ~0.54 GB at that
+// bytes; K1 at FNA.5's n = 4,472 is 2·C(n, 3) = 3.0e10 operations on 20 MB.
+// But a 128 x 128 output tile reads 32 KB from L2 for each 128-byte
+// contraction chunk, one byte for every 128 operations: ~0.54 GB at the ring
 // shape, which at the several TB/s that L2 delivers takes about as long as
 // the tensor-core bound. The design keeps the tensor cores fed from a deep
 // TMA ring and leaves the L2 feed as the known limit; halving it (a 2-CTA
@@ -32,31 +40,35 @@
 //
 // Design.
 // - A CTA of three warpgroups (384 threads) owns one 128 x 128 output tile
-//   of C' (rows rb of M, rows kb of B) over one slice of the contraction.
-//   Warpgroup 0 is the producer: it gives up its registers (setmaxnreg 24)
-//   and one thread issues the TMA loads. Warpgroups 1 and 2 are the
-//   consumers, 64 rows of M each: `wgmma.mma_async m64n128k32.s32.u8.u8`,
-//   both descriptors K-major with the 128-byte swizzle.
+//   of C' (rows rb of M, rows kb of B) of one matrix (blockIdx.y) over one
+//   slice of the contraction. Warpgroup 0 is the producer: it gives up its
+//   registers (setmaxnreg 24) and one thread issues the TMA loads.
+//   Warpgroups 1 and 2 are the consumers, 64 rows of M each:
+//   `wgmma.mma_async m64n128k32.s32.u8.u8`, both descriptors K-major with
+//   the 128-byte swizzle.
 // - A contraction chunk is 128 bytes of N, one swizzled row, so each operand
 //   tile is one 128 x 128 B panel (16 KB): 32-byte k steps, 8-row groups
-//   1,024 bytes apart. The tensor maps are 2-D UINT8 over (N, rows) with the
-//   row stride in bytes and 128 x 128 boxes; TMA fills rows and columns past
-//   the edges with zeros, so ragged R, K and N need no padding.
+//   1,024 bytes apart. The tensor maps are 3-D UINT8 over (N, rows,
+//   matrices) with the row and matrix strides in bytes and 128 x 128 x 1
+//   boxes (K2 is a batch of one); TMA fills rows and columns past the edges
+//   with zeros, so ragged R, K and N need no padding, and K1 reads an n x n
+//   view of a larger buffer in place.
 // - Ring: 4 stages x (16 + 16) KB with a full and an empty `mbarrier` each;
 //   one `wgmma` group stays in flight while the next chunk is issued.
-// - Split contraction. The output is one scalar and the mask is linear, so
-//   each CTA masks its own s32 partial tile (every entry is at most the
-//   slice length, so s32 is exact) with A, sums it in int64 and adds one
-//   int64 to the output with a single atomicAdd (skipped when 0). No partial
-//   tile is ever written. The host chooses the slice length (ops.py
-//   `split_plan`) so that few output tiles still fill the card several times
-//   over; a 1-D grid walks the (live output tile, slice) items, decoded by
-//   `work_item` below exactly as ops.py's `work_item` decodes them. Output
-//   tiles go in groups of 8 row tiles so that CTAs in flight share M and B
-//   rows in L2.
+// - Split contraction. The output is one scalar per matrix and the mask is
+//   linear, so each CTA masks its own s32 partial tile (every entry is at
+//   most the slice length, so s32 is exact) with A, sums it in int64 and
+//   adds one int64 to its matrix's output with a single atomicAdd (skipped
+//   when 0). No partial tile is ever written. The host chooses the slice
+//   length (ops.py `split_plan`) so that few output tiles still fill the
+//   card several times over; the grid's x walks the (live output tile,
+//   slice) items, decoded by `work_item` below exactly as ops.py's
+//   `work_item` decodes them, and its y the matrices. Output tiles go in
+//   groups of 8 row tiles so that CTAs in flight share M and B rows in L2.
 // - `upper`: output tile (rb, kb) is live when kb >= rb, and its chunks run
 //   over cb >= kb: the live triples rb <= kb <= cb of the reference's block
-//   grid at its default block of 128.
+//   grid at its default block of 128. The items run kb-major, so the
+//   longest (kb = 0) are issued first.
 // Inline PTX only: no CUTLASS, no cuBLAS.
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -80,11 +92,12 @@ constexpr int ERR_ENCODE = 10002;
 
 struct Params {
   const uint8_t* a;
-  long long lda, R, K;
+  long long lda, a_batch;  // row and matrix strides of A, in bytes
+  long long R, K;
   long long nr, nk, nc;  // row tiles of M, row tiles of B, chunks of N
   long long slice;       // chunks per slice
   int upper;
-  unsigned long long* out;
+  unsigned long long* out;  // one int64 per matrix
 };
 
 struct Item {
@@ -177,14 +190,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
-// One TMA box (128 bytes of N x 128 rows) into shared memory; completion
-// is counted in bytes on `bar`.
+// One TMA box (128 bytes of N x 128 rows of matrix `mat`) into shared
+// memory; completion is counted in bytes on `bar`.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int col, int row) {
+                                         int col, int row, int mat) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(mat)
       : "memory");
 }
 
@@ -250,6 +263,7 @@ tc_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const __grid_constant__ 
 
   const Item w = work_item(blockIdx.x, p);
   const int n = static_cast<int>(w.c1 - w.c0);  // >= 1 for every item
+  const int mat = static_cast<int>(blockIdx.y);  // the matrix of the batch
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -271,8 +285,8 @@ tc_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const __grid_constant__ 
         const uint32_t st = base + s * STAGE_BYTES;
         const int col = static_cast<int>((w.c0 + it) * TILE);
         mbar_expect_tx(full + 8 * s, STAGE_BYTES);
-        tma_load(st, &tm, full + 8 * s, col, m_row);
-        tma_load(st + TILE_BYTES, &tb, full + 8 * s, col, b_row);
+        tma_load(st, &tm, full + 8 * s, col, m_row, mat);
+        tma_load(st + TILE_BYTES, &tb, full + 8 * s, col, b_row, mat);
       }
     }
   } else {
@@ -314,7 +328,7 @@ tc_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const __grid_constant__ 
     for (int half = 0; half < 2; ++half) {
       const long long r = row + 8 * half;
       if (r < p.R) {
-        const uint8_t* ar = p.a + r * p.lda;
+        const uint8_t* ar = p.a + mat * p.a_batch + r * p.lda;
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
 #pragma unroll
@@ -333,7 +347,7 @@ tc_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const __grid_constant__ 
       long long total = 0;
 #pragma unroll
       for (int i = 0; i < 8; ++i) total += warp_sums[i];
-      if (total != 0) atomicAdd(p.out, (unsigned long long)total);
+      if (total != 0) atomicAdd(p.out + mat, (unsigned long long)total);
     }
   }
 }
@@ -358,15 +372,16 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A 2-D map over (cols, rows) of uint8 with row stride `ld` bytes, boxes of
-// 128 x 128 with the 128-byte swizzle; elements past the edges read as 0.
+// A 3-D map over (cols, rows, matrices) of uint8 with row stride `ld` and
+// matrix stride `mat_stride` bytes, boxes of 128 x 128 x 1 with the 128-byte
+// swizzle; elements past the edges read as 0.
 int make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, long long cols, long long rows,
-             long long ld) {
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld};
-  const cuuint32_t box[2] = {TILE, TILE};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims,
+             long long ld, long long mats, long long mat_stride) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)mats};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld, (cuuint64_t)mat_stride};
+  const cuuint32_t box[3] = {TILE, TILE, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(ptr), dims,
                          strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -374,6 +389,17 @@ int make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, long long cols,
 }
 
 long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
+
+// `items` x `mats` CTAs of tc_wgmma_kernel on `stream`.
+int launch(const CUtensorMap& tm, const CUtensorMap& tb, const Params& p, long long items,
+           long long mats, void* stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(tc_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)items, (unsigned)mats);
+  tc_wgmma_kernel<<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(tm, tb, p);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -390,17 +416,35 @@ int tc_masked_wgmma(const void* a, long long lda, const void* b, long long ldb, 
     return (int)cudaErrorInvalidValue;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return ERR_NO_ENCODER;
+  // a batch of one: the matrix stride is never stepped over
   CUtensorMap tm, tb;
-  int rc = make_map(enc, &tm, m, N, R, ldm);
-  if (rc == 0) rc = make_map(enc, &tb, b, N, K, ldb);
+  int rc = make_map(enc, &tm, m, N, R, ldm, 1, R * ldm);
+  if (rc == 0) rc = make_map(enc, &tb, b, N, K, ldb, 1, K * ldb);
   if (rc != 0) return rc;
-  const Params p{(const uint8_t*)a, lda, R, K, cdiv(R, TILE), cdiv(K, TILE), cdiv(N, TILE),
+  const Params p{(const uint8_t*)a, lda, 0, R, K, cdiv(R, TILE), cdiv(K, TILE), cdiv(N, TILE),
                  slice, upper != 0, (unsigned long long*)out};
-  cudaError_t err =
-      cudaFuncSetAttribute(tc_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return (int)err;
-  tc_wgmma_kernel<<<(unsigned)items, THREADS, SMEM, (cudaStream_t)stream>>>(tm, tb, p);
-  return (int)cudaGetLastError();
+  return launch(tm, tb, p, items, 1, stream);
+}
+
+// out[b] += Σ U_b ⊙ (U_b·U_b) for the `mats` strictly upper triangular
+// n x n matrices U_b = u + b·mat_stride (row stride ld, unit column stride),
+// over the `items` work items of split_plan(n, n, n, upper, sms), the same
+// for every matrix. u, ld and mat_stride keep TMA's 16-byte rule; n >= 1 and
+// < 2^31; 1 <= mats <= 65,535 (gridDim.y); out is int64 x mats.
+int tc_live_wgmma(const void* u, long long n, long long ld, long long mat_stride,
+                  long long mats, long long slice, long long items, void* out, void* stream) {
+  if (n <= 0 || mats <= 0 || mats > 65535 || slice <= 0 || items <= 0 ||
+      items > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return ERR_NO_ENCODER;
+  CUtensorMap tm;
+  const int rc = make_map(enc, &tm, u, n, n, ld, mats, mat_stride);
+  if (rc != 0) return rc;
+  const long long nb = cdiv(n, TILE);
+  const Params p{(const uint8_t*)u, ld, mat_stride, n, n, nb, nb, nb, slice, 1,
+                 (unsigned long long*)out};
+  return launch(tm, tm, p, items, mats, stream);
 }
 
 const char* tc_wgmma_error_string(int err) {

@@ -1,18 +1,19 @@
 """Wrappers of the triangle-count CUDA kernels.
 
-K1, the live-grid count, is ``tc_live`` of ``csrc/triangle_count.cu``; K2,
-the masked matmul-sum, is ``tc_masked_wgmma`` of
-``csrc/triangle_count_sm90.cu`` (int8 ``wgmma`` fed by TMA, the contraction
-split across CTAs). On a CPU tensor a wrapper runs the kernel's plain
-version (``ref.py``); on a CUDA tensor it launches the kernel or raises.
-Operands are uint8 0/1 matrices; counts come back as int64 on the operands'
-device.
+Both run one kernel body of ``csrc/triangle_count_sm90.cu`` (int8 ``wgmma``
+fed by TMA, the contraction split across CTAs): K2, the masked matmul-sum,
+through ``tc_masked_wgmma``, and K1, the live-grid count of a whole batch
+in one launch, through ``tc_live_wgmma``. On a CPU tensor a wrapper runs
+the kernel's plain version (``ref.py``); on a CUDA tensor it launches the
+kernel or raises. Operands are uint8 0/1 matrices; counts come back as
+int64 on the operands' device.
 
 K2 computes Σ (A·B) ⊙ M as Σ A ⊙ (M·Bᵀ), so the tensor cores contract over
-N, the contiguous dimension of both M and B. :func:`split_plan` and
-:func:`work_item` are the kernel's work decomposition, written here so that
-the CPU tests can pin what the kernel decodes; :func:`tma_row_stride` is
-TMA's rule for the operands it loads."""
+N, the contiguous dimension of both M and B; K1 is K2 with A = B = M = U
+under the upper-triangular skip. :func:`split_plan` and :func:`work_item`
+are the kernel's work decomposition, written here so that the CPU tests can
+pin what the kernel decodes; :func:`tma_row_stride` and
+:func:`tma_batch_strides` are TMA's rule for the operands it loads."""
 from __future__ import annotations
 
 import ctypes
@@ -29,7 +30,8 @@ from repro_torch.kernels.triangle_count.ref import (
 
 _P, _L = ctypes.c_void_p, ctypes.c_longlong
 _GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
-LIVE = CudaKernel("triangle_count", "tc_live", [_P, _L, _L, _P], "tc_error_string")
+LIVE = CudaKernel("triangle_count_sm90", "tc_live_wgmma", [_P, _L, _L, _L, _L, _L, _L, _P],
+                  "tc_wgmma_error_string")
 MASKED = CudaKernel("triangle_count_sm90", "tc_masked_wgmma",
                     [_P, _L, _P, _L, _P, _L, _L, _L, _L, ctypes.c_int, _L, _L, _P],
                     "tc_wgmma_error_string")
@@ -158,16 +160,35 @@ def tma_row_stride(x: torch.Tensor) -> int | None:
     return st
 
 
+def tma_batch_strides(x: torch.Tensor) -> tuple[int, int] | None:
+    """(row stride, matrix stride) in bytes at which TMA reads the (B, rows,
+    cols) uint8 batch ``x``, or None when x breaks TMA's rule: each matrix
+    as :func:`tma_row_stride` takes it, and a matrix stride that is a
+    multiple of 16 and covers a matrix. A single matrix is never stepped
+    over, so its stride is its rows times the row stride. A view
+    ``u[:, :n, :n]`` of an aligned (B, n_b, n_b) buffer is read in place."""
+    mats, rows = x.shape[0], x.shape[1]
+    ld = tma_row_stride(x[0])
+    if ld is None:
+        return None
+    if mats == 1:
+        return ld, rows * ld
+    st = x.stride(0)
+    if st < rows * ld or st % _TMA_ALIGN:
+        return None
+    return ld, st
+
+
 def _tma_operand(x: torch.Tensor) -> torch.Tensor:
-    """x itself when TMA can read it, else a copy into zeros whose rows are
-    rounded up to 16 bytes (the padding is never read: the tensor map's
-    width stays x's)."""
-    if tma_row_stride(x) is not None:
+    """x (a matrix, or a batch of them) itself when TMA can read it, else a
+    copy into zeros whose rows are rounded up to 16 bytes (the padding is
+    never read: the tensor map's width stays x's)."""
+    if (tma_row_stride(x) if x.dim() == 2 else tma_batch_strides(x)) is not None:
         return x
-    rows, cols = x.shape
-    buf = torch.zeros((rows, _cdiv(cols, _TMA_ALIGN) * _TMA_ALIGN), dtype=x.dtype,
+    *lead, cols = x.shape
+    buf = torch.zeros((*lead, _cdiv(cols, _TMA_ALIGN) * _TMA_ALIGN), dtype=x.dtype,
                       device=x.device)
-    buf[:, :cols] = x
+    buf[..., :cols] = x
     return buf
 
 
@@ -219,10 +240,13 @@ def triangle_count(u: torch.Tensor, *, live_grid: bool = True) -> torch.Tensor:
     """sum(U ⊙ (U @ U)) for strictly upper triangular 0/1 U.
 
     ``u`` is (n, n) → int64 scalar, or a (B, n, n) batch → (B,) int64.
-    ``live_grid=True`` runs the live-grid kernel: one CTA per output tile
-    i ≤ j, k over [i, j] — C(nb+2, 3) tile products instead of nb³.
-    ``live_grid=False`` runs K2 with the upper-triangular skip, one launch
-    per matrix, kept as the comparison baseline."""
+    ``live_grid=True`` runs K1, one launch for the whole batch: output tiles
+    i ≤ k of U·Uᵀ over chunks j ≥ k — C(nb+2, 3) tile products instead of
+    nb³. Any strides with a unit column stride: a view ``u[:, :n, :n]`` of
+    an aligned buffer is read in place, anything else TMA cannot read is
+    copied (:func:`tma_batch_strides`). ``live_grid=False`` runs K2 with the
+    upper-triangular skip, one launch per matrix, kept as the comparison
+    baseline."""
     if u.dim() not in (2, 3) or u.shape[-1] != u.shape[-2]:
         raise ValueError(f"expected (n, n) or (B, n, n), got {tuple(u.shape)}")
     if u.device.type == "cpu":
@@ -231,7 +255,7 @@ def triangle_count(u: torch.Tensor, *, live_grid: bool = True) -> torch.Tensor:
     if u.dim() == 3 and u.shape[0] > _GRID_YZ:
         raise ValueError(f"a batch of {u.shape[0]} exceeds the kernel's grid "
                          f"({_GRID_YZ} matrices)")
-    ub = (u if u.dim() == 3 else u[None]).contiguous()
+    ub = u if u.dim() == 3 else u[None]
     batch, n = ub.shape[0], ub.shape[-1]
     if not live_grid:
         out = torch.stack([masked_matmul_sum(x, x, x, upper_triangular=True) for x in ub]) \
@@ -239,7 +263,13 @@ def triangle_count(u: torch.Tensor, *, live_grid: bool = True) -> torch.Tensor:
         return out if u.dim() == 3 else out[0]
     out = torch.zeros(batch, dtype=torch.int64, device=dev)
     if batch and n:
+        slice_, items = split_plan(n, n, n, True, _sm_count(dev.index))
+        if items > _INT32_MAX:
+            raise ValueError(f"{items} work items exceed the kernel's 1-D grid "
+                             f"({_INT32_MAX} CTAs)")
+        ub = _tma_operand(ub)
+        ld, mat_stride = tma_batch_strides(ub)
         with torch.cuda.device(dev):
-            LIVE(ub.data_ptr(), n, batch, out.data_ptr(),
+            LIVE(ub.data_ptr(), n, ld, mat_stride, batch, slice_, items, out.data_ptr(),
                  stream=torch.cuda.current_stream(dev).cuda_stream)
     return out if u.dim() == 3 else out[0]

@@ -13,6 +13,7 @@ import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.api import GraphStats as RefGraphStats  # noqa: E402
+from repro.api import Plan as RefPlan  # noqa: E402
 from repro.api import Resources as RefResources  # noqa: E402
 from repro.api import TriangleCounter as RefTriangleCounter  # noqa: E402
 from repro.api import plan as ref_plan  # noqa: E402
@@ -21,6 +22,7 @@ from repro.graphs import generators as ref_gen  # noqa: E402
 from repro.serve.serve_loop import TriangleServer as RefTriangleServer  # noqa: E402
 from repro_torch.api import (  # noqa: E402
     METHODS,
+    bucket,
     CountResult,
     GraphStats,
     Plan,
@@ -89,6 +91,39 @@ def test_count_batch_matches_the_reference():
         c.count_batch([])
     with pytest.raises(ValueError):
         c.count_batch([_port(ref_graphs[0])], plan=Plan(method="ring"))
+
+
+def test_dense_paths_count_the_graphs_own_rows_of_the_bucket(monkeypatch):
+    """The dense count and the batch build U in the node bucket, which keys
+    the cache as in the reference, but hand the kernel only the graph's own
+    n rows (the largest graph's in a batch): a view of the bucket, its row
+    stride the bucket's. Counts, buckets and cache keys equal the
+    reference's."""
+    seen = []
+    real = tp.count_triangles_dense
+
+    def recorder(u, **kw):
+        seen.append((tuple(u.shape), u.stride()))
+        return real(u, **kw)
+
+    monkeypatch.setattr(tp, "count_triangles_dense", recorder)
+    c, ref_c = TriangleCounter(Resources(), device="cpu"), RefTriangleCounter()
+    for n in (1, 40, 64, 65, 100):
+        ref_g = ref_gen.gnp(n, 0.5, seed=n)
+        res = c.count(_port(ref_g), plan=Plan(method="dense"))
+        ref_res = ref_c.count(ref_g, plan=RefPlan(method="dense"))
+        n_b = bucket(n)
+        assert seen.pop() == ((n, n), (n_b, 1)) and not seen
+        assert res.item() == ref_res.item() == count_triangles_brute(ref_g)
+        assert res.stats["cache"]["key"] == ref_res.stats["cache"]["key"]
+        assert res.stats["cache"]["key"][1] == (n_b,)
+    ref_graphs = [ref_gen.gnp(n, 0.5, seed=n) for n in (20, 33, 47, 12)]
+    res, ref_res = c.count_batch([_port(g) for g in ref_graphs]), ref_c.count_batch(ref_graphs)
+    assert seen.pop() == ((4, 47, 47), (64 * 64, 64, 1)) and not seen
+    assert res.count.tolist() == [int(x) for x in np.asarray(ref_res.count)] == \
+        [count_triangles_brute(g) for g in ref_graphs]
+    assert res.stats["bucket"] == ref_res.stats["bucket"] == (8, 64)
+    assert res.stats["cache"]["key"] == ref_res.stats["cache"]["key"]
 
 
 def test_cache_contract_matches_the_reference():

@@ -9,6 +9,7 @@ reference package, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
 import dataclasses
+import math
 
 import pytest
 
@@ -45,6 +46,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention, kernel_rout
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.triangle_count.ops import (  # noqa: E402
     masked_matmul_sum,
+    tma_batch_strides,
     triangle_count,
 )
 from repro_torch.kernels.triangle_count.ref import (  # noqa: E402
@@ -82,6 +84,77 @@ def test_triangle_count_kernel_equals_plain(cuda, n):
 def test_triangle_count_kernel_batch_equals_plain(cuda):
     u = _rand01(np.random.default_rng(0), (7, 300, 300), 0.5, cuda).triu(1)
     assert triangle_count(u).tolist() == triangle_count_ref(u).tolist()
+
+
+def _k1_launches():
+    return launch_counts()["triangle_count_live"]
+
+
+def test_triangle_count_kernel_reads_views_of_a_padded_buffer(cuda):
+    """K1 over the n x n corner of a bucket-sized buffer, read in place (the
+    tensor map's dims are n, so nothing past n is counted): one launch a
+    call, equal to the plain version as integers."""
+    buf = _rand01(np.random.default_rng(3), (512, 512), 0.4, cuda).triu(1)
+    for n in (1, 17, 100, 128, 129, 300, 512):
+        view = buf[:n, :n]
+        assert tma_batch_strides(view[None]) is not None
+        before = _k1_launches()
+        got = triangle_count(view)
+        assert _k1_launches() == before + 1
+        assert got.shape == () and int(got) == int(triangle_count_ref(view))
+
+
+def test_triangle_count_kernel_counts_a_batch_of_views_in_one_launch(cuda):
+    rng = np.random.default_rng(4)
+    buf = torch.zeros(6, 1024, 1024, dtype=torch.uint8, device=cuda)
+    for b, n in enumerate((700, 1, 350, 699, 64, 500)):
+        buf[b, :n, :n] = _rand01(rng, (n, n), 0.2 + 0.1 * b, cuda).triu(1)
+    for n in (700, 129):
+        view = buf[:, :n, :n]
+        assert tma_batch_strides(view) == (1024, 1024 * 1024)
+        before = _k1_launches()
+        got = triangle_count(view)
+        assert _k1_launches() == before + 1
+        assert got.tolist() == triangle_count_ref(view).tolist()
+
+
+def test_triangle_count_kernel_copies_what_tma_cannot_read(cuda):
+    """n that breaks TMA's 16-byte row rule, and an unaligned base, take the
+    wrapper's copy; the count is the same, one launch a call."""
+    rng = np.random.default_rng(5)
+    big = _rand01(rng, (4, 400, 400), 0.3, cuda).triu(1)
+    for u in (big[:, :300, :300].contiguous(), big[0, :394, :394].contiguous(),
+              big[1, 5:205, 5:205]):
+        assert tma_batch_strides(u if u.dim() == 3 else u[None]) is None
+        before = _k1_launches()
+        got = triangle_count(u)
+        assert _k1_launches() == before + 1
+        assert got.tolist() == triangle_count_ref(u).tolist()
+
+
+def test_triangle_count_kernel_is_exact_past_2_31(cuda):
+    """The complete graph on 2,400 nodes: C(2400, 3) = 2.3e9 triangles, past
+    2³¹, in a batch of two with an empty graph."""
+    n = 2400
+    u = torch.ones(n, n, dtype=torch.uint8, device=cuda).triu(1)
+    batch = torch.stack([u, torch.zeros_like(u)])
+    assert triangle_count(batch).tolist() == [math.comb(n, 3), 0]
+    assert math.comb(n, 3) > 2**31
+
+
+def test_triangle_count_kernel_takes_the_largest_batch_of_its_grid(cuda):
+    """65,535 one-row matrices (gridDim.y's limit) launch once; 65,536 are
+    refused (test_wrappers_refuse_what_the_kernels_do_not_take)."""
+    u = torch.zeros(65535, 1, 1, dtype=torch.uint8, device=cuda)
+    before = _k1_launches()
+    got = triangle_count(u)
+    assert _k1_launches() == before + 1
+    assert got.shape == (65535,) and int(got.abs().sum()) == 0
+    u = torch.zeros(65535, 3, 3, dtype=torch.uint8, device=cuda)
+    u[:, 0, 1] = u[:, 0, 2] = u[:, 1, 2] = 1
+    u[-1, 1, 2] = 0
+    got = triangle_count(u)
+    assert got[:-1].eq(1).all() and int(got[-1]) == 0
 
 
 @pytest.mark.parametrize("shape", [(64, 64, 64), (100, 70, 130), (33, 1, 17), (300, 513, 129),

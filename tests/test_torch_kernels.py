@@ -7,6 +7,7 @@ JAX wrappers on the same numpy inputs. Every count is compared as an exact
 integer. The CUDA kernels themselves are held against the same plain
 versions on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
 import ctypes
+import functools
 
 import pytest
 
@@ -27,6 +28,7 @@ from repro.kernels.flash_attention.ops import flash_attention as ref_flash  # no
 from repro.kernels.flash_attention.ref import attention_ref as ref_attention  # noqa: E402
 from repro.kernels.triangle_count.ops import masked_matmul_sum as ref_mms  # noqa: E402
 from repro.kernels.triangle_count.ops import triangle_count as ref_tc  # noqa: E402
+from repro_torch.api import bucket  # noqa: E402
 from repro_torch.kernels import _build, launch_counts  # noqa: E402
 from repro_torch.kernels.bitset_count.ops import (  # noqa: E402
     bitset_edge_count,
@@ -49,12 +51,15 @@ from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     vt_operand,
 )
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.triangle_count import ops as tc_ops  # noqa: E402
 from repro_torch.kernels.triangle_count.ops import (  # noqa: E402
     MIN_SLICE,
     SPLIT_WAVES,
+    _tma_operand,
     live_grid_size,
     masked_matmul_sum,
     split_plan,
+    tma_batch_strides,
     tma_row_stride,
     triangle_count,
     work_item,
@@ -94,6 +99,78 @@ def test_triangle_count_exact_beyond_f32_mantissa():
     """C(600, 3) = 35,820,200 > 2²⁴: the int64 reduction stays exact."""
     u = np.triu(np.ones((600, 600), np.uint8), 1)
     assert int(triangle_count(torch.from_numpy(u))) == 600 * 599 * 598 // 6
+
+
+@functools.lru_cache(maxsize=None)
+def _k1_batch(n):
+    """Three graphs of at most n nodes, each in the corner of one matrix of a
+    bucket-sized (3, n_b, n_b) buffer — as the counter builds them — and the
+    reference kernel's count of each n x n view (interpret mode, block 128)."""
+    n_b = bucket(n)
+    buf = np.zeros((3, n_b, n_b), np.uint8)
+    for b, (k, p) in enumerate(((n, 0.3), (max(1, n // 2), 0.6), (max(1, n - 5), 0.9))):
+        buf[b, :k, :k] = _u(k, p, n + b)
+    want = [int(ref_tc(jnp.asarray(buf[b, :n, :n], jnp.float32), interpret=True))
+            for b in range(3)]
+    return buf, want
+
+
+@pytest.mark.parametrize("n", [1, 63, 129, 300, 1000])
+@pytest.mark.parametrize("sms", [1, 7, 132])
+def test_live_work_decomposition_counts_a_batch_of_views(n, sms, monkeypatch):
+    """K1's arithmetic in numpy: per work item of split_plan(n, n, n, True,
+    sms), decoded by work_item as the kernel decodes blockIdx.x, and per
+    matrix (blockIdx.y), the s32 tile U[rb]·U[kb]ᵀ over the item's chunks,
+    masked with U[rb, kb] and summed. U is the n x n view of a bucket-sized
+    buffer that the kernel's tensor map reads (zeros past n). Each matrix's
+    sum equals the reference kernel's count, exactly, at the default
+    MIN_SLICE and with slices of a single chunk up."""
+    buf, want = _k1_batch(n)
+    view = buf[:, :n, :n].astype(np.int64)
+    for min_slice in (MIN_SLICE, 1):
+        monkeypatch.setattr(tc_ops, "MIN_SLICE", min_slice)
+        slice_, items = split_plan(n, n, n, True, sms)
+        total = np.zeros(len(view), np.int64)
+        for i in range(items):
+            rb, kb, c0, c1 = work_item(i, n, n, n, True, slice_)
+            rows, inner = slice(rb * TILE, (rb + 1) * TILE), slice(kb * TILE, (kb + 1) * TILE)
+            cols = slice(c0 * TILE, c1 * TILE)
+            acc = view[:, rows, cols] @ view[:, inner, cols].transpose(0, 2, 1)
+            assert acc.max(initial=0) <= (c1 - c0) * TILE  # s32 is exact
+            total += (acc * view[:, rows, inner]).sum(axis=(1, 2))
+        assert total.tolist() == want
+    got = triangle_count(torch.from_numpy(buf)[:, :n, :n])
+    assert got.dtype == torch.int64 and got.tolist() == want
+
+
+def test_tma_batch_strides_take_bucket_views_and_refuse_what_tma_cannot_read():
+    """K1 reads a (B, n, n) batch in place when each matrix keeps TMA's row
+    rule and the matrix stride is a multiple of 16 covering a matrix: a view
+    u[:, :n, :n] of an aligned bucket, at any n. Anything else is copied
+    into zeros whose rows are rounded up to 16."""
+    buf = torch.zeros(3, 128, 128, dtype=torch.uint8)
+    assert tma_batch_strides(buf) == (128, 128 * 128)
+    for n in (63, 100, 128):
+        assert tma_batch_strides(buf[:, :n, :n]) == (128, 128 * 128)
+    assert tma_batch_strides(buf[:, :1, :1]) == (16, 128 * 128)  # a single row: never stepped
+    assert tma_batch_strides(buf[1:, :63, :63]) == (128, 128 * 128)
+    assert tma_batch_strides(buf[:1, :100, :100]) == (128, 100 * 128)  # one matrix
+    assert tma_batch_strides(buf[:, 0, :5][:, None]) == (16, 128 * 128)  # one row each
+    assert tma_batch_strides(torch.zeros(3, 100, 100, dtype=torch.uint8)) is None  # row stride
+    assert tma_batch_strides(buf[:, 3:67, 3:67]) is None        # base 3 bytes off
+    assert tma_batch_strides(buf.transpose(1, 2)) is None        # column stride 128
+    flat = torch.zeros(3 * 264, dtype=torch.uint8)
+    assert tma_batch_strides(flat.as_strided((3, 16, 16), (264, 16, 1))) is None  # 264 % 16
+    assert tma_batch_strides(flat.as_strided((3, 16, 16), (128, 16, 1))) is None  # overlap
+    assert tma_batch_strides(buf[:1].expand(3, 128, 128)) is None  # matrix stride 0
+    assert tma_batch_strides(torch.zeros(5, 1, 1, dtype=torch.uint8)) is None
+    for x, strides in ((torch.ones(3, 100, 100, dtype=torch.uint8), (112, 100 * 112)),
+                       (torch.ones(5, 1, 1, dtype=torch.uint8), (16, 16)),
+                       (buf[:, 3:67, 3:67] + 1, (64, 64 * 64)),   # contiguous, aligned
+                       (buf.transpose(1, 2) + 1, (128, 128 * 128))):
+        op = _tma_operand(x)
+        assert tma_batch_strides(op) == strides
+        assert torch.equal(op[..., :x.shape[-1]], x)
 
 
 def test_live_grid_size_is_closed_form():
@@ -602,7 +679,7 @@ def test_cpu_tensors_run_the_plain_versions_and_launch_nothing():
 
 
 def test_kernel_sources_are_found():
-    assert set(_build.sources()) == {"triangle_count", "triangle_count_sm90", "bitset_count",
+    assert set(_build.sources()) == {"triangle_count_sm90", "bitset_count",
                                      "flash_attention", "flash_attention_sm90",
                                      "flash_attention_tf32x3_sm90", "embedding_bag"}
     for name in _build.sources():
@@ -637,7 +714,8 @@ def test_build_all_builds_once_and_raises_on_failure(tmp_path, monkeypatch):
 
 
 def test_cuda_kernel_raises_on_launch_error_and_counts_successes():
-    k = _build.CudaKernel("triangle_count", "tc_live", [ctypes.c_void_p], "tc_error_string")
+    k = _build.CudaKernel("triangle_count_sm90", "tc_live_wgmma", [ctypes.c_void_p],
+                          "tc_wgmma_error_string")
     k._fn = lambda *args: 700
     k._err = lambda rc: b"an illegal memory access was encountered"
     with pytest.raises(RuntimeError, match="CUDA error 700"):
