@@ -53,7 +53,27 @@
    the resident count; a hybrid FB107x9 session checkpointed halfway,
    spilled, restored and finished; and a plan with too few hub slots,
    which must raise at ``finalize``.
-6. [lm] Yi-6B at full width and depth (32 layers, d_model 4,096, 32/4
+6. [serve streams] The serving tier's streams (``serve.sessions``) on a
+   card the earlier phases emptied: (a) ``TriangleServer.serve_streams``
+   over shuffled ragged streams of the Table-1 graphs and FB107x9, all
+   sessions interleaved round-robin, once synchronously and once with
+   ``prefetch_depth=2`` (and the adaptive block sizer), each count equal to
+   the resident one, K3 and K4 twice a block; (b) NY-size sessions opened
+   under ``Resources.detect()`` until one queues (8.73 GB bitsets, then
+   hybrid states, beside the card's ingest reserve), every one fed its
+   whole stream at ``SERVE_BLOCK`` rows a block (some with FB107x9's edges
+   mapped onto NY's ids, against ``host_count``), and a close that admits
+   the queued one; (c) a priority-1 open that preempts an 8.73 GB session
+   to the host tier, readmitted at its close with every state array equal
+   on the card to a session fed the same edges without a break (the
+   checkpoint's and the restore's walls printed); (d) at FB107x9's size a
+   ``CheckpointStore`` spilling to ``.npz`` and raising
+   ``BackpressureError`` past its disk budget, and deadlines on an injected
+   clock (parked, a late exact close, then cancelled); (e) a YT-size
+   session admitted as hybrid and counted to [hybrid]'s count with one K5,
+   two K4 and one K3 a block (or, should its plan lose endpoints, the
+   exact-count refusal raising).
+7. [lm] Yi-6B at full width and depth (32 layers, d_model 4,096, 32/4
    heads, d_ff 11,008, vocab 64,000; f32 weights drawn on the card from a
    seeded generator): ``LMServer.generate`` on 8 seeded prompts of 256 to
    1,024 tokens, 4 to a batch, 32 new tokens each; the same batches through
@@ -71,14 +91,15 @@
    prefill's distance (FlashAttention's own accuracy test); their distance
    from the chunked prefill's is printed against 2e-2 of the largest logit,
    and where the two paths part, layer by layer.
-7. [recsys] AutoInt at its full config (3.9M-row table): ``ctr_logits`` and
+8. [recsys] AutoInt at its full config (3.9M-row table): ``ctr_logits`` and
    ``retrieval_scores`` (100,000 candidates) on 16,384 seeded rows, and
    ``lookup_multihot(use_kernel=True)`` (K7) on 16,384 × 39 bags of 8 ids
    against ``use_kernel=False``; the smoke config on the card against the
    CPU port.
-8. Profiles one planner-chosen count of FNA.5 and of NY, one planner-chosen
-   ``count_stream`` of NY and of YT, and one Yi-6B flash prefill plus 32
-   decode steps in f32 and in bf16, with ``torch.profiler``: host wall,
+9. Profiles one planner-chosen count of FNA.5 and of NY, one planner-chosen
+   ``count_stream`` of NY and of YT, (a)'s interleaved ``serve_streams``, and
+   one Yi-6B flash prefill plus 32 decode steps in f32 and in bf16, with
+   ``torch.profiler``: host wall,
    device busy time, the device's idle share. Each window opens with marker
    kernels, and a profile counts only when it is consistent (a marker
    survived the profiler's loss of a session's first records, device busy
@@ -86,7 +107,7 @@
    host-to-device copy row for each count); an inconsistent one is profiled
    again with four times the markers, and the third raises.
 
-Phases 2 to 7 are the main path: every kernel's launch count is set to 0
+Phases 2 to 8 are the main path: every kernel's launch count is set to 0
 before them and must be above 0 after them. Any mismatch or exception exits
 non-zero. The last three lines are the ``kernels`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Imports nothing
@@ -176,6 +197,10 @@ BF16_P_ROUND = 2.0**-8
 # ``bf16_logits_check``, since each bf16 path alone lies about 2e-2 of the
 # largest logit from f32 arithmetic on the same weights (PERF.md).
 LOGITS_REL = {"float32": 1e-3, "bfloat16": 2e-2}
+# [serve streams] (b) and (c): every NY-size session runs this block size
+# (the bitset ingest's (n, W) delta table is the same at any block; the
+# hybrid sessions' block-local packing grows with B²)
+SERVE_BLOCK = 8192
 # YT: SNAP com-Youtube's size (n nodes, m edge draws), the edges drawn by a
 # Chung-Lu power law (the reference's tests/test_hybrid_stream.py generator)
 YT = dict(n=1_134_890, m=2_987_624, alpha=0.85, seed=0)
@@ -1260,7 +1285,325 @@ def hybrid_phase(graphs: dict, stream_table: list) -> list:
 
 
 # --------------------------------------------------------------------------
-# Phases 6 and 7: the LM and the recsys paths (main path too)
+# Phase 6: the serving tier's streams (main path too)
+# --------------------------------------------------------------------------
+def feed_round_robin(mux, feeds: dict, part: slice = slice(None)) -> None:
+    """Feed each session of ``feeds`` (sid -> ragged blocks) the blocks of
+    ``part``, one block a session in turn."""
+    todo = {sid: blocks[part] for sid, blocks in feeds.items()}
+    for j in range(max((len(b) for b in todo.values()), default=0)):
+        for sid, blocks in todo.items():
+            if j < len(blocks):
+                mux.feed(sid, blocks[j])
+
+
+def timed_sync(fn):
+    """(result, synchronised host wall in s) of ``fn()``."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def serve_streams_phase(graphs: dict) -> dict:
+    """[serve streams]: many bitset and hybrid sessions on one card through
+    ``StreamMultiplexer`` (module docstring, 6). Returns the summary;
+    leaves (a)'s requests in ``graphs`` for the profile."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import (
+        BackpressureError,
+        Resources,
+        StreamSession,
+        TriangleCounter,
+        admit_session,
+        planner,
+    )
+    from repro_torch.graphs.formats import canonical_edges
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serve import StreamMultiplexer, TriangleServer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"  allocated at the start: {torch.cuda.memory_allocated()} B of {total} B")
+    summary = {}
+
+    # (a) every Table-1 graph and FB107x9 at once, sync and prefetched
+    rng = np.random.default_rng(20)
+    reqs = [(graphs[nm].n_nodes,
+             ragged(graphs[nm].edges[rng.permutation(graphs[nm].n_edges)], rng, 50_000))
+            for nm in GRAPHS]
+    graphs["_serve_streams"] = reqs
+    runs = {}
+    for label, kw in (("sync", {}), ("prefetch_depth=2", {"prefetch_depth": 2,
+                                                          "adaptive_block": True})):
+        server = TriangleServer(device=DEVICE, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k0 = launch_counts()
+        res, wall = timed_sync(lambda: server.serve_streams(reqs))
+        counts = [r.item() for r in res]
+        k1 = launch_counts()
+        for nm, c in zip(GRAPHS, counts):
+            if c != graphs["_served"][nm]:
+                raise AssertionError(f"serve_streams {label} {nm}: {c} != resident "
+                                     f"{graphs['_served'][nm]}")
+        blocks = sum(r.stats["n_blocks"] for r in res)
+        check_stream_launches(f"serve_streams {label}", k0, k1, blocks, 2, 2)
+        runs[label] = dict(wall_ms=wall * 1e3, peak_bytes=torch.cuda.max_memory_allocated(),
+                           blocks=blocks, counts=counts,
+                           plan_block={nm: r.plan.block_size for nm, r in zip(GRAPHS, res)},
+                           final_block={nm: r.stats["block_size"] for nm, r in zip(GRAPHS, res)})
+        log(f"  (a) serve_streams {label}: {len(reqs)} sessions interleaved, {blocks} blocks, "
+            f"wall={wall * 1e3:.3f} ms peak_allocated={runs[label]['peak_bytes']} B "
+            f"K3={k1['bitset_edge_count'] - k0['bitset_edge_count']} "
+            f"K4={k1['bitset_pair_count'] - k0['bitset_pair_count']}; block sizes "
+            + ", ".join(f"{nm} {runs[label]['plan_block'][nm]}->{runs[label]['final_block'][nm]}"
+                        for nm in GRAPHS))
+        del server, res
+    if runs["sync"]["counts"] != runs["prefetch_depth=2"]["counts"]:
+        raise AssertionError("prefetched counts differ from the synchronous ones")
+    summary["a"] = runs
+
+    # (b) NY-size sessions opened until one queues; (c) a priority-1 open
+    # preempts one of them at full state size
+    ny, fb = graphs["NY"], graphs[LARGE_NAME]
+    n = ny.n_nodes
+    perm = np.random.default_rng(21).permutation(n)[:fb.n_nodes].astype(np.int32)
+    mixed = canonical_edges(np.concatenate([ny.edges, perm[fb.edges]]), n)
+    t0 = time.perf_counter()
+    want_mixed = host_count(mixed)
+    log(f"  NY + FB107x9 mapped onto NY's ids by a seeded permutation: m={mixed.n_edges}, "
+        f"{want_mixed} triangles (host oracle, {time.perf_counter() - t0:.1f} s)")
+    rng = np.random.default_rng(22)
+    ny_feeds = ragged(ny.edges[rng.permutation(ny.n_edges)], rng, 50_000)
+    mixed_feeds = ragged(mixed.edges[rng.permutation(mixed.n_edges)], rng, 50_000)
+    res = Resources.detect(DEVICE)
+    mux = StreamMultiplexer(TriangleCounter(res, device=DEVICE), block_size=SERVE_BLOCK)
+    k0 = launch_counts()
+    sids = []
+    while not sids or mux.status(sids[-1]) == "active":
+        sids.append(mux.open(n))
+    queued = sids.pop()
+    layout = {sid: mux._recs[sid].plan.state_layout for sid in sids}
+    dense = [sid for sid in sids if layout[sid] == "bitset"]
+    hybrid = [sid for sid in sids if layout[sid] == "hybrid"]
+    reserve, pinned = mux.reserve_bytes, mux.bytes_in_use
+    log(f"  (b) Resources.detect() budget {res.memory_bytes} B: {len(sids)} NY-size sessions "
+        f"admitted ({len(dense)} bitset of {mux.state_bytes_of(dense[0])} B, {len(hybrid)} "
+        f"hybrid of {min((mux.state_bytes_of(s) for s in hybrid), default=0)}-"
+        f"{max((mux.state_bytes_of(s) for s in hybrid), default=0)} B) before one queued; "
+        f"pinned {mux.bytes_in_use} B + reserve {reserve} B = "
+        f"{mux.bytes_in_use + reserve} B")
+    if len(dense) < 2 or mux.bytes_in_use + reserve > res.memory_bytes:
+        raise AssertionError("the card's admission overcommits or admits too few bitsets")
+    mixed_sids = {dense[0], dense[1], queued} | set(hybrid[:1])
+    feeds = {sid: mixed_feeds if sid in mixed_sids else ny_feeds for sid in sids + [queued]}
+    half = {sid: len(b) // 2 for sid, b in feeds.items()}
+    torch.cuda.reset_peak_memory_stats()
+    _, wall_1 = timed_sync(lambda: feed_round_robin(
+        mux, {sid: b[:half[sid]] for sid, b in feeds.items()}))
+    # (c) the victim is the oldest bitset session: lowest priority, largest state
+    victim, twin = dense[0], dense[1]
+    ck_wall, restore_wall = [], []
+    plain_ckpt, plain_restore = StreamSession.checkpoint, TriangleCounter.restore_stream
+
+    def timed_ckpt(session):
+        ck, wall = timed_sync(lambda: plain_ckpt(session))
+        ck_wall.append(wall)
+        return ck
+
+    def timed_restore(counter, ck):
+        session, wall = timed_sync(lambda: plain_restore(counter, ck))
+        restore_wall.append(wall)
+        return session
+
+    StreamSession.checkpoint = timed_ckpt
+    try:
+        hi, open_wall = timed_sync(lambda: mux.open(n, priority=1))
+    finally:
+        StreamSession.checkpoint = plain_ckpt
+    if (mux.status(victim), mux.status(hi), mux.store.where(victim)) != \
+            ("preempted", "active", "host"):
+        raise AssertionError(f"priority-1 open: victim {mux.status(victim)}, "
+                             f"new {mux.status(hi)}")
+    parked = mux.store.host_bytes
+    _, wall_2 = timed_sync(lambda: feed_round_robin(
+        mux, {sid: b[half[sid]:] for sid, b in feeds.items()}))
+    feed_round_robin(mux, {hi: mixed_feeds})
+    TriangleCounter.restore_stream = timed_restore
+    try:
+        r_hi, close_wall = timed_sync(lambda: mux.close(hi))
+    finally:
+        TriangleCounter.restore_stream = plain_restore
+    if mux.status(victim) != "active" or r_hi.item() != want_mixed:
+        raise AssertionError(f"after the priority-1 close: victim {mux.status(victim)}, "
+                             f"count {r_hi.item()} != {want_mixed}")
+    for sid in (victim, twin):  # ingest the tails the buffers still hold
+        session = mux._recs[sid].session
+        tail = session.flush_ready()
+        if tail is not None:
+            session.ingest_ready(tail)
+    a, b = mux._recs[victim].session.state, mux._recs[twin].session.state
+    same = sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a)
+    del session, a, b  # hold no state past its close: the queued session needs the memory
+    if not same:
+        raise AssertionError("the restored session's state differs from its twin's")
+    log(f"  (c) priority-1 open preempted session {victim}: checkpoint (tail ingest + D2H) "
+        f"{ck_wall[0] * 1e3:.1f} ms of the open's {open_wall * 1e3:.1f} ms, {parked} B "
+        f"parked in the host tier; readmitted at the priority-1 close: restore (H2D) "
+        f"{restore_wall[0] * 1e3:.1f} ms of the close's {close_wall * 1e3:.1f} ms (with "
+        f"the replay of its buffered feeds); every state array equal on the card to "
+        f"session {twin}'s, fed the same edges without a break")
+    results = {hi: (r_hi.item(), r_hi.stats["n_blocks"], r_hi.plan.state_layout)}
+    for sid in [twin, queued] + [s for s in sids if s != twin]:
+        kind = mux._recs[sid].plan.state_layout
+        r = mux.close(sid)
+        results[sid] = (r.item(), r.stats["n_blocks"], kind)
+        if sid == twin and mux.status(queued) != "active":
+            raise AssertionError("closing a session did not admit the queued one")
+    torch.cuda.synchronize()
+    k1 = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for sid, (c, _, _) in results.items():
+        want = want_mixed if sid in mixed_sids | {hi} else graphs["_served"]["NY"]
+        if c != want:
+            raise AssertionError(f"NY-size session {sid}: {c} != {want}")
+    nb = {kind: sum(v[1] for v in results.values() if v[2] == kind)
+          for kind in ("bitset", "hybrid")}
+    want_k = {"bitset_edge_count": 2 * nb["bitset"] + nb["hybrid"],
+              "bitset_pair_count": 2 * (nb["bitset"] + nb["hybrid"]),
+              "bitset_edge_count_per_edge": nb["hybrid"]}
+    for name, w in want_k.items():
+        if k1[name] - k0[name] != w:
+            raise AssertionError(f"(b) {name} launched {k1[name] - k0[name]} times, not {w}")
+    if peak + planner._CARD_FIXED_BYTES > res.memory_bytes:
+        raise AssertionError(f"peak {peak} B past the budget less the fixed share")
+    log(f"  (b) every admitted session fed its whole stream ({wall_1 + wall_2:.1f} s of "
+        f"feeds), no out-of-memory error; {len(mixed_sids)} mixed sessions counted "
+        f"{want_mixed} = host oracle, the others NY's {graphs['_served']['NY']}; closing "
+        f"session {twin} admitted the queued session {queued}, which finished; "
+        f"{nb['bitset']} bitset + {nb['hybrid']} hybrid blocks, launches as per block; "
+        f"peak allocated {peak} B of the card's {total} B")
+    summary["b"] = dict(budget=res.memory_bytes, admitted=len(sids), bitset=len(dense),
+                        hybrid=len(hybrid), reserve=reserve, pinned=pinned,
+                        peak_bytes=peak, total_bytes=total, feed_s=wall_1 + wall_2,
+                        blocks=nb)
+    summary["c"] = dict(state_bytes=parked, checkpoint_ms=ck_wall[0] * 1e3,
+                        open_ms=open_wall * 1e3, restore_ms=restore_wall[0] * 1e3,
+                        close_ms=close_wall * 1e3)
+    del mux
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) spill and backpressure, then deadlines, at FB107x9's size
+    counter = TriangleCounter(device=DEVICE)
+    rng = np.random.default_rng(23)
+    fb_feeds = [ragged(fb.edges[rng.permutation(fb.n_edges)], rng, 20_000) for _ in range(3)]
+    fb_state = 4 * fb.n_nodes * (-(-fb.n_nodes // 32))
+    probe = counter.open_stream(fb.n_nodes)
+    probe.feed(fb.edges)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = probe.checkpoint()
+        ck.spill(os.path.join(tmp, "probe.npz"))
+        disk = ck.disk_bytes
+        ck.discard()
+        del probe, ck
+        mux = StreamMultiplexer(counter, checkpoint_budget_bytes=int(1.5 * fb_state),
+                                spill_dir=tmp, spill_budget_bytes=int(1.5 * disk))
+        trio = [mux.open(fb.n_nodes) for _ in range(3)]
+        feed_round_robin(mux, dict(zip(trio, fb_feeds)))
+        mux.preempt(trio[0])
+        mux.preempt(trio[1])
+        where = [mux.store.where(s) for s in trio[:2]]
+        try:
+            mux.preempt(trio[2])
+        except BackpressureError as err:
+            refused = str(err)
+        else:
+            raise AssertionError("a third checkpoint fitted a disk budget of one")
+        if where != ["disk", "host"] or mux.status(trio[2]) != "active" \
+                or [mux.store.where(s) for s in trio[:2]] != where:
+            raise AssertionError(f"spill tiers {where}, third {mux.status(trio[2])}")
+        stats = mux.sched_stats
+        counts = [mux.close(s).item() for s in trio]
+        if counts != [graphs["_served"][LARGE_NAME]] * 3 or os.listdir(tmp) != []:
+            raise AssertionError(f"spilled sessions counted {counts}")
+    log(f"  (d) FB107x9 sessions of {fb_state} B: host budget {int(1.5 * fb_state)} B, "
+        f"disk budget {int(1.5 * disk)} B (a {disk} B spill): the second preemption spilled "
+        f"the first ({stats['spill_raw_bytes']} B raw, {stats['spill_disk_bytes']} B on disk, "
+        f"ratio {stats['spill_compression']}), the third raised BackpressureError "
+        f"({refused[:60]}...) and stayed active; all three counted {counts[0]}")
+    now = [0.0]
+    mux = StreamMultiplexer(counter, clock=lambda: now[0])
+    idle, later = mux.open(fb.n_nodes, deadline_s=10), mux.open(fb.n_nodes, deadline_s=10)
+    feed_round_robin(mux, {idle: fb_feeds[0], later: fb_feeds[1][:2]})
+    now[0] = 16.0
+    mux.reap()
+    parked = [mux.status(s) for s in (idle, later)]
+    r_idle = mux.close(idle)
+    now[0] = 30.0
+    mux.reap()
+    r_later = mux.close(later)
+    if parked != ["preempted", "preempted"] or r_idle.item() != graphs["_served"][LARGE_NAME] \
+            or not (r_later.stats["cancelled"] and r_later.stats["expired"]):
+        raise AssertionError(f"deadlines: {parked}, late close {r_idle.item()}, "
+                             f"{r_later.stats}")
+    log(f"  (d) deadlines of 10 s on an injected clock: idle at 16 s both parked; the late "
+        f"close counted {r_idle.item()} from the host snapshot; idle again at 30 s the other "
+        f"was cancelled (expired); expirations {mux.sched_stats['expirations']}")
+    summary["d"] = dict(spill_disk_bytes=stats["spill_disk_bytes"],
+                        spill_raw_bytes=stats["spill_raw_bytes"],
+                        spill_compression=stats["spill_compression"])
+    del mux, counter
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) a YT-size session admitted as hybrid under the detected budget
+    n_yt, yt_blocks, want_yt = graphs["_yt"]
+    verdict = admit_session(n_yt, res)
+    mux = StreamMultiplexer(TriangleCounter(res, device=DEVICE))
+    sid = mux.open(n_yt)
+    p = mux._recs[sid].plan
+    if mux.status(sid) != "active" or p.state_layout != "hybrid":
+        raise AssertionError(f"YT: {mux.status(sid)} {p.state_layout}")
+    k0 = launch_counts()
+    _, wall = timed_sync(lambda: feed_round_robin(mux, {sid: yt_blocks}))
+    try:
+        r = mux.close(sid)
+        c = r.item()
+    except RuntimeError as err:  # the plan lost endpoints: the exact-count refusal
+        mux.kill(sid)
+        log(f"  (e) YT admitted as {verdict.action} (H={p.hub_slots} C={p.tail_capacity} "
+            f"B={p.block_size}) lost endpoints; close raised: {err}")
+        summary["e"] = dict(action=verdict.action, hub_slots=p.hub_slots, lost=True)
+    else:
+        k1 = launch_counts()
+        if c != want_yt:
+            raise AssertionError(f"YT through the multiplexer: {c} != {want_yt}")
+        check_hybrid_launches("YT multiplexed", k0, k1, r.stats["n_blocks"])
+        log(f"  (e) YT admitted as {verdict.action} (H={p.hub_slots} C={p.tail_capacity} "
+            f"B={p.block_size}, {r.stats['state_bytes']} B charged): {len(yt_blocks)} feeds "
+            f"-> {r.stats['n_blocks']} blocks in {wall * 1e3:.1f} ms, count {c} = host oracle, "
+            f"hubs used {r.stats['hubs_used']}, lost 0; K5/K4/K3 1/2/1 a block")
+        summary["e"] = dict(action=verdict.action, hub_slots=p.hub_slots,
+                            state_bytes=r.stats["state_bytes"], wall_ms=wall * 1e3,
+                            blocks=r.stats["n_blocks"], count=c, lost=False)
+    del mux
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+# --------------------------------------------------------------------------
+# Phases 7 and 8: the LM and the recsys paths (main path too)
 # --------------------------------------------------------------------------
 def logits_agree(label: str, got, want, rel: float = 1e-3) -> float:
     """max |got - want| <= rel * max |want|, both finite; returns the ratio."""
@@ -1554,19 +1897,22 @@ def recsys_phase(arch: str = "autoint", rows: int = 16_384, n_cand: int = 100_00
 
 
 # --------------------------------------------------------------------------
-# Phase 8: where the time of one count goes (after the main path's counts)
+# Phase 9: where the time of one count goes (after the main path's counts)
 # --------------------------------------------------------------------------
 def profile_phase(graphs: dict) -> None:
     """One planner-chosen count of each of the two largest Table-1 graphs,
-    and one planner-chosen ``count_stream`` of NY and of YT (the hybrid
-    state), under ``torch.profiler``
+    one planner-chosen ``count_stream`` of NY and of YT (the hybrid
+    state), and [serve streams] (a)'s interleaved serve, under
+    ``torch.profiler``
     after a warm-up run: host wall, device busy time (every kernel, copy
     and fill), the device's idle share of the wall, the peak of allocated
     device memory, and the host and device operations that take the most
     time."""
     import numpy as np
+    import torch
 
     from repro_torch.api import TriangleCounter
+    from repro_torch.serve import TriangleServer
 
     counter = TriangleCounter(device=DEVICE)
     for name in ("FNA.5", "NY"):
@@ -1582,6 +1928,11 @@ def profile_phase(graphs: dict) -> None:
     n, blocks, want = graphs["_yt"]
     profile_one("YT count_stream (planner-chosen hybrid)",
                 lambda: counter.count_stream(n, blocks), want)
+    server = TriangleServer(device=DEVICE)
+    reqs = graphs["_serve_streams"]
+    profile_one(f"serve_streams of {len(reqs)} interleaved sessions (sync)",
+                lambda: torch.stack([r.count for r in server.serve_streams(reqs)]).sum(),
+                sum(graphs["_served"][name] for name in GRAPHS))
 
 
 def profile_lm(lm: dict) -> dict:
@@ -1887,6 +2238,12 @@ def main() -> int:
     hybrid_table = hybrid_phase(graphs, table)
     log(f"[hybrid] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    log("[serve streams] StreamMultiplexer on the card: the Table-1 graphs interleaved (sync "
+        "and prefetched), NY-size sessions to the detected budget, a preemption at full "
+        "state size, spill and deadlines at FB107x9's size, a YT-size hybrid session")
+    serve_streams = serve_streams_phase(graphs)
+    log(f"[serve streams] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     log("[lm] Yi-6B at full width and depth, f32 weights: LMServer.generate, flash prefill "
         "(tf32x3 K6) + decode_step, forward")
     lm = lm_phase()
@@ -1908,8 +2265,9 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     t0 = time.perf_counter()
-    log("[profile] one planner-chosen count each, a NY and a YT count_stream, and a Yi-6B "
-        "flash prefill + decode in f32 and in bf16, torch.profiler (CPU + CUDA)")
+    log("[profile] one planner-chosen count each, a NY and a YT count_stream, the interleaved "
+        "serve_streams, and a Yi-6B flash prefill + decode in f32 and in bf16, torch.profiler "
+        "(CPU + CUDA)")
     for one in (lm, lm_bf16):
         one["summary"]["profile"] = profile_lm(one)
         del one["model"], one["batch"]  # the counts' peaks below exclude the LM's weights
@@ -1957,6 +2315,7 @@ def main() -> int:
         log(f"  bound of {name}: operations {ops_ms:.6f} ms, bytes {bytes_ms:.6f} ms")
     log("[stream table] " + json.dumps(table))
     log("[hybrid table] " + json.dumps(hybrid_table))
+    log("[serve streams summary] " + json.dumps(serve_streams))
     log("[lm summary] " + json.dumps(lm["summary"]))
     log("[lm bf16 summary] " + json.dumps(lm_bf16["summary"]))
     log("[recsys summary] " + json.dumps(recsys))

@@ -31,17 +31,23 @@ Plan method → paper section map:
   a ``StreamSession`` handle (``count_stream`` is open → feed → finalize);
   ``window=E`` opens a sliding window of E epochs. Sessions checkpoint to a
   ``SessionCheckpoint`` (spillable to ``.npz``, in the reference's layout)
-  and resume bit-identically through ``restore_stream``.
+  and resume bit-identically through ``restore_stream``. Many sessions
+  share one counter behind ``serve.StreamMultiplexer``, admitted by
+  :func:`admit_session` (``BackpressureError`` past a host budget).
 """
 from repro_torch.api.planner import (
     ADMISSION_ONLY,
     METHODS,
     MR_RF_FACTOR,
+    Admission,
+    BackpressureError,
     GraphStats,
     HybridSizing,
     Plan,
     Resources,
+    admit_session,
     backend_exec_flags,
+    card_reserve_bytes,
     hybrid_sizing,
     plan,
     plan_for_graph,
@@ -54,17 +60,22 @@ from repro_torch.api.counter import (
     TriangleCounter,
     bucket,
     count_triangles,
+    default_counter,
 )
 
 __all__ = [
     "ADMISSION_ONLY",
     "METHODS",
     "MR_RF_FACTOR",
+    "Admission",
+    "BackpressureError",
     "GraphStats",
     "HybridSizing",
     "Plan",
     "Resources",
+    "admit_session",
     "backend_exec_flags",
+    "card_reserve_bytes",
     "hybrid_sizing",
     "plan",
     "plan_for_graph",
@@ -75,4 +86,5 @@ __all__ = [
     "TriangleCounter",
     "bucket",
     "count_triangles",
+    "default_counter",
 ]

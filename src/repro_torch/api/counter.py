@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import inspect
 import json
 import os
 import time
@@ -389,6 +390,14 @@ class TriangleCounter:
 
     def _check_stream_plan(self, p: Plan) -> None:
         self._check_plan(p)
+
+    def mesh_matches(self, n_stages: int) -> bool:
+        """True when this counter's mesh hosts a ``n_stages``-wide ring.
+        The port's counter has no mesh until the multi-device rings
+        (ROADMAP.md, queue A item 5), so always False: session admission
+        then charges an emulated-sharded state in full, as the reference
+        does without a mesh."""
+        return False
 
     def _run_stream(self, g, p: Plan):
         # A memory-resident graph executed under a stream plan: feed its own
@@ -798,6 +807,19 @@ class StreamSession:
         return self.result
 
 
+_DEFAULT: dict = {}
+
+
+def default_counter(device=None) -> TriangleCounter:
+    """The module-level counter of ``device`` (``cuda`` unless asked for
+    another), shared by the ``count_triangles`` shim so casual callers keep
+    one counter — one set of cache keys — across calls."""
+    dev = resolve_device(device)
+    if dev not in _DEFAULT:
+        _DEFAULT[dev] = TriangleCounter(device=dev)
+    return _DEFAULT[dev]
+
+
 _METHOD_ALIASES = {"bitset": "bitset_ring"}
 _PLAN_KWARGS = {"n_stages", "use_kernel", "interpret", "balance",
                 "edge_batch", "node_batch", "block_size"}
@@ -807,14 +829,25 @@ def count_triangles(g, *, method: str = "auto", counter: TriangleCounter | None 
                     device=None, **kw) -> int:
     """Count triangles with one call: ``method="auto"`` routes through the
     planner, any other method (``dense``, ``sparse``, ``ring``, ``bitset``,
-    ``mapreduce``) is forced. ``counter`` defaults to a new
-    ``TriangleCounter(device=device)``; keyword arguments are plan fields."""
-    c = counter or TriangleCounter(device=device)
+    ``mapreduce``) is forced. ``counter`` defaults to
+    :func:`default_counter` of ``device``; keyword arguments are plan
+    fields. Other keywords fall through to the ring entry points that take
+    them (``count_triangles_ring`` / ``count_triangles_bitset_ring``, e.g.
+    ``sequential=``), as in the reference; the rest raise ``TypeError`` —
+    ``mesh=`` among them until the multi-device rings (ROADMAP.md, queue A
+    item 5)."""
+    c = counter or default_counter(device)
     if method == "auto":
         return c.count(g).item()
     method = _METHOD_ALIASES.get(method, method)
     unknown = set(kw) - _PLAN_KWARGS
     if unknown:
+        from repro_torch.core import triangle_pipeline as tp
+
+        legacy = {"ring": tp.count_triangles_ring,
+                  "bitset_ring": tp.count_triangles_bitset_ring}.get(method)
+        if legacy is not None and set(kw) <= set(inspect.signature(legacy).parameters):
+            return int(legacy(g, device=c.device, **kw))
         raise TypeError(f"unsupported kwargs {sorted(unknown)} for method {method!r}")
     fields = {**backend_exec_flags(c.resources), **kw}
     p = Plan(method=method, reason=f"fixed method={method!r} via count_triangles",

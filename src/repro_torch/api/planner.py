@@ -16,8 +16,10 @@ they are until the port has measured rows of its own, so that both packages
 plan alike. Memory predictions are bytes of live operands and are compared
 against ``Resources.memory_bytes``.
 
-Session admission and multi-worker placement come with the port's serving
-tier (ROADMAP.md, queue A).
+Session admission (:func:`admit_session`) is the serving tier's memory
+accounting, as in the reference; on the card the multiplexer also charges
+one ingest's device scratch (:func:`card_reserve_bytes`). Multi-worker
+placement comes with the cluster tier (ROADMAP.md, queue A item 4).
 """
 from __future__ import annotations
 
@@ -26,6 +28,18 @@ import json
 
 # Every method the planner can emit; executed by api.counter.TriangleCounter.
 METHODS = ("dense", "ring", "sparse", "bitset_ring", "mapreduce", "stream")
+
+
+class BackpressureError(RuntimeError):
+    """A bounded host-side budget would be exceeded — graceful degradation
+    instead of host OOM.
+
+    Raised by the serving tier when feeding a queued/preempted session would
+    overflow the queue buffer budget, or when checkpointing a session would
+    overflow both the host checkpoint budget and the disk spill budget. The
+    caller should retry after closing/draining sessions (or raise its own
+    budgets); the server's host memory never grows past the configured
+    bounds."""
 
 
 # MapReduce is inadmissible once Round-I output exceeds this multiple of the
@@ -262,7 +276,7 @@ def stream_sizing(stats: GraphStats, res: Resources, *,
     age-cumulative tables, so it scales ×E too) stays within 1/8 of the
     budget — big blocks amortize dispatch, but must not evict the state
     shard. ``shard_bytes`` is the PER-STAGE pinned state — the number
-    session admission charges."""
+    :func:`admit_session` charges."""
     if window_epochs < 0:
         raise ValueError(f"window_epochs must be >= 0, got {window_epochs}")
     n = max(stats.n_nodes, 1)
@@ -284,7 +298,7 @@ def stream_sizing(stats: GraphStats, res: Resources, *,
 @dataclasses.dataclass(frozen=True)
 class HybridSizing:
     """The hybrid regime's sizing verdict: state array shapes plus the bytes
-    session admission charges for them (``state_bytes`` is EXACTLY
+    :func:`admit_session` charges for them (``state_bytes`` is EXACTLY
     ``streaming.hybrid_state_nbytes`` — the planner predicts the same number
     the session allocates, pinned by tests)."""
 
@@ -478,3 +492,246 @@ def plan_for_graph(g, resources: Resources | None = None, *,
                    allow: set[str] | None = None) -> Plan:
     """Convenience: measure ``g`` then :func:`plan`."""
     return plan(GraphStats.from_graph(g), resources, allow=allow)
+
+
+# --------------------------------------------------------------------------
+# Session admission — the serving story's memory accounting
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Admission:
+    """The planner's verdict on opening ONE MORE concurrent stream session.
+
+    ``action`` is ``"admit-dense"`` (plan has ``n_stages == 1``: the session's
+    full n²/8 bitset fits the remaining budget), ``"admit-sharded"``
+    (``n_stages > 1``: only a n²/8/S column shard per stage fits),
+    ``"admit-hybrid"`` (``plan.state_layout == "hybrid"``: not even the
+    max-ring-width bitset shard fits, but the degree-aware hybrid state —
+    hub bitset rows + fixed-capacity tail buffers, linear in n — does; only
+    for unbounded streams, the windowed epoch ring stays bitset),
+    ``"preempt"`` (it fits only if the active sessions named by ``victims``
+    are first checkpointed off the device — the fair-share verdict: every
+    victim has STRICTLY lower priority than the request), or ``"queue"``
+    (``plan`` is None: even the max-ring-width shard exceeds what is left
+    and no preemption can free it — the request must wait for an active
+    session to close instead of running the device out of memory).
+    ``state_bytes`` is the per-stage bytes the session will pin while open
+    — what the multiplexer adds to its in-use accounting on admit. Windowed
+    sessions (``plan.window_epochs = E > 0``) pin E epoch bitsets, so every
+    figure above is ×E: E·n²/8 dense, E·n²/8/S per stage.
+
+    ``victims`` are indices into the ``actives`` sequence the caller passed
+    to :func:`admit_session` — the minimal greedy set (lowest priority
+    first, then largest state) whose checkpointed bytes, added to the
+    remaining budget, fit the request. Empty for every other action.
+    """
+
+    action: str
+    plan: Plan | None
+    state_bytes: int
+    reason: str
+    victims: tuple = ()
+
+    @property
+    def admitted(self) -> bool:
+        return self.action != "queue"
+
+
+def admit_session(n_nodes: int, resources: Resources | None = None, *,
+                  bytes_in_use: int = 0, window_epochs: int = 0,
+                  priority: int = 0, actives=None,
+                  prefetch_depth: int = 0) -> Admission:
+    """Decide whether one more concurrent stream of ``n_nodes`` nodes fits.
+
+    A stream session pins its adjacency-so-far bitset for its whole lifetime
+    — n²/8 bytes dense, n²/8/S per stage when ring-sharded, and ×E for a
+    sliding window of ``window_epochs`` epoch bitsets (E·n²/8, E·n²/8/S) —
+    while edge blocks are transient. So admission charges
+    ``Resources.memory_bytes`` only for state: ``bytes_in_use`` (the sum of
+    ``state_bytes`` over currently active sessions) is subtracted and
+    :func:`stream_sizing` picks the smallest ring width whose shard fits the
+    REMAINDER. If even the full ring width does not fit, the verdict is
+    ``"queue"``. The per-stage discount is the planner's mesh model; the
+    multiplexer re-takes the decision at ring width 1 when no matching mesh
+    hosts the stage axis (the port has none yet, so always). The verdicts
+    are the reference's, number for number; the card's ingest scratch is
+    charged by the multiplexer, not here (:func:`card_reserve_bytes`).
+
+    FAIR-SHARE PREEMPTION: ``actives`` is the scheduler's view of the
+    currently active sessions as ``(state_bytes, priority)`` pairs. When the
+    request does not fit the remainder but checkpointing active sessions of
+    STRICTLY lower ``priority`` would free enough device state, the verdict
+    is ``"preempt"`` with ``victims`` naming the minimal greedy set (lowest
+    priority first, then largest state). Equal-priority actives are never
+    preempted; with ``actives=None`` (or no eligible victims) the verdict
+    degrades to plain admit/queue.
+
+    ``prefetch_depth=K`` charges the async prefetch pipeline's transient
+    buffers up front — up to K device-ready padded (block, 2) int32 blocks
+    plus as many again raw in the command queue — by SHRINKING the budget
+    the state-sizing sweep sees. The returned plan records the depth
+    (admission-only field, outside ``cache_key()``).
+    """
+    res = resources or Resources()
+    remaining = max(res.memory_bytes - bytes_in_use, 0)
+    stats = GraphStats(n_nodes=n_nodes, n_edges=0, replication_factor=0,
+                       max_degree=0, max_fwd_degree=0, edges_in_memory=False)
+    prefetch_bytes = 0
+    if prefetch_depth:
+        _, blk, _ = stream_sizing(
+            stats, dataclasses.replace(res, memory_bytes=remaining),
+            window_epochs=window_epochs)
+        prefetch_bytes = 2 * int(prefetch_depth) * blk * 2 * 4
+        remaining = max(remaining - prefetch_bytes, 0)
+    sub = dataclasses.replace(res, memory_bytes=remaining)
+
+    def _stamp(adm: Admission) -> Admission:
+        """Record the admitted prefetch depth on the plan (admission-only
+        field — the ingest is depth-independent)."""
+        if prefetch_depth and adm.plan is not None:
+            adm = dataclasses.replace(adm, plan=dataclasses.replace(
+                adm.plan, prefetch_depth=int(prefetch_depth)))
+        return adm
+    n_stages, _, shard_bytes = stream_sizing(stats, sub,
+                                             window_epochs=window_epochs)
+    window = f"windowed ({window_epochs} epochs) " if window_epochs else ""
+    if shard_bytes > remaining:
+        # degree-aware hybrid fallback (unbounded streams only): when even
+        # the max-ring-width bitset shard overflows the remainder, the
+        # linear-in-n hybrid state may still fit. plan(stats, sub) picks
+        # hybrid by the same rule, so plan and charge stay consistent.
+        hyb = None if window_epochs else hybrid_sizing(stats, sub)
+        if hyb is not None and hyb.state_bytes <= remaining:
+            return _stamp(Admission(
+                action="admit-hybrid",
+                plan=plan(stats, sub, window_epochs=window_epochs),
+                state_bytes=hyb.state_bytes,
+                reason=(f"admit-hybrid: bitset shard needs {shard_bytes} B "
+                        f"but the degree-aware hybrid state "
+                        f"({hyb.hub_slots} hub rows + {hyb.tail_capacity}-slot "
+                        f"tail buffers) fits {hyb.state_bytes} B into the "
+                        f"{remaining} B remaining "
+                        f"({bytes_in_use} B already pinned)")))
+        # preemption sweep: grow the budget victim by victim (lowest
+        # priority, then largest state) until the request's shard — bitset
+        # first, hybrid as the same fallback — fits
+        eligible = sorted(
+            (i for i, (nbytes, prio) in enumerate(actives or ())
+             if prio < priority),
+            key=lambda i: (actives[i][1], -actives[i][0], i))
+        freed, victims = 0, []
+        for i in eligible:
+            freed += actives[i][0]
+            victims.append(i)
+            sub_k = dataclasses.replace(res, memory_bytes=remaining + freed)
+            n_stages, _, shard_bytes = stream_sizing(
+                stats, sub_k, window_epochs=window_epochs)
+            hyb_k = None if window_epochs else hybrid_sizing(stats, sub_k)
+            fit_bytes = None
+            if shard_bytes <= remaining + freed:
+                fit_bytes = shard_bytes
+            elif hyb_k is not None and hyb_k.state_bytes <= remaining + freed:
+                fit_bytes = hyb_k.state_bytes
+            if fit_bytes is not None:
+                return _stamp(Admission(
+                    action="preempt",
+                    plan=plan(stats, sub_k, window_epochs=window_epochs),
+                    state_bytes=fit_bytes, victims=tuple(victims),
+                    reason=(f"preempt: {window}{fit_bytes} B/stage state "
+                            f"fits only after checkpointing {len(victims)} "
+                            f"lower-priority active(s) ({freed} B freed, "
+                            f"priority {priority} over "
+                            f"{[actives[i][1] for i in victims]})")))
+        return Admission(
+            action="queue", plan=None, state_bytes=shard_bytes,
+            reason=(f"{window}state shard needs {shard_bytes} B but "
+                    f"{remaining} B of {res.memory_bytes} B remain (even at "
+                    f"ring width {n_stages}"
+                    + (f", and the {hyb.state_bytes} B hybrid state does not "
+                       f"fit either" if hyb is not None else "")
+                    + (f"; preempting all {len(eligible)} lower-priority "
+                       f"active(s) frees only {freed} B" if eligible else "")
+                    + (f" ({prefetch_bytes} B reserved for the depth-"
+                       f"{prefetch_depth} prefetch pipeline)"
+                       if prefetch_bytes else "")
+                    + ") — queue until an active session closes"))
+    kind = "sharded" if n_stages > 1 else "dense"
+    return _stamp(Admission(
+        action=f"admit-{kind}",
+        plan=plan(stats, sub, window_epochs=window_epochs),
+        state_bytes=shard_bytes,
+        reason=(f"admit-{kind}: {window}{shard_bytes} B/stage state fits the "
+                f"{remaining} B remaining ({bytes_in_use} B already pinned"
+                + (f"; {prefetch_bytes} B reserved for the depth-"
+                   f"{prefetch_depth} prefetch pipeline)" if prefetch_bytes
+                   else ")"))))
+
+
+# --------------------------------------------------------------------------
+# The card's reserve: one ingest's device scratch beside the pinned states
+# --------------------------------------------------------------------------
+# Per-row temporaries of one block's ingest on the card (endpoint keys, the
+# dedup sort, gathered words, the delta's bit indices, phantom edges, the
+# block's own copy): FNA.5's stream of 1,048,576-row blocks peaked 127 MB
+# above its state (chip_smoke.py [stream] on an H100, PR 19), ~121 B a row;
+# budgeted at about twice that.
+_CARD_ROW_BYTES = 256
+# What the card holds outside any session's tensors: the CUDA context, the
+# loaded kernel modules (the port's, cuBLAS's) and the caching allocator's
+# partly used segments (chip_smoke.py [serve streams] prints it).
+_CARD_FIXED_BYTES = 2 << 30
+
+
+def ingest_scratch_bytes(n_nodes: int, plan: Plan) -> int:
+    """Device bytes one ingest of a block under ``plan`` allocates beside
+    the session's state, at the plan's block size rounded up to a power of
+    two (the adaptive sizer's ceiling): what :func:`stream_sizing` leaves
+    out of a stream's ``predicted_bytes``.
+
+    - bitset: the block's (n, ceil(W/S)) delta table (8.73 GB at NY), and
+      for a window every stage's E age-cumulative tables (E·n·W words);
+    - hybrid: the (2B, W) table of the endpoints' pre-block rows, the two
+      block-local packed tables (2B, Wl), one slab of the packing and the
+      (2B, C) gathers of tail buffers;
+    - both: ``_CARD_ROW_BYTES`` of per-row temporaries."""
+    n = max(int(n_nodes), 1)
+    w = -(-n // 32)
+    b = _pow2_at_least(plan.block_size)
+    rows = _CARD_ROW_BYTES * b
+    if plan.state_layout == "hybrid":
+        from repro_torch.core.streaming import _ALOC_WORDS
+
+        wl = -(-min(2 * b, n + 1) // 32)
+        table = 4 * 2 * b * w
+        local = 2 * 4 * 2 * b * wl
+        slab = 4 * min(2 * b * 32 * wl, _ALOC_WORDS)
+        tails = 128 * b * max(plan.tail_capacity, 1)
+        return table + local + slab + tails + rows
+    ws = -(-w // max(plan.n_stages, 1))
+    delta = 4 * n * ws
+    cum = plan.window_epochs * plan.n_stages * 4 * n * ws
+    return delta + cum + rows
+
+
+def prefetch_inflight_bytes(plan: Plan) -> int:
+    """Device bytes of the padded (B, 2) int32 blocks one session holds
+    ahead of its ingest: the ``plan.prefetch_depth`` device-ready blocks of
+    its async pipeline and the block being ingested (a feed of at most one
+    block's rows; a larger feed's further blocks fall under the per-row
+    scratch of :func:`ingest_scratch_bytes`)."""
+    return (plan.prefetch_depth + 1) * _pow2_at_least(plan.block_size) * 2 * 4
+
+
+def card_reserve_bytes(sessions) -> int:
+    """The device bytes a stream multiplexer on the card keeps free beside
+    the pinned states of ``sessions`` — (n_nodes, plan) pairs of the active
+    sessions and the one being admitted, each plan at the block size it
+    runs: the fixed share of the CUDA context and the allocator, the largest
+    :func:`ingest_scratch_bytes` (ingests run one at a time, from one drive
+    thread on one stream, so their scratch is reused, not summed), and every
+    session's :func:`prefetch_inflight_bytes`. The reference admits by state
+    bytes alone; charged only on the card, so CPU verdicts stay the
+    reference's."""
+    pairs = list(sessions)
+    return (_CARD_FIXED_BYTES
+            + max((ingest_scratch_bytes(n, p) for n, p in pairs), default=0)
+            + sum(prefetch_inflight_bytes(p) for _, p in pairs))

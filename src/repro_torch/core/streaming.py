@@ -669,6 +669,62 @@ class BlockBuffer:
             self._owner.release()
 
 
+class AdaptiveBlockSizer:
+    """Grow/shrink the ingest block size from observed wall-clock — the
+    paper's dynamic-pipeline "growing and shrinking" analogue, applied to
+    re-blocking: a block that dispatches too fast is dominated by per-call
+    overhead (grow ×2 to amortize it), one that runs too long hurts latency
+    and working set (shrink ÷2).
+
+    Sizes move in POWER-OF-TWO steps inside ``[lo, hi]`` where ``hi`` is the
+    plan's block size rounded up to a power of two and ``lo`` defaults to
+    ``max(hi // 8, 256)``, so at most ``log2(hi/lo) + 1`` block shapes can
+    ever be proposed. ``observe(n_edges, wall_s)`` feeds one measured
+    ingest; a resize is proposed only after ``patience`` consecutive
+    observations agree (hysteresis). Returns the new size when a change is
+    due, else None. Pure host arithmetic, as in the reference.
+
+    On the card the observed wall is the host's dispatch of the ingest, not
+    its device time (launches are asynchronous), so a block reads as fast
+    and the size stays at ``hi``; no sync is added to make it move."""
+
+    def __init__(self, plan_block_size: int, *, lo: int | None = None,
+                 low_s: float = 2e-3, high_s: float = 20e-3,
+                 patience: int = 3):
+        hi = 1 << max(int(plan_block_size) - 1, 0).bit_length()  # pow2 >= plan
+        self.hi = max(hi, 1)
+        self.lo = max(1, min(lo if lo is not None else max(hi // 8, 256),
+                             self.hi))
+        self.low_s = low_s
+        self.high_s = high_s
+        self.patience = patience
+        self.size = self.hi
+        self._streak = 0  # +k fast observations in a row, -k slow
+
+    def observe(self, n_edges: int, wall_s: float) -> int | None:
+        """One measured ingest of ``n_edges`` rows in ``wall_s`` seconds.
+        Returns the NEW block size when ``patience`` consecutive
+        observations agree a resize helps (the caller applies it through
+        ``BlockBuffer.set_block_size``), else None."""
+        if n_edges <= 0:
+            return None
+        if wall_s < self.low_s and self.size * 2 <= self.hi:
+            self._streak = self._streak + 1 if self._streak > 0 else 1
+            if self._streak >= self.patience:
+                self._streak = 0
+                self.size *= 2
+                return self.size
+        elif wall_s > self.high_s and self.size // 2 >= self.lo:
+            self._streak = self._streak - 1 if self._streak < 0 else -1
+            if -self._streak >= self.patience:
+                self._streak = 0
+                self.size //= 2
+                return self.size
+        else:
+            self._streak = 0
+        return None
+
+
 def padded_blocks(blocks, n_nodes: int, block_size: int | None = None, *, device=None):
     """Normalize an iterable of (B, 2) edge blocks to ONE fixed block shape
     (the pull-based rendering of :class:`BlockBuffer` — see it for the shape

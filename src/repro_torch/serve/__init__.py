@@ -1,3 +1,14 @@
-from repro_torch.serve.serve_loop import LMServer, ServeConfig, TriangleServeConfig, TriangleServer
+"""Serving loops: the LM server and the triangle-counting server.
 
-__all__ = ["LMServer", "ServeConfig", "TriangleServeConfig", "TriangleServer"]
+``serve_loop`` holds the batched request servers (``LMServer``,
+``TriangleServer``); ``sessions`` holds the concurrent multi-stream
+machinery — ``StreamMultiplexer`` (the preemptible fair-share scheduler
+over ``api.StreamSession``) and ``CheckpointStore`` (its bounded host/disk
+parking lot for preempted sessions' checkpoints). The cluster tier
+(``ClusterServer``, router and workers) is ROADMAP.md queue A item 4.
+"""
+from repro_torch.serve.serve_loop import LMServer, ServeConfig, TriangleServeConfig, TriangleServer
+from repro_torch.serve.sessions import CheckpointStore, StreamMultiplexer
+
+__all__ = ["CheckpointStore", "LMServer", "ServeConfig", "StreamMultiplexer",
+           "TriangleServeConfig", "TriangleServer"]

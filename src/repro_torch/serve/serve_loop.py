@@ -11,9 +11,12 @@ pad mask in the step functions), so a mixed-length batch is approximate,
 exactly as in the reference: a deployment would bucket requests by length
 or add a pad mask.
 
-Streaming sessions (``open_stream``/``feed``/``serve_streams`` and the
-multiplexer behind them) come with the port's serving slice (ROADMAP.md,
-queue A)."""
+The triangle server also serves streams: ``open_stream``/``feed``/
+``close_stream`` (and ``serve_streams``, many at once) ride
+``serve.sessions.StreamMultiplexer`` — planner admission, preemption,
+deadlines, bounded backpressure and, with ``prefetch_depth=K``, background
+re-blocking. The multi-host ``ClusterServer`` comes with the cluster tier
+(ROADMAP.md, queue A item 4)."""
 from __future__ import annotations
 
 import dataclasses
@@ -86,17 +89,36 @@ class TriangleServer:
     node bucket and counted with ONE batched live-grid kernel launch per
     group (``count_batch``, executed under the group's planner plan so the
     backend decision survives batching); everything else runs its
-    planner-chosen path individually. Results come back as per-request
-    ``CountResult``s in request order — counts stay device tensors, so an
-    aggregating caller syncs once, not per request.
+    planner-chosen path individually.
+
+    STREAMING requests (the paper's not-memory-resident regime) run as
+    sessions on the server's :class:`~repro_torch.serve.sessions.
+    StreamMultiplexer` (``self.streams``), over the same counter:
+    ``open_stream`` → ``feed`` → ``close_stream``, ``serve_streams`` many
+    at once round-robin, ``serve_stream`` one. Admission is the planner's
+    budget (``admit_session``; on the card less the ingest scratch the
+    multiplexer reserves): sessions that would overcommit
+    ``Resources.memory_bytes`` queue host-side, and the scheduler is
+    preemptible (``priority=``, ``deadline_s=``, ``preempt_stream``, bounded
+    queue/checkpoint budgets that raise ``BackpressureError``).
+    ``prefetch_depth=K`` gives every session an async prefetch pipeline and
+    ``adaptive_block`` lets it resize blocks from the ingest's host wall.
+    Results come back as per-request ``CountResult``s in request order —
+    counts stay device tensors, so an aggregating caller syncs once, not per
+    request.
     """
 
     def __init__(self, resources=None, serve_cfg: TriangleServeConfig | None = None,
-                 *, device=None):
+                 *, device=None, prefetch_depth: int | None = None,
+                 adaptive_block: bool = False):
         from repro_torch.api import TriangleCounter
+        from repro_torch.serve.sessions import StreamMultiplexer
 
         self.counter = TriangleCounter(resources, device=device)
         self.cfg = serve_cfg or TriangleServeConfig()
+        self.streams = StreamMultiplexer(self.counter,
+                                         prefetch_depth=prefetch_depth,
+                                         adaptive_block=adaptive_block)
 
     def serve(self, graphs: list) -> list:
         from repro_torch.api import CountResult, bucket
@@ -129,3 +151,70 @@ class TriangleServer:
                                "batch_wall_s": rb.wall_s},
                     )
         return results
+
+    # -- streaming sessions ------------------------------------------------
+    def open_stream(self, n_nodes: int, *, block_size: int | None = None,
+                    window: int | None = None, priority: int = 0,
+                    deadline_s: float | None = None) -> int:
+        """Open one streaming session on the server's multiplexer; returns
+        its session id (admitted, queued, or admitted by preempting
+        strictly-lower-priority actives). ``window=E`` opens a
+        sliding-window session; ``priority`` ranks it for fair-share
+        scheduling; ``deadline_s`` reaps it if idle that long."""
+        return self.streams.open(n_nodes, block_size=block_size, window=window,
+                                 priority=priority, deadline_s=deadline_s)
+
+    def feed(self, sid: int, edges) -> None:
+        """Feed one (B, 2) edge block to an open session (the current epoch
+        for windowed sessions)."""
+        self.streams.feed(sid, edges)
+
+    def advance_stream(self, sid: int) -> None:
+        """Slide a windowed session's window one epoch (buffered as an epoch
+        marker while the session waits)."""
+        self.streams.advance(sid)
+
+    def preempt_stream(self, sid: int) -> None:
+        """Park an ACTIVE session's device state host-side; it readmits when
+        budget frees, and ``close_stream`` on it restores first so the count
+        is exact."""
+        self.streams.preempt(sid)
+
+    def stream_status(self, sid: int) -> str:
+        """``"active"`` / ``"queued"`` / ``"preempted"`` / ``"closed"``."""
+        return self.streams.status(sid)
+
+    def close_stream(self, sid: int):
+        """Finalize a session; returns its ``CountResult`` (idempotent;
+        cancels a never-admitted session, restores a preempted one)."""
+        return self.streams.close(sid)
+
+    def serve_streams(self, requests, *, block_size: int | None = None) -> list:
+        """Serve many streaming requests CONCURRENTLY: ``requests`` is a list
+        of ``(n_nodes, blocks-iterable)`` pairs; block ingest is interleaved
+        round-robin across every session in request order (queued sessions
+        buffer host-side). Sessions are closed in request order once the
+        interleave finishes, so freed state admits queued requests FIFO.
+        Returns per-request ``CountResult``s in request order, bit-identical
+        to running each request through ``serve_stream`` alone."""
+        its = [iter(blocks) for _, blocks in requests]
+        sids = [self.streams.open(n, block_size=block_size)
+                for n, _ in requests]
+        live = set(range(len(requests)))
+        while live:
+            for i in sorted(live):
+                try:
+                    block = next(its[i])
+                except StopIteration:
+                    live.discard(i)
+                    continue
+                self.streams.feed(sids[i], block)
+        return [self.streams.close(sid) for sid in sids]
+
+    def serve_stream(self, n_nodes: int, blocks, *,
+                     block_size: int | None = None):
+        """Serve ONE streaming request (an iterable of (B, 2) edge blocks):
+        a one-session wrapper over the multiplexer; the planner sizes the
+        block from the server's resources."""
+        return self.serve_streams([(n_nodes, blocks)],
+                                  block_size=block_size)[0]

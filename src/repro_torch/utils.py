@@ -1,5 +1,8 @@
-"""Small shared utilities: the count dtype and device resolution."""
+"""Small shared utilities: the count dtype, device resolution and the
+serving tier's exception-propagating thread."""
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -22,3 +25,23 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the host")
     return dev
+
+
+class PropagatingThread(threading.Thread):
+    """``threading.Thread`` that re-raises the target's exception on
+    ``join()`` instead of letting it die with the thread, so a failed
+    producer in the serving tier is never a silent no-op (repro-lint R5
+    requires this class for every thread under ``serve/``)."""
+
+    def run(self):
+        self._exc = None
+        try:
+            super().run()
+        except BaseException as e:  # re-raised on join — nothing is lost
+            self._exc = e
+
+    def join(self, timeout=None):
+        super().join(timeout)
+        exc, self._exc = getattr(self, "_exc", None), None
+        if exc is not None:
+            raise exc

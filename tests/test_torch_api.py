@@ -226,6 +226,9 @@ def test_import_repro_torch_pulls_in_neither_jax_nor_repro():
         "ck = SessionCheckpoint.from_file(ck.path)\n"
         "assert c.restore_stream(ck).finalize().item() == 2\n"
         "assert c.count_stream(4, [e]).item() == 2\n"
+        "from repro_torch.serve import TriangleServer\n"
+        "srv = TriangleServer(device='cpu', prefetch_depth=2)\n"
+        "assert [r.item() for r in srv.serve_streams([(4, [e]), (4, [e[:3]])])] == [2, 1]\n"
         "import torch\n"
         "from repro_torch.configs import get_config, get_smoke\n"
         "from repro_torch.models import transformer as tf\n"

@@ -53,7 +53,7 @@ from repro_torch.kernels.triangle_count.ref import (  # noqa: E402
     masked_matmul_sum_ref,
     triangle_count_ref,
 )
-from repro_torch.serve import TriangleServer  # noqa: E402
+from repro_torch.serve import StreamMultiplexer, TriangleServer  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -486,6 +486,121 @@ def test_hybrid_ingest_never_waits_for_the_card(cuda):
     assert streaming.hybrid_lost(state) == 0
     cpu = streaming.count_stream(5000, [edges], block_size=8192, device="cpu")
     assert int(state["count"]) == cpu
+
+
+# --------------------------------------------------------------------------
+# The serving tier's streams on the card (StreamMultiplexer)
+# --------------------------------------------------------------------------
+def _stream_requests(seed, block):
+    out = []
+    for i, (n, d) in enumerate(((3000, 8), (2000, 6), (1200, 10))):
+        g = gen.powerlaw(n, d, seed=seed + i)
+        e = _shuffled(g, seed + i)
+        out.append((g, [e[j:j + block] for j in range(0, len(e), block)]))
+    return out
+
+
+def test_multiplexer_streams_on_the_card_equal_the_cpu_port(cuda):
+    """Interleaved sessions on the card, synchronous and with
+    ``prefetch_depth=2`` (the producer thread's pinned copies on the default
+    stream), count what the CPU port counts, K3 and K4 twice a block."""
+    reqs = _stream_requests(11, 1777)
+    cpu = [r.item() for r in TriangleServer(device="cpu").serve_streams(
+        [(g.n_nodes, bs) for g, bs in reqs], block_size=2048)]
+    for depth in (None, 2):
+        before = launch_counts()
+        server = TriangleServer(device=cuda, prefetch_depth=depth)
+        res = server.serve_streams([(g.n_nodes, bs) for g, bs in reqs], block_size=2048)
+        after = launch_counts()
+        assert [r.item() for r in res] == cpu
+        assert all(r.count.device.type == "cuda" for r in res)
+        blocks = sum(r.stats["n_blocks"] for r in res)
+        for name in ("bitset_edge_count", "bitset_pair_count"):
+            assert after[name] - before[name] == 2 * blocks, (name, depth)
+        assert server.streams.bytes_in_use == 0
+
+
+def test_preempted_session_restores_bit_identically_on_the_card(cuda):
+    """A priority-1 open preempts a priority-0 session on the card; parked
+    on the host and readmitted when the priority-1 session closes, its
+    state arrays equal (on the card) those of a session fed the same edges
+    without a break, sync and async alike."""
+    from repro_torch.api import card_reserve_bytes
+
+    g = gen.powerlaw(3000, 8, seed=21)
+    e = _shuffled(g, 21)
+    half = len(e) // 2
+    n, w = g.n_nodes, -(-g.n_nodes // 32)
+    run = Plan(method="stream", block_size=2048)
+    want = TriangleCounter(Resources(), device="cpu").count(g).item()
+    for depth in (None, 2):
+        reserve = card_reserve_bytes(
+            [(n, dataclasses.replace(run, prefetch_depth=depth or 0))] * 3)
+        # room for two states beside the reserve, and the planner's own
+        # charge for a depth-K pipeline at its smallest block
+        charge = 2 * (depth or 0) * 4096 * 2 * 4
+        budget = Resources(memory_bytes=reserve + 2 * 4 * n * w + charge + 4096,
+                           backend="cuda")
+        mux = StreamMultiplexer(TriangleCounter(budget, device=cuda), block_size=2048,
+                                prefetch_depth=depth)
+        victim, kept = mux.open(n), mux.open(n)
+        for sid in (victim, kept):
+            mux.feed(sid, e[:half])
+        hi = mux.open(n, priority=1)
+        assert [mux.status(s) for s in (victim, kept, hi)] == ["preempted", "active", "active"]
+        assert mux.store.where(victim) == "host"
+        for sid in (victim, kept):
+            mux.feed(sid, e[half:])  # the victim's feed waits on the host
+        mux.feed(hi, e)
+        assert mux.close(hi).item() == want
+        assert mux.status(victim) == "active"
+        for sid in (victim, kept):
+            mux.checkpoint(sid)  # drains a prefetch pipeline
+        a, b = mux._recs[victim].session.state, mux._recs[kept].session.state
+        assert a["adj"].device.type == "cuda"
+        assert all(torch.equal(a[k], b[k]) for k in a) and sorted(a) == sorted(b)
+        r = mux.close(victim)
+        assert r.item() == mux.close(kept).item() == want
+        assert r.stats["restored"] and r.stats["preempts"] == 1
+
+
+def test_card_reserve_keeps_a_card_budget_from_over_admitting(cuda):
+    """With room for 3.5 states by state bytes alone (where the reference's
+    admission takes three bitset sessions and then hybrid ones), the card's
+    reserve admits 2; feeding them never allocates more than the reserve's
+    scratch above the states."""
+    from repro_torch.api import admit_session, card_reserve_bytes
+    from repro_torch.api import planner
+
+    n, block = 20_000, 4096
+    state = 4 * n * (-(-n // 32))
+    budget = Resources(memory_bytes=planner._CARD_FIXED_BYTES + int(3.5 * state),
+                       backend="cuda")
+    plain = Resources(memory_bytes=int(3.5 * state), backend="cuda")
+    assert admit_session(n, plain, bytes_in_use=2 * state).action == "admit-dense"
+    mux = StreamMultiplexer(TriangleCounter(budget, device=cuda), block_size=block)
+    sids = []
+    while not sids or mux.status(sids[-1]) == "active":
+        sids.append(mux.open(n))
+    active = [s for s in sids if mux.status(s) == "active"]
+    assert len(active) == 2
+    plans = [(n, mux._recs[s].plan) for s in active]
+    assert mux.bytes_in_use + mux.reserve_bytes == 2 * state + card_reserve_bytes(plans) \
+        <= budget.memory_bytes
+    rng = np.random.default_rng(3)
+    edges = rng.integers(0, n, size=(60_000, 2)).astype(np.int32)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for sid in active:
+        for i in range(0, len(edges), block):  # a block a feed, as the reserve counts
+            mux.feed(sid, edges[i:i + block])
+    torch.cuda.synchronize()
+    transient = torch.cuda.max_memory_allocated() - base
+    assert 0 < transient <= max(planner.ingest_scratch_bytes(n, p) for _, p in plans) \
+        + sum(planner.prefetch_inflight_bytes(p) for _, p in plans)
+    counts = [mux.close(s).item() for s in sids]
+    assert counts[0] == counts[1] > 0
 
 
 # --------------------------------------------------------------------------

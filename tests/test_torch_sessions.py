@@ -401,7 +401,7 @@ def test_checkpoint_that_contradicts_the_device_is_refused(tmp_path):
     assert c.cache_info["entries"] == 0
 
 
-def test_hybrid_plans_are_refused_until_the_hybrid_state_is_ported():
+def test_hybrid_plans_count_through_every_stream_route():
     """The hybrid state is ported: each route that refused a hybrid plan
     before (``open_stream``, ``count_stream``, ``count`` with a hybrid
     plan) now counts through it, to the reference's count. The planner
