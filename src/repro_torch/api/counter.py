@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import inspect
 import json
 import os
 import time
@@ -831,23 +830,15 @@ def count_triangles(g, *, method: str = "auto", counter: TriangleCounter | None 
     planner, any other method (``dense``, ``sparse``, ``ring``, ``bitset``,
     ``mapreduce``) is forced. ``counter`` defaults to
     :func:`default_counter` of ``device``; keyword arguments are plan
-    fields. Other keywords fall through to the ring entry points that take
-    them (``count_triangles_ring`` / ``count_triangles_bitset_ring``, e.g.
-    ``sequential=``), as in the reference; the rest raise ``TypeError`` —
-    ``mesh=`` among them until the multi-device rings (ROADMAP.md, queue A
-    item 5)."""
+    fields. Any other keyword raises ``TypeError`` — the reference's legacy
+    ring kwargs (``mesh=``, ``sequential=``) among them until the
+    multi-device rings (ROADMAP.md, queue A item 5)."""
     c = counter or default_counter(device)
     if method == "auto":
         return c.count(g).item()
     method = _METHOD_ALIASES.get(method, method)
     unknown = set(kw) - _PLAN_KWARGS
     if unknown:
-        from repro_torch.core import triangle_pipeline as tp
-
-        legacy = {"ring": tp.count_triangles_ring,
-                  "bitset_ring": tp.count_triangles_bitset_ring}.get(method)
-        if legacy is not None and set(kw) <= set(inspect.signature(legacy).parameters):
-            return int(legacy(g, device=c.device, **kw))
         raise TypeError(f"unsupported kwargs {sorted(unknown)} for method {method!r}")
     fields = {**backend_exec_flags(c.resources), **kw}
     p = Plan(method=method, reason=f"fixed method={method!r} via count_triangles",

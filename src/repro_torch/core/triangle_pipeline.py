@@ -111,12 +111,8 @@ def build_dense_ring_operands(
 
 
 def count_triangles_ring(g: Graph, *, n_stages: int | None = None,
-                         balance: bool = True, sequential: bool = False,
-                         device=None) -> int:
-    """Dense count through the stage chain (one device). ``sequential`` is
-    the reference's switch between its mesh ring and the chain: the port
-    has no mesh yet (ROADMAP.md, queue A item 5), so the chain runs either
-    way, as the reference's does without a mesh."""
+                         balance: bool = True, device=None) -> int:
+    """Dense count through the stage chain (one device)."""
     n_stages = n_stages or 1
     part, blocks = build_dense_ring_operands(g, n_stages, balance=balance,
                                              device=device)
@@ -186,10 +182,7 @@ def build_bitset_ring_operands(
 
 
 def count_triangles_bitset_ring(g: Graph, *, n_stages: int | None = None,
-                                balance: bool = True, sequential: bool = False,
-                                device=None) -> int:
-    """Bitset-ring count through the stage chain (one device); see
-    :func:`count_triangles_ring` for ``sequential``."""
+                                balance: bool = True, device=None) -> int:
     n_stages = n_stages or 1
     part, masks, edges = build_bitset_ring_operands(g, n_stages, balance=balance,
                                                     device=device)

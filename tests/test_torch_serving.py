@@ -1090,7 +1090,11 @@ def test_card_admission_charges_the_ingest_reserve_cpu_does_not(monkeypatch):
 # --------------------------------------------------------------------------
 # The count_triangles shim, default_counter, utilities
 # --------------------------------------------------------------------------
-def test_count_triangles_shares_the_default_counter_and_falls_through():
+def test_count_triangles_shares_the_default_counter_and_refuses_other_kwargs():
+    """The shim keeps one counter per device, takes plan fields, and
+    raises ``TypeError`` for every other keyword: the reference's legacy
+    ring kwargs have nowhere to go until the multi-device rings
+    (ROADMAP.md, queue A item 5)."""
     g = graph_from_arrays(60, gen.gnp(60, 0.4, seed=4).edges)
     want = count_triangles_brute(gen.gnp(60, 0.4, seed=4))
     c = default_counter("cpu")
@@ -1098,13 +1102,11 @@ def test_count_triangles_shares_the_default_counter_and_falls_through():
     uses = sum(c._seen.values())
     assert count_triangles(g, device="cpu") == want
     assert count_triangles(g, method="dense", device="cpu") == want
-    assert sum(c._seen.values()) == uses + 2
-    # the reference's legacy kwargs reach the ring entry points that take them
-    assert count_triangles(g, method="ring", sequential=True, n_stages=2,
-                           device="cpu") == want
-    assert count_triangles(g, method="bitset", sequential=False, device="cpu") == want
-    with pytest.raises(TypeError, match="sequential"):
-        count_triangles(g, method="sparse", sequential=True, device="cpu")
+    assert count_triangles(g, method="ring", n_stages=2, device="cpu") == want
+    assert sum(c._seen.values()) == uses + 3
+    for method in ("ring", "bitset", "sparse"):
+        with pytest.raises(TypeError, match="sequential"):
+            count_triangles(g, method=method, sequential=True, device="cpu")
 
 
 def test_mesh_kwarg_raises_until_the_multi_device_rings():
