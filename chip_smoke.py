@@ -72,8 +72,31 @@
    clock (parked, a late exact close, then cancelled); (e) a YT-size
    session admitted as hybrid and counted to [hybrid]'s count with one K5,
    two K4 and one K3 a block (or, should its plan lose endpoints, the
-   exact-count refusal raising).
-7. [lm] Yi-6B at full width and depth (32 layers, d_model 4,096, 32/4
+   exact-count refusal raising); (f) on a multiplexer over a one-card mesh
+   of ``MESH_STAGES`` stages, NY-size sessions opened until one queues and
+   then a seeded mixed order of priority-0 and priority-1 opens,
+   preemptions and closes — mesh sessions (bitsets admitted whole, sharded
+   over the stages), hybrid ones and plain bitsets admitted by preemption —
+   every active session fed a block after each change, no out-of-memory
+   error.
+7. [ring mesh] The dynamic pipeline's ring on ``make_ring_mesh(4,
+   devices=[cuda:0] * 4)``, each stage on its own CUDA stream: (a)
+   ``TriangleCounter(mesh=)`` with ring and bitset_ring forced on every
+   graph where [compare] forces them, each count repeated 20 times back to
+   back, all equal to ``run_sequential``'s and the resident count, S² K2 or
+   K3 launches a count; the pipeline alone 20 times queued without a
+   synchronisation; FNA.5's and FB107x9's walls at S = 2, 4, 8 beside the
+   stage chain's (printed, no claim); (b) ``TriangleServer(mesh=)``'s
+   ``serve_streams`` of FNA.5, NY and FB107x9 on four-stage mesh sessions
+   (counts = resident, ``on_mesh``, K3 and K4 twice a shard a block), and
+   the same interleave by hand with every shard ``torch.equal`` to the
+   emulated sharded state fed the same blocks (NY: 8.73 GB in four 2.18 GB
+   shards); (c) FB107x9's window of 4 over 8 epochs on the mesh equal to
+   [stream]'s; (d) a mesh checkpoint restored on an emulated counter and
+   the reverse, bit-identical to an uninterrupted session, no new ingest
+   key; (e) the multiplexer on the one-card mesh charging NY's four shards
+   in full, beside ``admit_session``'s verdicts.
+8. [lm] Yi-6B at full width and depth (32 layers, d_model 4,096, 32/4
    heads, d_ff 11,008, vocab 64,000; f32 weights drawn on the card from a
    seeded generator): ``LMServer.generate`` on 8 seeded prompts of 256 to
    1,024 tokens, 4 to a batch, 32 new tokens each; the same batches through
@@ -91,12 +114,12 @@
    prefill's distance (FlashAttention's own accuracy test); their distance
    from the chunked prefill's is printed against 2e-2 of the largest logit,
    and where the two paths part, layer by layer.
-8. [recsys] AutoInt at its full config (3.9M-row table): ``ctr_logits`` and
+9. [recsys] AutoInt at its full config (3.9M-row table): ``ctr_logits`` and
    ``retrieval_scores`` (100,000 candidates) on 16,384 seeded rows, and
    ``lookup_multihot(use_kernel=True)`` (K7) on 16,384 × 39 bags of 8 ids
    against ``use_kernel=False``; the smoke config on the card against the
    CPU port.
-9. Profiles one planner-chosen count of FNA.5 and of NY, one planner-chosen
+10. Profiles one planner-chosen count of FNA.5 and of NY, one planner-chosen
    ``count_stream`` of NY and of YT, (a)'s interleaved ``serve_streams``, and
    one Yi-6B flash prefill plus 32 decode steps in f32 and in bf16, with
    ``torch.profiler``: host wall,
@@ -107,7 +130,7 @@
    host-to-device copy row for each count); an inconsistent one is profiled
    again with four times the markers, and the third raises.
 
-Phases 2 to 8 are the main path: every kernel's launch count is set to 0
+Phases 2 to 9 are the main path: every kernel's launch count is set to 0
 before them and must be above 0 after them. Any mismatch or exception exits
 non-zero. The last three lines are the ``kernels`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Imports nothing
@@ -202,6 +225,15 @@ LOGITS_REL = {"float32": 1e-3, "bfloat16": 2e-2}
 # (the bitset ingest's (n, W) delta table is the same at any block; the
 # hybrid sessions' block-local packing grows with B²)
 SERVE_BLOCK = 8192
+# [ring mesh]: the stages of the mesh, all on the one card
+MESH_STAGES = 4
+# [ring mesh] (a) repeats each resident mesh count this many times back to
+# back, with no synchronisation between them: a missing event between the
+# stages' streams shows as counts that differ
+MESH_REPEATS = 20
+# [ring mesh] (a) prints the walls of the mesh and of the stage chain at
+# these ring widths (the paper's Figures 12-13 question, on one card)
+MESH_WIDTHS = (2, 4, 8)
 # YT: SNAP com-Youtube's size (n nodes, m edge draws), the edges drawn by a
 # Chung-Lu power law (the reference's tests/test_hybrid_stream.py generator)
 YT = dict(n=1_134_890, m=2_987_624, alpha=0.85, seed=0)
@@ -551,6 +583,17 @@ def check_kernels(graphs: dict) -> dict:
         err = max(err, agree("bitset_pair_count", tuple(shape),
                              bitset_pair_count(x, y, ek), bitset_pair_count_ref(x, y, ek)))
     n, w = adj.shape
+    # the mesh ingest's shard of the same block ([ring mesh] (b)): stage 1
+    # of MESH_STAGES owns words [ws, 2·ws) of every row, and K3 and K4 run
+    # on that (n, ws) slice
+    ws = -(-w // MESH_STAGES)
+    a1, d1 = adj[:, ws:2 * ws].contiguous(), delta[:, ws:2 * ws].contiguous()
+    shard = ("NY shard 1 of", MESH_STAGES, n, ws) + tuple(ek.shape)
+    agree("bitset_edge_count", shard, bitset_edge_count(a1, ek), bitset_edge_count_ref(a1, ek))
+    for x, y in ((a1, d1), (d1, a1)):
+        err = max(err, agree("bitset_pair_count", shard, bitset_pair_count(x, y, ek),
+                             bitset_pair_count_ref(x, y, ek)))
+    del a1, d1
     real = int((ek[:, 0] < n).sum())
     words = real * w
     log(f"  bitset_pair_count bound inputs: {real} real edges of {ek.shape[0]}, W={w}")
@@ -1058,8 +1101,8 @@ def stream_phase(graphs: dict) -> list:
         epochs = np.array_split(g.edges[rng.permutation(g.n_edges)], n_epochs)
         k0 = launch_counts()
         t0 = time.perf_counter()
-        r = counter.count_windowed(g.n_nodes, [ragged(ep, rng, 20_000) for ep in epochs],
-                                   window=window)
+        feeds = [ragged(ep, rng, 20_000) for ep in epochs]
+        r = counter.count_windowed(g.n_nodes, feeds, window=window)
         c = r.item()
         wall = time.perf_counter() - t0
         k1 = launch_counts()
@@ -1070,6 +1113,7 @@ def stream_phase(graphs: dict) -> list:
             raise AssertionError(f"{name}: window count {c} != resident recount {want}")
         check_stream_launches(f"{name} count_windowed", k0, k1, r.stats["n_blocks"],
                               window + 1, 2 * window)
+        graphs.setdefault("_windowed", {})[name] = (feeds, c)  # [ring mesh] (c)
         log(f"  count_windowed {name:8s} window={window} of {n_epochs} epochs: "
             f"count={c} (resident bitset-ring recount {want}) blocks={r.stats['n_blocks']} "
             f"of {r.stats['block_size']} wall={wall * 1e3:.3f} ms")
@@ -1614,11 +1658,388 @@ def serve_streams_phase(graphs: dict) -> dict:
     del mux
     gc.collect()
     torch.cuda.empty_cache()
+    summary["f"] = mixed_admission(graphs, res)
+    return summary
+
+
+def mixed_admission(graphs: dict, res) -> dict:
+    """[serve streams] (f): NY-size sessions opened on a multiplexer over a
+    one-card mesh of ``MESH_STAGES`` stages until one queues, then a seeded
+    mixed order of opens (priority 0 and 1), preemptions and closes; after
+    every change each active session is fed one block of ``SERVE_BLOCK``
+    rows of its own cursor into NY's shuffled edges. The sessions are mesh
+    (bitsets admitted whole, sharded over the stages), hybrid, and plain
+    bitset (admitted by preemption). An out-of-memory error raises; the
+    pinned bytes and the reserve stay within the budget after every
+    change."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import TriangleCounter
+    from repro_torch.launch import make_ring_mesh
+    from repro_torch.serve import StreamMultiplexer
+
+    ny = graphs["NY"]
+    n = ny.n_nodes
+    mesh = make_ring_mesh(MESH_STAGES, devices=[torch.device(DEVICE, 0)] * MESH_STAGES)
+    mux = StreamMultiplexer(TriangleCounter(res, device=DEVICE, mesh=mesh),
+                            block_size=SERVE_BLOCK)
+    rng = np.random.default_rng(24)
+    edges = ny.edges[rng.permutation(ny.n_edges)]
+    cursor, kinds, log_ops = {}, set(), []
+    torch.cuda.reset_peak_memory_stats()
+
+    def changed(op: str) -> None:
+        if mux.bytes_in_use + mux.reserve_bytes > res.memory_bytes:
+            raise AssertionError(f"(f) after {op}: {mux.bytes_in_use} B pinned + "
+                                 f"{mux.reserve_bytes} B reserve past the budget")
+        for sid in list(mux._recs):
+            if mux.status(sid) != "active":
+                continue
+            p = mux._recs[sid].plan
+            kinds.add((p.state_layout, p.n_stages))
+            pos = cursor.get(sid, 0)
+            mux.feed(sid, edges[pos:pos + SERVE_BLOCK])
+            cursor[sid] = (pos + SERVE_BLOCK) % len(edges)
+        log_ops.append(op)
+
+    sids = []
+    t0 = time.perf_counter()
+    while not sids or mux.status(sids[-1]) == "active":
+        sids.append(mux.open(n))
+        changed("open")
+    filled = len(sids) - 1
+    order = ["open1"] + list(rng.permutation(
+        ["open1", "preempt", "close", "close", "close", "open0", "open0"]))
+    for op in order:
+        live = [s for s in sids if mux.status(s) != "closed"]
+        active = [s for s in live if mux.status(s) == "active"]
+        if op.startswith("open"):
+            sids.append(mux.open(n, priority=int(op[-1])))
+        elif op == "preempt":
+            mux.preempt(active[int(rng.integers(len(active)))])
+        else:
+            mux.close(live[int(rng.integers(len(live)))])
+        changed(op)
+    # parked and queued sessions first: their closes free no device memory,
+    # so nothing is restored only to be closed
+    for sid in sorted(sids, key=lambda s: mux.status(s) == "active"):
+        if mux.status(sid) != "closed":
+            mux.close(sid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    want = {("bitset", MESH_STAGES), ("hybrid", 1), ("bitset", 1)}
+    if not want <= kinds:
+        raise AssertionError(f"(f) session kinds {sorted(kinds)} lack {sorted(want - kinds)}")
+    log(f"  (f) mixed order on a {MESH_STAGES}-stage one-card mesh: {filled} NY-size "
+        f"sessions admitted before one queued, then {' '.join(order)}, one block fed to "
+        f"every active session after each change; kinds (layout, stages) "
+        f"{sorted(kinds)}; sched {mux.sched_stats}; peak allocated {peak} B of the "
+        f"{res.memory_bytes} B budget; no out-of-memory error; {wall:.1f} s")
+    out = dict(filled=filled, order=order, kinds=sorted(kinds), peak_bytes=peak,
+               sched=mux.sched_stats, wall_s=wall)
+    del mux
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# Phase 7: the dynamic pipeline's ring on a mesh of one card's streams
+# --------------------------------------------------------------------------
+def ring_operands(g, method: str, n_stages: int):
+    """(spec, resident, stream) of a forced ``method`` ring over
+    ``n_stages`` stages, padded as ``TriangleCounter`` pads them."""
+    from repro_torch.api import bucket
+    from repro_torch.core.triangle_pipeline import (
+        bitset_ring_spec,
+        build_bitset_ring_operands,
+        build_dense_ring_operands,
+        dense_ring_spec,
+    )
+
+    pad_to = bucket(max(-(-g.n_nodes // n_stages), 1), minimum=8)
+    if method == "ring":
+        part, blocks = build_dense_ring_operands(g, n_stages, pad_to=pad_to, device=DEVICE)
+        return dense_ring_spec(part.rows_per_stage), blocks, blocks
+    edge_block = bucket(max(-(-g.n_edges // n_stages), 1), minimum=128)
+    _, masks, edges = build_bitset_ring_operands(g, n_stages, pad_to=pad_to,
+                                                 edge_block=edge_block, device=DEVICE)
+    return bitset_ring_spec(), masks, edges
+
+
+def stream_plan(n: int, res, n_stages: int, window: int = 0):
+    """The planner's stream plan for ``n`` nodes under ``res``, at
+    ``n_stages`` stages."""
+    from repro_torch.api import GraphStats, plan
+
+    stats = GraphStats(n_nodes=n, n_edges=0, replication_factor=0, max_degree=0,
+                       max_fwd_degree=0, edges_in_memory=False)
+    return dataclasses.replace(plan(stats, res, window_epochs=window), n_stages=n_stages)
+
+
+def ring_mesh_phase(graphs: dict) -> dict:
+    """[ring mesh]: the dynamic pipeline's ring and the mesh ingests on a
+    mesh of ``MESH_STAGES`` stages of the one card, each stage on its own
+    CUDA stream (module docstring, 7). Returns the summary."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import GraphStats, Resources, TriangleCounter, admit_session, plan
+    from repro_torch.core import streaming
+    from repro_torch.core.dynamic_pipeline import DynamicPipeline, run_sequential
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import make_ring_mesh
+    from repro_torch.serve import StreamMultiplexer, TriangleServer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    S = MESH_STAGES
+    card = torch.device(DEVICE, 0)
+    mesh = make_ring_mesh(S, devices=[card] * S)
+    detected = Resources.detect(DEVICE)
+    summary = {}
+    k_phase = launch_counts()
+
+    # (a) the resident rings, forced as [compare] forces them
+    res = dataclasses.replace(detected, max_stages=S)
+    meshed, chain = TriangleCounter(res, device=DEVICE, mesh=mesh), TriangleCounter(res, device=DEVICE)
+    kernel = {"ring": "masked_matmul_sum", "bitset_ring": "bitset_edge_count"}
+    rows, walls = [], []
+    for name in GRAPHS:
+        g = graphs[name]
+        want = graphs["_served"][name]
+        stats = GraphStats.from_graph(g)
+        for method in ("ring", "bitset_ring"):
+            p = plan(stats, res, allow={method})
+            if p.predicted_bytes > res.memory_bytes:
+                log(f"  (a) {name:8s} {method:11s} does not fit, as in [compare]")
+                continue
+            if p.n_stages != S or not meshed.mesh_matches(p.n_stages):
+                raise AssertionError(f"(a) {name} {method}: a plan of {p.n_stages} stages")
+            r_chain = chain.count(g, plan=p)
+            k0 = launch_counts()
+            outs, wall = timed_sync(lambda: [meshed.count(g, plan=p)
+                                             for _ in range(MESH_REPEATS)])
+            k1 = launch_counts()
+            counts = [o.item() for o in outs]
+            launched = k1[kernel[method]] - k0[kernel[method]]
+            if set(counts) != {want} or r_chain.item() != want:
+                raise AssertionError(f"(a) {name} {method}: mesh counts {sorted(set(counts))}, "
+                                     f"chain {r_chain.item()}, resident {want}")
+            if launched != MESH_REPEATS * S * S:
+                raise AssertionError(f"(a) {name} {method}: {kernel[method]} launched "
+                                     f"{launched} times, not {MESH_REPEATS} x {S * S}")
+            if outs[0].stats["cache"]["key"] != r_chain.stats["cache"]["key"]:
+                raise AssertionError(f"(a) {name} {method}: the mesh's cache key differs")
+            del outs
+            # the pipeline alone on the counter's operands, MESH_REPEATS runs
+            # queued back to back (the counter's own upload waits for the card)
+            spec, resident, stream = ring_operands(g, method, S)
+            pipe = DynamicPipeline(mesh)
+            totals, pipe_wall = timed_sync(lambda: [pipe.run(spec, resident, stream)
+                                                    for _ in range(MESH_REPEATS)])
+            if {int(t) for t in totals} != {want}:
+                raise AssertionError(f"(a) {name} {method}: queued pipeline runs counted "
+                                     f"{sorted({int(t) for t in totals})}, not {want}")
+            row = dict(graph=name, method=method, count=want,
+                       count_ms=wall * 1e3 / MESH_REPEATS,
+                       pipeline_ms=pipe_wall * 1e3 / MESH_REPEATS, launches=launched)
+            rows.append(row)
+            log(f"  (a) {name:8s} {method:11s} S={S}: {MESH_REPEATS} mesh counts = chain = "
+                f"resident {want}; {kernel[method]} {launched} = {MESH_REPEATS} x S²; "
+                f"{row['count_ms']:.1f} ms a count, {row['pipeline_ms']:.2f} ms a queued "
+                f"pipeline run (synchronized walls)")
+            del totals, resident, stream
+            if name not in ("FNA.5", LARGE_NAME):
+                continue
+            for width in MESH_WIDTHS:  # the paper's Figures 12-13 question
+                spec, resident, stream = ring_operands(g, method, width)
+                pipe = DynamicPipeline(make_ring_mesh(width, devices=[card] * width))
+                t_mesh, t_chain = [], []
+                for _ in range(3):
+                    got, t = timed_sync(lambda: int(pipe.run(spec, resident, stream)))
+                    t_mesh.append(t)
+                    got_chain, t = timed_sync(
+                        lambda: int(run_sequential(spec, resident, stream, width)))
+                    t_chain.append(t)
+                    if got != want or got_chain != want:
+                        raise AssertionError(f"(a) {name} {method} S={width}: {got}, "
+                                             f"{got_chain} != {want}")
+                walls.append(dict(graph=name, method=method, stages=width,
+                                  mesh_ms=sorted(t_mesh)[1] * 1e3,
+                                  chain_ms=sorted(t_chain)[1] * 1e3))
+                log(f"      {name:8s} {method:11s} S={width}: mesh {walls[-1]['mesh_ms']:.3f} "
+                    f"ms, chain {walls[-1]['chain_ms']:.3f} ms (medians of 3, operands "
+                    f"built, synchronized)")
+                del resident, stream
+            torch.cuda.empty_cache()
+    summary["a"] = dict(counts=rows, walls=walls)
+    del meshed, chain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) mesh streams through TriangleServer(mesh=): serve_streams, then
+    # the same interleave by hand to hold every shard against the emulated
+    # sharded state fed the same blocks
+    names = ("FNA.5", "NY", LARGE_NAME)
+    rng = np.random.default_rng(30)
+    feeds = {nm: ragged(graphs[nm].edges[rng.permutation(graphs[nm].n_edges)], rng, 50_000)
+             for nm in names}
+    server = TriangleServer(device=DEVICE, mesh=mesh)
+    k0 = launch_counts()
+    results, wall = timed_sync(lambda: server.serve_streams(
+        [(graphs[nm].n_nodes, feeds[nm]) for nm in names]))
+    k1 = launch_counts()
+    for nm, r in zip(names, results):
+        if r.item() != graphs["_served"][nm] or not r.stats["on_mesh"] \
+                or r.plan.n_stages != S:
+            raise AssertionError(f"(b) serve_streams {nm}: {r.item()} (resident "
+                                 f"{graphs['_served'][nm]}), on_mesh {r.stats['on_mesh']}, "
+                                 f"{r.plan.n_stages} stages")
+    blocks = sum(r.stats["n_blocks"] for r in results)
+    check_stream_launches("(b) serve_streams on the mesh", k0, k1, blocks, 2 * S, 2 * S)
+    log(f"  (b) TriangleServer(mesh=).serve_streams: {', '.join(names)} interleaved, "
+        f"{blocks} blocks in {wall * 1e3:.1f} ms, each count = resident, on_mesh, "
+        f"K3 and K4 2 x {S} shards a block")
+    del results
+    sids = {nm: server.open_stream(graphs[nm].n_nodes) for nm in names}
+    feed_round_robin(server.streams, {sids[nm]: feeds[nm] for nm in names})
+    emulated = TriangleCounter(detected, device=DEVICE)
+    ny_bytes = None
+    for nm in names:
+        session = server.streams._recs[sids[nm]].session
+        tail = session.flush_ready()
+        if tail is not None:
+            session.ingest_ready(tail)
+        twin = emulated.open_stream(graphs[nm].n_nodes, plan=session.plan,
+                                    block_size=session.block_size)
+        for b in feeds[nm]:
+            twin.feed(b)
+        tail = twin.flush_ready()
+        if tail is not None:
+            twin.ingest_ready(tail)
+        shards, flat = session.state["adj"], twin.state["adj"]
+        same = len(shards) == S and all(torch.equal(shards[i], flat[i]) for i in range(S)) \
+            and torch.equal(session.state["count"], twin.state["count"])
+        if not same or int(session.state["count"]) != graphs["_served"][nm]:
+            raise AssertionError(f"(b) {nm}: the mesh shards differ from the emulated state")
+        shard_bytes = [x.nbytes for x in shards]
+        if nm == "NY":
+            ny_bytes = dict(state=session.state_bytes, shards=shard_bytes,
+                            charged=server.streams.state_bytes_of(sids[nm]))
+            if session.state_bytes != sum(shard_bytes) or ny_bytes["charged"] != sum(shard_bytes):
+                raise AssertionError(f"(b) NY's mesh session: {ny_bytes}")
+        log(f"  (b) {nm:8s} {session.n_blocks} blocks of {session.block_size}: every one of "
+            f"its {S} shards ({shard_bytes[0]} B each, {sum(shard_bytes)} B charged) "
+            f"torch.equal on the card to the emulated sharded state fed the same blocks")
+        del session, twin, shards, flat
+    for nm in names:
+        server.close_stream(sids[nm])
+    summary["b"] = dict(blocks=blocks, wall_ms=wall * 1e3, ny=ny_bytes)
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) a window of 4 over 8 epochs of FB107x9 on the mesh, against the
+    # count [stream] took of the same feeds
+    g = graphs[LARGE_NAME]
+    window_feeds, want = graphs["_windowed"][LARGE_NAME]
+    window = 4
+    meshed = TriangleCounter(detected, device=DEVICE, mesh=mesh)
+    p = stream_plan(g.n_nodes, detected, S, window)
+    k0 = launch_counts()
+    r, wall = timed_sync(lambda: meshed.count_windowed(g.n_nodes, window_feeds, plan=p))
+    k1 = launch_counts()
+    if r.item() != want or not r.stats["on_mesh"]:
+        raise AssertionError(f"(c) {LARGE_NAME} window on the mesh: {r.item()} != {want}")
+    check_stream_launches("(c) the mesh window", k0, k1, r.stats["n_blocks"],
+                          (window + 1) * S, 2 * window * S)
+    log(f"  (c) count_windowed {LARGE_NAME} window={window} of 8 epochs on the mesh: "
+        f"{r.item()} = [stream]'s count, {r.stats['n_blocks']} blocks in {wall * 1e3:.1f} ms, "
+        f"K3 {window + 1} and K4 {2 * window} a shard a block")
+    summary["c"] = dict(count=r.item(), blocks=r.stats["n_blocks"], wall_ms=wall * 1e3)
+
+    # (d) checkpoints across the mesh and the emulated sharding, both ways
+    rng = np.random.default_rng(31)
+    ops = ragged(g.edges[rng.permutation(g.n_edges)], rng, 20_000)
+    cut = len(ops) // 2
+    p = stream_plan(g.n_nodes, detected, S)
+    emulated = TriangleCounter(detected, device=DEVICE)
+
+    def run(session, todo):
+        for b in todo:
+            session.feed(b)
+        return session
+
+    whole = run(meshed.open_stream(g.n_nodes, plan=p), ops)
+    run(emulated.open_stream(g.n_nodes, plan=p), ops).finalize()  # every emulated key seen
+    a = whole.finalize().item()
+    want_arrays = streaming.snapshot_state(whole.state)
+    del whole
+    for first, second, label in ((meshed, emulated, "mesh -> emulated"),
+                                 (emulated, meshed, "emulated -> mesh")):
+        ck = run(first.open_stream(g.n_nodes, plan=p), ops[:cut]).checkpoint()
+        keys = streaming.ingest_trace_count()
+        rest = run(second.restore_stream(ck), ops[cut:])
+        b = rest.finalize().item()
+        got = streaming.snapshot_state(rest.state)
+        same = sorted(got) == sorted(want_arrays) and all(
+            np.array_equal(got[k], want_arrays[k]) and got[k].dtype == want_arrays[k].dtype
+            for k in got)
+        new_keys = streaming.ingest_trace_count() - keys
+        if a != b or not same or new_keys:
+            raise AssertionError(f"(d) {label}: count {b} vs {a}, arrays equal {same}, "
+                                 f"{new_keys} new ingest keys")
+        log(f"  (d) {label}: {LARGE_NAME} checkpointed after {cut} of {len(ops)} feeds "
+            f"({ck.nbytes} B, arrays {ck.arrays['adj'].shape}), restored and finished: "
+            f"count {b} = uninterrupted {a}, every array bit-identical, no new ingest key")
+        del rest, ck
+    del meshed, emulated
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) admission on the same-card mesh
+    ny = graphs["NY"]
+    mux = StreamMultiplexer(TriangleCounter(detected, device=DEVICE, mesh=mesh))
+    sid = mux.open(ny.n_nodes)
+    rec = mux._recs[sid]
+    w = -(-ny.n_nodes // 32)
+    shard = 4 * ny.n_nodes * -(-w // S)
+    planner_whole = admit_session(ny.n_nodes, detected)
+    per_stage = admit_session(ny.n_nodes, dataclasses.replace(
+        detected, memory_bytes=int(1.2 * shard), n_devices=S))
+    if rec.plan.n_stages != S or mux.bytes_in_use != S * shard \
+            or mux.state_bytes_of(sid) != S * shard or per_stage.state_bytes != shard:
+        raise AssertionError(f"(e) NY on the mesh: {rec.plan.n_stages} stages, "
+                             f"{mux.bytes_in_use} B in use, not {S} x {shard} B")
+    log(f"  (e) StreamMultiplexer on the {S}-stage one-card mesh, Resources.detect(): NY "
+        f"opened on {rec.plan.n_stages} stages, bytes_in_use {mux.bytes_in_use} B = {S} x "
+        f"{shard} B shards (reserve {mux.reserve_bytes} B); admit_session's verdict: "
+        f"{planner_whole.action} {planner_whole.state_bytes} B at the detected budget, "
+        f"{per_stage.action} {per_stage.state_bytes} B a stage at {int(1.2 * shard)} B "
+        f"over {S} devices (the reference's charge on any matching mesh)")
+    summary["e"] = dict(bytes_in_use=mux.bytes_in_use, shard_bytes=shard,
+                        reserve_bytes=mux.reserve_bytes, admit_session=planner_whole.action,
+                        per_stage_verdict=[per_stage.action, per_stage.state_bytes])
+    mux.close(sid)
+    del rec, mux
+    gc.collect()
+    torch.cuda.empty_cache()
+    k_end = launch_counts()
+    summary["launches"] = {k: k_end[k] - k_phase[k] for k in
+                           ("masked_matmul_sum", "bitset_edge_count", "bitset_pair_count")}
+    log(f"  launches in [ring mesh] (mesh and chain): {summary['launches']}")
     return summary
 
 
 # --------------------------------------------------------------------------
-# Phases 7 and 8: the LM and the recsys paths (main path too)
+# Phases 8 and 9: the LM and the recsys paths (main path too)
 # --------------------------------------------------------------------------
 def logits_agree(label: str, got, want, rel: float = 1e-3) -> float:
     """max |got - want| <= rel * max |want|, both finite; returns the ratio."""
@@ -2172,6 +2593,13 @@ def main() -> int:
               "of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, src)
+    # The caching allocator's fixed segments fragment under a mixed order of
+    # multi-GB states and scratch ([serve streams] (f) on an NVIDIA H100
+    # 80GB HBM3 at 700 W: an 8.73 GB delta table found no contiguous block
+    # beside 8.5 GiB of free fragments); expandable segments map freed
+    # pages to any later request. Set before CUDA starts, as a server
+    # process sets it.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -2255,9 +2683,16 @@ def main() -> int:
     t0 = time.perf_counter()
     log("[serve streams] StreamMultiplexer on the card: the Table-1 graphs interleaved (sync "
         "and prefetched), NY-size sessions to the detected budget, a preemption at full "
-        "state size, spill and deadlines at FB107x9's size, a YT-size hybrid session")
+        "state size, spill and deadlines at FB107x9's size, a YT-size hybrid session, a "
+        "mixed order of opens, preemptions and closes on a one-card mesh")
     serve_streams = serve_streams_phase(graphs)
     log(f"[serve streams] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log(f"[ring mesh] the dynamic pipeline's ring and the mesh ingests on {MESH_STAGES} "
+        "stages of the one card, a CUDA stream each: resident rings, mesh streams, a "
+        "window, checkpoints across layouts, admission")
+    ring_mesh = ring_mesh_phase(graphs)
+    log(f"[ring mesh] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     log("[lm] Yi-6B at full width and depth, f32 weights: LMServer.generate, flash prefill "
         "(tf32x3 K6) + decode_step, forward")
@@ -2331,6 +2766,7 @@ def main() -> int:
     log("[stream table] " + json.dumps(table))
     log("[hybrid table] " + json.dumps(hybrid_table))
     log("[serve streams summary] " + json.dumps(serve_streams))
+    log("[ring mesh summary] " + json.dumps(ring_mesh))
     log("[lm summary] " + json.dumps(lm["summary"]))
     log("[lm bf16 summary] " + json.dumps(lm_bf16["summary"]))
     log("[recsys summary] " + json.dumps(recsys))

@@ -1,4 +1,4 @@
-"""Unified counting API: one planned front door, on one device.
+"""Unified counting API: one planned front door, on one device or a ring mesh.
 
 The paper ("Comparing MapReduce and Pipeline Implementations for Counting
 Triangles") shows that the right Divide-and-Conquer *shape* is a function of
@@ -48,7 +48,9 @@ from repro_torch.api.planner import (
     admit_session,
     backend_exec_flags,
     card_reserve_bytes,
+    device_state_bytes,
     hybrid_sizing,
+    mesh_admission,
     plan,
     plan_for_graph,
     stream_sizing,
@@ -76,7 +78,9 @@ __all__ = [
     "admit_session",
     "backend_exec_flags",
     "card_reserve_bytes",
+    "device_state_bytes",
     "hybrid_sizing",
+    "mesh_admission",
     "plan",
     "plan_for_graph",
     "stream_sizing",

@@ -1,6 +1,8 @@
-"""``TriangleCounter`` — the planned execution engine, on one device.
+"""``TriangleCounter`` — the planned execution engine.
 
-One object owns one device. Operands are padded up to power-of-two
+One object owns one device, and optionally a ring mesh
+(``launch.mesh.RingMesh``) for the ring plans and sharded streams of its
+width. Operands are padded up to power-of-two
 buckets with the phantom convention each path already understands (zero rows
 for the dense matmul, sentinel ids >= n_pad for sparse/mapreduce), exactly as
 in the reference, so the two packages count alike and record the same cache
@@ -23,7 +25,8 @@ Streams run through :class:`StreamSession` (``open_stream``,
 ``count_stream``, ``count_windowed``, ``restore_stream``): the two-phase
 bitset ingest of ``core.streaming`` — or, for a ``state_layout="hybrid"``
 plan, its degree-aware hybrid state (hub bitset rows + tail buffers, linear
-in n) — whose state lives on the counter's device, and
+in n) — whose state lives on the counter's device (a ring-sharded plan's
+shards on the mesh's stages when the mesh hosts its ring), and
 :class:`SessionCheckpoint`, whose arrays keep the reference's layout.
 """
 from __future__ import annotations
@@ -213,17 +216,28 @@ class TriangleCounter:
     """The front door: plan (or accept a plan), check it against the device,
     execute, record the cache key.
 
-    ``device`` defaults to ``cuda`` and raises without a card; pass
-    ``device="cpu"`` for the plain PyTorch versions. ``resources`` defaults
-    to :meth:`Resources.detect` on that device. Ring plans run the
-    paper-faithful stage chain on the one device.
+    ``device`` defaults to ``cuda`` (with a ``mesh``, its first stage's
+    device) and raises without a card; pass ``device="cpu"`` for the plain
+    PyTorch versions. ``resources`` defaults to :meth:`Resources.detect` on
+    that device. ``mesh`` (a ``launch.mesh.RingMesh`` of the counter's
+    device type, else ``ValueError``) routes ring plans of its width
+    through ``DynamicPipeline`` and ring-sharded streams through the mesh
+    ingests; without one, ring plans run the paper-faithful stage chain on
+    the one device and sharded streams emulate their stages there.
     """
 
     def __init__(self, resources: Resources | None = None, *,
-                 plan: Plan | None = None, device=None):
+                 plan: Plan | None = None, device=None, mesh=None):
+        if mesh is not None and device is None:
+            device = mesh.devices[0]
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a mesh of {mesh.device_type!r} stages on a counter of "
+                             f"device {self.device}")
         self.resources = resources or Resources.detect(self.device)
         self.fixed_plan = plan
+        self.mesh = mesh
+        self._pipeline = None  # the mesh's DynamicPipeline, made on first use
         self._seen: dict[tuple, int] = {}  # cache key -> uses
 
     # -- planning ----------------------------------------------------------
@@ -297,8 +311,8 @@ class TriangleCounter:
         ``window_epochs`` must agree with ``window``.
 
         The session's uses are recorded under ``(plan.cache_key(),
-        ("stream", n_nodes, block_size, on_mesh))`` (``on_mesh`` is False:
-        the multi-card ring is a later item of the port)."""
+        ("stream", n_nodes, block_size, on_mesh))``, ``on_mesh`` being
+        :meth:`mesh_matches` of the plan's ring width."""
         p = plan or self.fixed_plan
         if p is None:
             stats = GraphStats(n_nodes=n_nodes, n_edges=0, replication_factor=0,
@@ -322,7 +336,7 @@ class TriangleCounter:
                 "mesh stage axis stay bitset")
         if block_size is None:
             block_size = p.block_size
-        return StreamSession(self, n_nodes, p, block_size)
+        return StreamSession(self, n_nodes, p, block_size, self.mesh_matches(p.n_stages))
 
     def restore_stream(self, ckpt: SessionCheckpoint) -> "StreamSession":
         """Resume a checkpointed stream session — the other half of
@@ -333,13 +347,17 @@ class TriangleCounter:
         reference is widened to int64), the session records the SAME cache
         key, and the re-blocking buffer resumes the checkpoint's sticky
         shapes. A checkpoint whose plan contradicts this counter's device is
-        refused with a ``ValueError``."""
+        refused with a ``ValueError``. A ring-sharded checkpoint restores
+        onto a mesh and an emulated counter alike (the snapshot has the
+        emulated (S, ...) layout either way)."""
         from repro_torch.core import streaming
 
         self._check_stream_plan(ckpt.plan)
+        on_mesh = self.mesh_matches(ckpt.plan.n_stages)
         session = StreamSession(
-            self, ckpt.n_nodes, ckpt.plan, ckpt.block_size,
-            state=streaming.restore_state(ckpt.load_arrays(), device=self.device))
+            self, ckpt.n_nodes, ckpt.plan, ckpt.block_size, on_mesh,
+            state=streaming.restore_state(ckpt.load_arrays(), device=self.device,
+                                          mesh=self.mesh if on_mesh else None))
         session._buffer.import_shape_state(ckpt.buffer_shape)
         session.n_blocks = ckpt.n_blocks
         session.n_epochs_advanced = ckpt.n_epochs_advanced
@@ -353,8 +371,8 @@ class TriangleCounter:
         """Fold an iterable of (B, 2) edge blocks — ``core.streaming`` behind
         the same result contract, as a one-session wrapper over
         :meth:`open_stream` (see it for plan resolution and cache keying).
-        ``n_stages > 1`` runs the column-sharded ingest, its stages
-        emulated on this device."""
+        ``n_stages > 1`` runs the column-sharded ingest: on ``self.mesh``
+        when its width matches, else its stages emulated on this device."""
         session = self.open_stream(n_nodes, plan=plan, block_size=block_size)
         for b in blocks:
             session.feed(b)
@@ -391,12 +409,25 @@ class TriangleCounter:
         self._check_plan(p)
 
     def mesh_matches(self, n_stages: int) -> bool:
-        """True when this counter's mesh hosts a ``n_stages``-wide ring.
-        The port's counter has no mesh until the multi-device rings
-        (ROADMAP.md, queue A item 5), so always False: session admission
-        then charges an emulated-sharded state in full, as the reference
-        does without a mesh."""
-        return False
+        """True when this counter's mesh hosts a ``n_stages``-wide ring
+        (the mesh has more than one stage and exactly ``n_stages``); any
+        other width runs the stage chain or the emulated sharding instead of
+        failing. Admission branches on this: an emulated shard pays the
+        FULL bitset, and so do mesh shards that share one device
+        (``planner.device_state_bytes``)."""
+        return self.mesh is not None and self.mesh.size > 1 and self.mesh.size == n_stages
+
+    def _ring(self, spec, p: Plan):
+        """The callable that runs ``spec`` for plan ``p``: the mesh's
+        pipeline (memoized per spec) when the mesh hosts the plan's ring,
+        else the stage chain on this device."""
+        from repro_torch.core.dynamic_pipeline import DynamicPipeline, run_sequential
+
+        if not self.mesh_matches(p.n_stages):
+            return lambda r, s: run_sequential(spec, r, s, p.n_stages)
+        if self._pipeline is None:
+            self._pipeline = DynamicPipeline(self.mesh, self.mesh.axis_names[0])
+        return self._pipeline.jit(spec)
 
     def _run_stream(self, g, p: Plan):
         # A memory-resident graph executed under a stream plan: feed its own
@@ -486,7 +517,6 @@ class TriangleCounter:
         return out, {"cache": self._note((p.cache_key(), (n_b, md_b, m_b)))}
 
     def _run_ring(self, g, p: Plan):
-        from repro_torch.core.dynamic_pipeline import run_sequential
         from repro_torch.core.partition import stage_costs
         from repro_torch.core.triangle_pipeline import (
             build_dense_ring_operands,
@@ -500,12 +530,11 @@ class TriangleCounter:
             g, p.n_stages, balance=p.balance, pad_to=pad_to, device=self.device)
         spec = dense_ring_spec(part.rows_per_stage)
         key = (p.cache_key(), ("ring", p.n_stages, part.rows_per_stage))
-        out = run_sequential(spec, blocks, blocks, p.n_stages)
+        out = self._ring(spec, p)(blocks, blocks)
         return out, {"cache": self._note(key),
                      "stage_costs": stage_costs(g, part).tolist()}
 
     def _run_bitset_ring(self, g, p: Plan):
-        from repro_torch.core.dynamic_pipeline import run_sequential
         from repro_torch.core.partition import stage_costs
         from repro_torch.core.triangle_pipeline import (
             bitset_ring_spec,
@@ -520,7 +549,7 @@ class TriangleCounter:
         spec = bitset_ring_spec()
         key = (p.cache_key(), ("bitset", p.n_stages) + tuple(masks.shape)
                + tuple(edges.shape))
-        out = run_sequential(spec, masks, edges, p.n_stages)
+        out = self._ring(spec, p)(masks, edges)
         return out, {"cache": self._note(key),
                      "stage_costs": stage_costs(g, part).tolist()}
 
@@ -552,10 +581,11 @@ class StreamSession:
     """One in-flight streaming count: open → ``feed`` blocks → ``finalize``.
 
     The handle owns this stream's state on the counter's device — the
-    adjacency-so-far bitset (n²/8 bytes; all S column shards when the plan
-    is ring-sharded, emulated on this device; for a windowed plan a ring of
-    E epoch bitsets, E·n²/8; for a hybrid plan hub rows and tail buffers,
-    ``core.streaming.hybrid_state_nbytes``) — plus a
+    adjacency-so-far bitset (n²/8 bytes; for a ring-sharded plan its S
+    column shards, each on its stage's device when the counter's mesh hosts
+    the ring (``on_mesh``), else all emulated on this device; for a windowed
+    plan a ring of E epoch bitsets, E·n²/8; for a hybrid plan hub rows and
+    tail buffers, ``core.streaming.hybrid_state_nbytes``) — plus a
     :class:`~repro_torch.core.streaming.BlockBuffer` that re-blocks ragged
     feeds to one fixed shape. Sessions are independent and interleavable
     from one driver thread; the handle itself is not thread-safe.
@@ -568,11 +598,12 @@ class StreamSession:
     count); it is idempotent, and later ``feed``/``advance`` calls raise.
     Nothing here synchronises with the device before ``finalize`` or
     ``checkpoint``. ``state_bytes`` is the device footprint the session
-    pins while open.
+    pins while open, on its busiest device.
     """
 
     def __init__(self, counter: TriangleCounter, n_nodes: int, plan: Plan,
-                 block_size: int, *, state: dict | None = None):
+                 block_size: int, on_mesh: bool = False, *, state: dict | None = None):
+        from repro_torch.api.planner import device_state_bytes
         from repro_torch.core import streaming
 
         counter._check_stream_plan(plan)
@@ -581,18 +612,22 @@ class StreamSession:
         self.plan = plan
         self.block_size = block_size
         dev = counter.device
+        mesh = counter.mesh if on_mesh else None
         self._buffer = streaming.BlockBuffer(n_nodes, block_size, device=dev)
-        self._key = (plan.cache_key(), ("stream", n_nodes, block_size, False))
+        self._key = (plan.cache_key(), ("stream", n_nodes, block_size, on_mesh))
         self._cache = counter._note(self._key)
+        self._on_mesh = on_mesh
         self.restored = False
         if plan.state_layout == "hybrid":
             self._ingest = functools.partial(streaming.ingest_block_hybrid,
                                              hub_threshold=plan.hub_threshold)
         elif plan.window_epochs:
-            self._ingest = (streaming.ingest_block_windowed_sharded if plan.n_stages > 1
+            self._ingest = (streaming.make_mesh_ingest_windowed(mesh) if on_mesh
+                            else streaming.ingest_block_windowed_sharded if plan.n_stages > 1
                             else streaming.ingest_block_windowed)
         else:
-            self._ingest = (streaming.ingest_block_sharded if plan.n_stages > 1
+            self._ingest = (streaming.make_mesh_ingest(mesh) if on_mesh
+                            else streaming.ingest_block_sharded if plan.n_stages > 1
                             else streaming.ingest_block)
         if state is not None:
             # restore path (TriangleCounter.restore_stream): adopt the
@@ -603,16 +638,20 @@ class StreamSession:
                 n_nodes, plan.hub_slots, plan.tail_capacity, device=dev)
         elif plan.window_epochs:
             self.state = (streaming.init_windowed_sharded_state(
-                n_nodes, plan.window_epochs, plan.n_stages, device=dev)
+                n_nodes, plan.window_epochs, plan.n_stages, device=dev, mesh=mesh)
                 if plan.n_stages > 1 else
                 streaming.init_windowed_state(n_nodes, plan.window_epochs, device=dev))
         elif plan.n_stages > 1:
-            self.state = streaming.init_sharded_state(n_nodes, plan.n_stages, device=dev)
+            self.state = streaming.init_sharded_state(n_nodes, plan.n_stages, device=dev,
+                                                      mesh=mesh)
         else:
             self.state = streaming.init_state(n_nodes, device=dev)
-        # emulated sharding keeps all S shards on this device, so the whole
-        # array is what the session pins
-        self.state_bytes = self._state_nbytes()
+        # per-device footprint: one column shard per stage a device hosts on
+        # the mesh; the WHOLE array when the sharding is emulated on one
+        # device — admission must charge all of it
+        nbytes = self._state_nbytes()
+        self.state_bytes = (nbytes if plan.state_layout == "hybrid" else
+                            device_state_bytes(nbytes // plan.n_stages, plan.n_stages, mesh))
         self.n_blocks = 0
         self.n_epochs_advanced = 0
         self._traces0 = streaming.ingest_trace_count()
@@ -623,9 +662,12 @@ class StreamSession:
         """Device bytes this session's state pins: the bitset array, or for
         a hybrid plan the sum over all its arrays — exactly the planner's
         ``predicted_bytes``."""
+        from repro_torch.core.streaming import state_nbytes
+
         if self.plan.state_layout == "hybrid":
-            return int(sum(v.nbytes for v in self.state.values()))
-        return int(self.state["epochs" if self.plan.window_epochs else "adj"].nbytes)
+            return state_nbytes(self.state)
+        key = "epochs" if self.plan.window_epochs else "adj"
+        return state_nbytes({key: self.state[key]})
 
     @property
     def closed(self) -> bool:
@@ -794,7 +836,7 @@ class StreamSession:
                  else self.state["count"])
         stats = {"n_blocks": self.n_blocks, "block_size": self.block_size,
                  "n_stages": p.n_stages, "sharded": p.n_stages > 1,
-                 "on_mesh": False, "session": True,
+                 "on_mesh": self._on_mesh, "session": True,
                  "state_bytes": self._state_nbytes(), "cache": self._cache,
                  "ingest_traces": streaming.ingest_trace_count() - self._traces0}
         if p.window_epochs:
@@ -830,16 +872,25 @@ def count_triangles(g, *, method: str = "auto", counter: TriangleCounter | None 
     planner, any other method (``dense``, ``sparse``, ``ring``, ``bitset``,
     ``mapreduce``) is forced. ``counter`` defaults to
     :func:`default_counter` of ``device``; keyword arguments are plan
-    fields. Any other keyword raises ``TypeError`` — the reference's legacy
-    ring kwargs (``mesh=``, ``sequential=``) among them until the
-    multi-device rings (ROADMAP.md, queue A item 5)."""
+    fields. Other keywords — the reference's legacy ring kwargs ``mesh=``
+    and ``sequential=`` — fall through, as in the reference, to the ring
+    entry points ``count_triangles_ring`` / ``count_triangles_bitset_ring``
+    (on ``counter``'s device, else ``device``, else the mesh's); for any
+    other method they raise ``TypeError``."""
+    method = _METHOD_ALIASES.get(method, method)
+    unknown = set(kw) - _PLAN_KWARGS
+    if unknown and method != "auto":
+        from repro_torch.core import triangle_pipeline as tp
+
+        legacy = {"ring": tp.count_triangles_ring,
+                  "bitset_ring": tp.count_triangles_bitset_ring}
+        if method in legacy:
+            return int(legacy[method](
+                g, device=counter.device if counter is not None else device, **kw))
+        raise TypeError(f"unsupported kwargs {sorted(unknown)} for method {method!r}")
     c = counter or default_counter(device)
     if method == "auto":
         return c.count(g).item()
-    method = _METHOD_ALIASES.get(method, method)
-    unknown = set(kw) - _PLAN_KWARGS
-    if unknown:
-        raise TypeError(f"unsupported kwargs {sorted(unknown)} for method {method!r}")
     fields = {**backend_exec_flags(c.resources), **kw}
     p = Plan(method=method, reason=f"fixed method={method!r} via count_triangles",
              **fields)

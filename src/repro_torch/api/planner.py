@@ -551,10 +551,10 @@ def admit_session(n_nodes: int, resources: Resources | None = None, *,
     :func:`stream_sizing` picks the smallest ring width whose shard fits the
     REMAINDER. If even the full ring width does not fit, the verdict is
     ``"queue"``. The per-stage discount is the planner's mesh model; the
-    multiplexer re-takes the decision at ring width 1 when no matching mesh
-    hosts the stage axis (the port has none yet, so always). The verdicts
-    are the reference's, number for number; the card's ingest scratch is
-    charged by the multiplexer, not here (:func:`card_reserve_bytes`).
+    multiplexer takes it only where the counter's mesh hosts the ring one
+    stage per device (:func:`mesh_admission`). The verdicts are the
+    reference's, number for number; the card's ingest scratch is charged by
+    the multiplexer, not here (:func:`card_reserve_bytes`).
 
     FAIR-SHARE PREEMPTION: ``actives`` is the scheduler's view of the
     currently active sessions as ``(state_bytes, priority)`` pairs. When the
@@ -666,6 +666,66 @@ def admit_session(n_nodes: int, resources: Resources | None = None, *,
                    else ")"))))
 
 
+def _hosts(mesh, n_stages: int) -> bool:
+    """Whether ``mesh`` hosts a ring of ``n_stages`` (> 1) stages."""
+    return n_stages > 1 and mesh is not None and mesh.size == n_stages
+
+
+def device_state_bytes(stage_bytes: int, n_stages: int, mesh=None) -> int:
+    """The bytes a state of ``n_stages`` shards of ``stage_bytes`` each pins
+    on its busiest device. Where ``mesh`` hosts the ring (``n_stages`` equal
+    to its width, above 1) that is one shard for each stage the device
+    hosts: ``stage_bytes`` on a mesh of distinct devices — the reference's
+    per-stage charge — and the whole state when all stages share one card,
+    since shards that share a device add up on it. Without such a mesh the
+    stages are emulated on one device, which holds them all."""
+    if _hosts(mesh, n_stages):
+        return stage_bytes * mesh.stages_per_device()
+    return stage_bytes * n_stages
+
+
+def mesh_admission(n_nodes: int, resources: Resources | None = None, mesh=None,
+                   **kw) -> Admission:
+    """:func:`admit_session` (``kw`` are its keywords) as a multiplexer
+    whose counter holds ``mesh`` takes it.
+
+    - The planner's n²/8/S-per-stage accounting holds only where the mesh
+      hosts the plan's ring with one stage per device. Otherwise — no
+      mesh, a mesh of another width, or stages that share a device and so
+      add up on it (:func:`device_state_bytes`) — the decision is re-taken
+      at ring width 1, where the charge is the whole state. On a mesh of
+      distinct devices this is the reference's rule, verdict for verdict.
+    - A mesh whose stages share a device gives a session no memory, only
+      streams: there a bitset admitted whole at ring width 1
+      (``"admit-dense"``) is sharded over every stage of the mesh instead,
+      and charged what its busiest device holds (on one card, every shard)
+      — if that still fits, the shards' padding words included. The
+      reference has no such mesh; this is the port's deliberate
+      difference."""
+    res = resources or Resources()
+    adm = admit_session(n_nodes, res, **kw)
+    if (adm.admitted and adm.plan.n_stages > 1
+            and device_state_bytes(adm.state_bytes, adm.plan.n_stages, mesh)
+            != adm.state_bytes):
+        res = dataclasses.replace(res, max_stages=1)
+        adm = admit_session(n_nodes, res, **kw)
+    if adm.action != "admit-dense" or mesh is None or mesh.stages_per_device() == 1:
+        return adm
+    n, s = max(int(n_nodes), 1), mesh.size
+    w = -(-n // 32)
+    charge = device_state_bytes(max(adm.plan.window_epochs, 1) * 4 * n * -(-w // s), s, mesh)
+    surplus = max(charge - adm.state_bytes, 0)  # the shards' padding words
+    if surplus:
+        smaller = dataclasses.replace(res, memory_bytes=max(res.memory_bytes - surplus, 0))
+        if admit_session(n_nodes, smaller, **kw).action != "admit-dense":
+            return adm
+    return dataclasses.replace(
+        adm, action="admit-sharded", state_bytes=charge,
+        plan=dataclasses.replace(adm.plan, n_stages=s),
+        reason=(f"admit-sharded: {s} stages sharing {len(mesh.physical_devices())} "
+                f"device(s), {charge} B on the busiest one; " + adm.reason))
+
+
 # --------------------------------------------------------------------------
 # The card's reserve: one ingest's device scratch beside the pinned states
 # --------------------------------------------------------------------------
@@ -681,14 +741,17 @@ _CARD_ROW_BYTES = 256
 _CARD_FIXED_BYTES = 2 << 30
 
 
-def ingest_scratch_bytes(n_nodes: int, plan: Plan) -> int:
+def ingest_scratch_bytes(n_nodes: int, plan: Plan, mesh=None) -> int:
     """Device bytes one ingest of a block under ``plan`` allocates beside
-    the session's state, at the plan's block size rounded up to a power of
-    two (the adaptive sizer's ceiling): what :func:`stream_sizing` leaves
-    out of a stream's ``predicted_bytes``.
+    the session's state on its busiest device, at the plan's block size
+    rounded up to a power of two (the adaptive sizer's ceiling): what
+    :func:`stream_sizing` leaves out of a stream's ``predicted_bytes``.
 
-    - bitset: the block's (n, ceil(W/S)) delta table (8.73 GB at NY), and
-      for a window every stage's E age-cumulative tables (E·n·W words);
+    - bitset: the block's (n, ceil(W/S)) delta table (8.73 GB at NY) — one
+      for each stage on the device where ``mesh`` hosts the ring, since
+      those stages run at once on their own streams, while emulated stages
+      take turns on one stream — and for a window every stage's E
+      age-cumulative tables (E·n·S·ceil(W/S) words);
     - hybrid: the (2B, W) table of the endpoints' pre-block rows, the two
       block-local packed tables (2B, Wl), one slab of the packing and the
       (2B, C) gathers of tail buffers;
@@ -707,7 +770,9 @@ def ingest_scratch_bytes(n_nodes: int, plan: Plan) -> int:
         tails = 128 * b * max(plan.tail_capacity, 1)
         return table + local + slab + tails + rows
     ws = -(-w // max(plan.n_stages, 1))
-    delta = 4 * n * ws
+    # the stages a mesh hosts on one device run at once, each with its own
+    # table; emulated stages take turns on one stream and reuse one
+    delta = 4 * n * ws * (mesh.stages_per_device() if _hosts(mesh, plan.n_stages) else 1)
     cum = plan.window_epochs * plan.n_stages * 4 * n * ws
     return delta + cum + rows
 
@@ -721,17 +786,18 @@ def prefetch_inflight_bytes(plan: Plan) -> int:
     return (plan.prefetch_depth + 1) * _pow2_at_least(plan.block_size) * 2 * 4
 
 
-def card_reserve_bytes(sessions) -> int:
+def card_reserve_bytes(sessions, mesh=None) -> int:
     """The device bytes a stream multiplexer on the card keeps free beside
     the pinned states of ``sessions`` — (n_nodes, plan) pairs of the active
     sessions and the one being admitted, each plan at the block size it
     runs: the fixed share of the CUDA context and the allocator, the largest
-    :func:`ingest_scratch_bytes` (ingests run one at a time, from one drive
-    thread on one stream, so their scratch is reused, not summed), and every
-    session's :func:`prefetch_inflight_bytes`. The reference admits by state
-    bytes alone; charged only on the card, so CPU verdicts stay the
-    reference's."""
+    :func:`ingest_scratch_bytes` on the busiest device of the counter's
+    ``mesh`` (ingests run one at a time, from one drive thread, so their
+    scratch is reused, not summed; a mesh ingest's stages overlap only with
+    each other), and every session's :func:`prefetch_inflight_bytes`. The
+    reference admits by state bytes alone; charged only on the card, so CPU
+    verdicts stay the reference's."""
     pairs = list(sessions)
     return (_CARD_FIXED_BYTES
-            + max((ingest_scratch_bytes(n, p) for n, p in pairs), default=0)
+            + max((ingest_scratch_bytes(n, p, mesh) for n, p in pairs), default=0)
             + sum(prefetch_inflight_bytes(p) for _, p in pairs))

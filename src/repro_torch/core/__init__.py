@@ -1,6 +1,7 @@
 """The paper's primary contribution: dynamic-pipeline triangle counting.
 
-- ``dynamic_pipeline``: the stage-chain runtime (one device)
+- ``dynamic_pipeline``: the stage-chain runtime (one device) and the ring
+  on a mesh (``DynamicPipeline``, ``ShardedStateStream``)
 - ``partition``: responsible-node ordering + stage load balancing
 - ``triangle_ref``: oracles
 - ``triangle_mapreduce``: Suri–Vassilvitskii two-round baseline (faithful)

@@ -1,5 +1,6 @@
 """Streaming triangle counting — the paper's "graph dynamically generated /
-does not fit in memory" regime, as an incremental API, on one device.
+does not fit in memory" regime, as an incremental API, on one device or a
+ring mesh.
 
 A triangle is counted exactly once: when its LAST edge arrives. The state is
 the adjacency-so-far bitset (n, W) of 32-bit words (n²/8 bytes, independent
@@ -33,9 +34,14 @@ is a fresh zeroed (n, W) table per block — the K4 operand.
 ``init_sharded_state``/``ingest_block_sharded`` are the column-sharded
 variant: stage s owns words [s·Ws, (s+1)·Ws) of every row, and every
 popcount term is a sum over words, so each stage computes its shard's
-partials and the totals are summed BEFORE the divisions. Here the S shards
-are emulated on one device in a loop, which launches K3/K4 per shard; the
-ring over several cards is a later item of the port.
+partials and the totals are summed BEFORE the divisions. ``ingest_block_
+sharded`` emulates the S shards on one device in a loop, which launches
+K3/K4 per shard. On a ``launch.mesh.RingMesh`` (``make_mesh_ingest``) each
+shard lives on its stage's device and is folded on its stage's stream, in
+the phases of ``dynamic_pipeline.ShardedStateStream``: a mesh state holds
+a LIST of S shards (``adj`` and ``epochs``) and its counters on stage 0's
+device, and its host snapshot has the emulated (S, ...) layout, so a
+checkpoint moves between mesh and emulated sessions both ways.
 
 SLIDING WINDOWS (``init_windowed_state``/``ingest_block_windowed``/
 ``expire_epoch``) add deletions: the state is a ring of E epoch bitsets
@@ -65,6 +71,7 @@ reference's "one trace per fixed block shape" pins carry over as "one key".
 from __future__ import annotations
 
 import threading
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -99,13 +106,25 @@ def init_state(n_nodes: int, *, device=None) -> dict:
     return {"adj": _zeros_words((n_nodes, w), device), "count": _counts((), device)}
 
 
-def init_sharded_state(n_nodes: int, n_stages: int, *, device=None) -> dict:
+def _mesh_of(mesh, n_stages: int):
+    if mesh.size != n_stages:
+        raise ValueError(f"{n_stages} stages on a mesh of {mesh.size}")
+    return mesh.devices
+
+
+def init_sharded_state(n_nodes: int, n_stages: int, *, device=None, mesh=None) -> dict:
     """Column-sharded state: stage s owns words [s·Ws, (s+1)·Ws) of every
     row — n·Ws·4 ≈ n²/8/S bytes per stage, S·n·Ws·4 in all when the stages
-    are emulated on one device. The trailing pad words (W rounded up to
-    S·Ws) map to no node and stay zero forever."""
+    are emulated on one device ((S, n, Ws) on ``device``). On ``mesh`` (of
+    ``n_stages`` stages) ``adj`` is the list of the S (n, Ws) shards, each
+    on its stage's device, and ``count`` is on stage 0's. The trailing pad
+    words (W rounded up to S·Ws) map to no node and stay zero forever."""
     w = -(-n_nodes // 32)
     ws = -(-w // n_stages)
+    if mesh is not None:
+        devs = _mesh_of(mesh, n_stages)
+        return {"adj": [_zeros_words((n_nodes, ws), d) for d in devs],
+                "count": _counts((), devs[0])}
     return {"adj": _zeros_words((n_stages, n_nodes, ws), device),
             "count": _counts((), device)}
 
@@ -130,16 +149,22 @@ def init_windowed_state(n_nodes: int, window_epochs: int, *, device=None) -> dic
 
 
 def init_windowed_sharded_state(n_nodes: int, window_epochs: int, n_stages: int, *,
-                                device=None) -> dict:
+                                device=None, mesh=None) -> dict:
     """``init_windowed_state`` with every epoch bitset column-sharded over S
-    stages like ``init_sharded_state``: ``epochs`` is (S, E, n, Ws);
-    ``counts``/``head`` are shared."""
+    stages like ``init_sharded_state``: ``epochs`` is (S, E, n, Ws), or on
+    ``mesh`` the list of the S (E, n, Ws) shards on their stages' devices;
+    ``counts``/``head`` are shared (on stage 0's device on a mesh)."""
     if window_epochs < 1:
         raise ValueError(f"window_epochs must be >= 1, got {window_epochs}")
     w = -(-n_nodes // 32)
     ws = -(-w // n_stages)
-    return {"epochs": _zeros_words((n_stages, window_epochs, n_nodes, ws), device),
-            "counts": _counts((window_epochs,), device),
+    if mesh is not None:
+        devs = _mesh_of(mesh, n_stages)
+        epochs = [_zeros_words((window_epochs, n_nodes, ws), d) for d in devs]
+        device = devs[0]
+    else:
+        epochs = _zeros_words((n_stages, window_epochs, n_nodes, ws), device)
+    return {"epochs": epochs, "counts": _counts((window_epochs,), device),
             "head": torch.zeros((), dtype=torch.int32, device=resolve_device(device))}
 
 
@@ -178,23 +203,31 @@ _COUNT_KEYS = ("count", "counts")
 
 
 def snapshot_state(state: dict) -> dict:
-    """Bit-exact HOST copy of a streaming state (dense, sharded, windowed),
-    in the reference's layout: bitsets as uint32 (a view of the int32
-    words), ``head`` int32, counts int64. Waits for every queued ingest into
-    ``state`` (the copy synchronises)."""
+    """Bit-exact HOST copy of a streaming state (dense, sharded, windowed,
+    on a mesh), in the reference's layout: bitsets as uint32 (a view of the
+    int32 words), ``head`` int32, counts int64. A mesh state's shards are
+    stacked into the emulated (S, ...) array, which restores onto either
+    layout. Waits for every queued ingest into ``state`` (the copies
+    synchronise)."""
     out = {}
     for k, v in state.items():
-        a = v.detach().cpu().numpy().copy()
+        if isinstance(v, list):
+            a = np.stack([shard.detach().cpu().numpy() for shard in v])
+        else:
+            a = v.detach().cpu().numpy().copy()
         out[k] = a.view(np.uint32) if k in _WORD_KEYS else a
     return out
 
 
-def restore_state(snap: dict, *, device=None) -> dict:
+def restore_state(snap: dict, *, device=None, mesh=None) -> dict:
     """Device tensors of a :func:`snapshot_state` copy — the port's or the
     reference's: uint32 bitsets come back as int32 words with the same
     bits, and an int32 ``count``/``counts`` (the reference without x64) is
-    widened to int64. A restored stream continues bit-identically."""
-    dev = resolve_device(device)
+    widened to int64. On ``mesh`` a sharded bitset's (S, ...) array is split
+    into the S shards of a mesh state, each on its stage's device, and the
+    rest lands on stage 0's device. A restored stream continues
+    bit-identically."""
+    dev = resolve_device(device) if mesh is None else mesh.devices[0]
     out = {}
     for k, v in snap.items():
         a = np.array(v)  # a C-ordered copy, 0-d kept 0-d
@@ -202,14 +235,19 @@ def restore_state(snap: dict, *, device=None) -> dict:
             a = a.view(np.int32)
         elif k in _COUNT_KEYS:
             a = a.astype(np.int64)
-        out[k] = torch.from_numpy(a).to(dev)
+        if mesh is not None and k in _WORD_KEYS:
+            devs = _mesh_of(mesh, a.shape[0])
+            out[k] = [torch.from_numpy(a[s]).to(d) for s, d in enumerate(devs)]
+        else:
+            out[k] = torch.from_numpy(a).to(dev)
     return out
 
 
 def state_nbytes(state: dict) -> int:
-    """Total bytes of a state dict or host snapshot — what a checkpoint
-    charges against the host/disk budgets."""
-    return int(sum(v.nbytes for v in state.values()))
+    """Total bytes of a state dict or host snapshot (a mesh state's shards
+    summed) — what a checkpoint charges against the host/disk budgets."""
+    return int(sum(sum(x.nbytes for x in v) if isinstance(v, list) else v.nbytes
+                   for v in state.values()))
 
 
 # First-use telemetry: the distinct (family, block shape, state shape,
@@ -228,8 +266,11 @@ def ingest_trace_count() -> int:
     return len(_INGEST_KEYS)
 
 
-def _note_ingest(family: str, words: torch.Tensor, edges: torch.Tensor) -> None:
-    key = (family, tuple(edges.shape), tuple(words.shape), words.device.type)
+def _note_ingest(family: str, words: torch.Tensor, edges: torch.Tensor, *,
+                 stages: tuple = ()) -> None:
+    """Record one ingest's key; a mesh ingest passes ``stages`` = (S,) and
+    one shard as ``words``."""
+    key = (family, tuple(edges.shape), stages + tuple(words.shape), words.device.type)
     with _INGEST_KEYS_LOCK:
         _INGEST_KEYS.add(key)
 
@@ -303,11 +344,14 @@ def _delta_bits(n: int, ws: int, lo: torch.Tensor, hi: torch.Tensor,
     return torch.cat([i1, i2]), torch.cat([b1, b2])
 
 
-def _delta_table(n: int, ws: int, idx: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
-    """The block's delta-adjacency on one word shard, landed in ONE
-    scatter: dedup makes the bits of one word distinct, so add equals OR
-    (and a sum of distinct bits never overflows int32)."""
-    delta = torch.zeros(n * ws, dtype=torch.int32, device=idx.device)
+def _delta_table(n: int, ws: int, idx: torch.Tensor, bits: torch.Tensor,
+                 scratch=None) -> torch.Tensor:
+    """The block's delta-adjacency on one word shard (zeroed, in
+    ``scratch((n·ws,))`` when given), landed in ONE scatter: dedup makes
+    the bits of one word distinct, so add equals OR (and a sum of distinct
+    bits never overflows int32)."""
+    delta = (torch.zeros(n * ws, dtype=torch.int32, device=idx.device) if scratch is None
+             else scratch((n * ws,)).zero_())
     return delta.index_add_(0, idx, bits).view(n, ws)
 
 
@@ -319,15 +363,16 @@ def _phantom_edges(lo: torch.Tensor, hi: torch.Tensor, live: torch.Tensor,
 
 
 def _stage_update(adj_s: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
-                  live: torch.Tensor, off: int) -> torch.Tensor:
+                  live: torch.Tensor, off: int, scratch=None) -> torch.Tensor:
     """One stage's share of the two-phase block ingest: returns its
     (pre, mixed, dd) partials and adds the block's live bits into ``adj_s``
     in place. The caller sums shards BEFORE dividing: mixed counts every
     (block, block, pre-block) triangle twice and dd every all-in-block
-    triangle three times only in full-width sums."""
+    triangle three times only in full-width sums. ``scratch`` allocates the
+    delta table (``_delta_table``)."""
     n, ws = adj_s.shape
     idx, bits = _delta_bits(n, ws, lo, hi, live, off)
-    delta = _delta_table(n, ws, idx, bits)
+    delta = _delta_table(n, ws, idx, bits, scratch)
     ek = _phantom_edges(lo, hi, live, n)
     pre = bitset_edge_count(adj_s, ek)
     mixed = bitset_pair_count(adj_s, delta, ek) + bitset_pair_count(delta, adj_s, ek)
@@ -343,7 +388,7 @@ def _combine(count: torch.Tensor, terms: torch.Tensor) -> None:
 
 
 # --------------------------------------------------------------------------
-# Sliding-window math (shared by the dense and emulated-sharded paths)
+# Sliding-window math (shared by the dense, emulated and mesh paths)
 # --------------------------------------------------------------------------
 def _age_order(head: torch.Tensor, n_epochs: int) -> torch.Tensor:
     """Ring slots in AGE order, newest first: ``order[t]`` is the slot whose
@@ -352,12 +397,15 @@ def _age_order(head: torch.Tensor, n_epochs: int) -> torch.Tensor:
     return (head.to(torch.int64) - ages) % n_epochs
 
 
-def _age_cum(epochs_s: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+def _age_cum(epochs_s: torch.Tensor, head: torch.Tensor, scratch=None) -> torch.Tensor:
     """Age-cumulative OR tables on this stage's word shard: ``cum[t]`` is
     the OR of the t+1 NEWEST epoch bitsets, so ``cum[-1]`` is the live
-    adjacency. A fresh (E, n, Ws) stack, built once per block by E − 1 ORs
-    and shared by the dedup check and the phase sweeps."""
-    cum = epochs_s.index_select(0, _age_order(head, epochs_s.shape[0]))
+    adjacency. A fresh (E, n, Ws) stack (from ``scratch(shape)`` when
+    given), built once per block by E − 1 ORs and shared by the dedup check
+    and the phase sweeps."""
+    order = _age_order(head, epochs_s.shape[0])
+    cum = (epochs_s.index_select(0, order) if scratch is None
+           else torch.index_select(epochs_s, 0, order, out=scratch(epochs_s.shape)))
     for t in range(1, cum.shape[0]):
         cum[t] |= cum[t - 1]
     return cum
@@ -365,7 +413,7 @@ def _age_cum(epochs_s: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
 
 def _windowed_stage_update(epochs_s: torch.Tensor, cum: torch.Tensor,
                            lo: torch.Tensor, hi: torch.Tensor, live: torch.Tensor,
-                           off: int, head: torch.Tensor) -> torch.Tensor:
+                           off: int, head: torch.Tensor, scratch=None) -> torch.Tensor:
     """One stage's share of the windowed two-phase block ingest.
 
     Each age-cumulative table gets the unbounded sweep: ``P[t] = Σ_e
@@ -377,7 +425,7 @@ def _windowed_stage_update(epochs_s: torch.Tensor, cum: torch.Tensor,
     BEFORE ``_windowed_combine`` differences and divides."""
     n_epochs, n, ws = epochs_s.shape
     idx, bits = _delta_bits(n, ws, lo, hi, live, off)
-    delta = _delta_table(n, ws, idx, bits)
+    delta = _delta_table(n, ws, idx, bits, scratch)
     ek = _phantom_edges(lo, hi, live, n)
     ps, ms = [], []
     for t in range(n_epochs):  # the unbounded closures, once per epoch age
@@ -446,6 +494,39 @@ def ingest_block_sharded(state: dict, edges) -> dict:
     return state
 
 
+@lru_cache(maxsize=32)
+def make_mesh_ingest(mesh, axis_name: str | None = None):
+    """The column-sharded ingest over a ring mesh: ``ingest(state, edges)``
+    folds one block into a mesh state (``init_sharded_state(..., mesh=)``)
+    in place and returns it. Each stage's shard lives on its device and is
+    folded on its stage's stream through the shared
+    ``dynamic_pipeline.ShardedStateStream`` of the mesh: the per-stage
+    ``seen`` bits and (pre, mixed, dd) partials are summed on stage 0
+    between the phases, K3 twice and K4 twice per shard per block. Memoized
+    per (mesh, axis), so every session on one mesh shares one ingest.
+    State bytes: n²/8/S per stage; a device holds that once for each stage
+    it hosts."""
+    from repro_torch.core.dynamic_pipeline import ShardedStateStream
+
+    runtime = ShardedStateStream.shared(mesh, axis_name or mesh.axis_names[0])
+
+    def ingest(state: dict, edges) -> dict:
+        shards = state["adj"]
+        n, ws = shards[0].shape
+        e = _as_edges(edges, mesh.devices[0])
+        _note_ingest("mesh", shards[0], e, stages=(len(shards),))
+        runtime.step(
+            shards, e,
+            canonical=lambda b: _canonical_live(b, n),
+            seen=lambda s, adj_s, _, lo, hi: (_stage_seen(adj_s, lo, hi, s * ws), None),
+            update=lambda s, adj_s, scratch, _, live, lo, hi: _stage_update(
+                adj_s, lo, hi, live, s * ws, scratch),
+            combine=lambda terms: _combine(state["count"], terms))
+        return state
+
+    return ingest
+
+
 # --------------------------------------------------------------------------
 # Sliding-window ingest: the epoch ring (dense / emulated-sharded)
 # --------------------------------------------------------------------------
@@ -491,6 +572,40 @@ def ingest_block_windowed_sharded(state: dict, edges) -> dict:
     return state
 
 
+@lru_cache(maxsize=32)
+def make_mesh_ingest_windowed(mesh, axis_name: str | None = None):
+    """The column-sharded WINDOWED ingest over a ring mesh, on the same
+    runtime as :func:`make_mesh_ingest`: each stage builds its shard's
+    age-cumulative tables and ``seen`` bits, the (P, M, dd) partials are
+    summed on stage 0 BEFORE ``_windowed_combine`` differences and divides,
+    and ``counts``/``head`` stay on stage 0 (the head reaches each stage
+    with the block's endpoints). E·n²/8/S bytes per stage."""
+    from repro_torch.core.dynamic_pipeline import ShardedStateStream
+
+    runtime = ShardedStateStream.shared(mesh, axis_name or mesh.axis_names[0])
+
+    def seen(s, epochs_s, scratch, lo, hi, head):
+        cum = _age_cum(epochs_s, head, scratch)  # cum[-1] = this shard's live words
+        return _stage_seen(cum[-1], lo, hi, s * epochs_s.shape[2]), cum
+
+    def update(s, epochs_s, scratch, cum, live, lo, hi, head):
+        return _windowed_stage_update(epochs_s, cum, lo, hi, live,
+                                      s * epochs_s.shape[2], head, scratch)
+
+    def ingest(state: dict, edges) -> dict:
+        shards, head = state["epochs"], state["head"]
+        n = shards[0].shape[1]
+        e = _as_edges(edges, mesh.devices[0])
+        _note_ingest("mesh_windowed", shards[0], e, stages=(len(shards),))
+        runtime.step(
+            shards, e, canonical=lambda b: (*_canonical_live(b, n), head), seen=seen,
+            update=update,
+            combine=lambda terms: _windowed_combine(state["counts"], terms, head))
+        return state
+
+    return ingest
+
+
 def expire_epoch(state: dict) -> dict:
     """Slide the window by one epoch, in place: move the ring head onto the
     OLDEST slot and clear it (bitset and count slot). This is the whole
@@ -498,10 +613,12 @@ def expire_epoch(state: dict) -> dict:
     new window, and the oldest-edge attribution guarantees its count slot
     held exactly the triangles those edges supported. One slot is written,
     however many edges die; the head stays on the device, so nothing syncs.
-    Works on dense and sharded windowed states."""
+    Works on dense, sharded and mesh windowed states."""
     epochs, counts, head = state["epochs"], state["counts"], state["head"]
     slot = ((head.to(torch.int64) + 1) % counts.shape[0]).reshape(1)
-    epochs.index_fill_(epochs.dim() - 3, slot, 0)  # the E axis of (..., E, n, W)
+    for shard in epochs if isinstance(epochs, list) else [epochs]:
+        # the E axis of (..., E, n, W); a mesh state clears it in every shard
+        shard.index_fill_(shard.dim() - 3, slot.to(shard.device), 0)
     counts.index_fill_(0, slot, 0)
     head.copy_(slot[0])
     return state
@@ -741,13 +858,17 @@ def padded_blocks(blocks, n_nodes: int, block_size: int | None = None, *, device
 # Whole streams (the core-level twins of the counter's entry points)
 # --------------------------------------------------------------------------
 def count_stream(n_nodes: int, blocks, *, block_size: int | None = None,
-                 n_stages: int = 1, device=None) -> int:
+                 n_stages: int = 1, mesh=None, device=None) -> int:
     """Consume an iterable of (B, 2) numpy edge blocks and return the exact
     triangle count, host-synced, without materializing the edge list.
     Blocks are coalesced/padded to one fixed shape (``padded_blocks``).
-    ``n_stages > 1`` column-shards the state over emulated stages.
-    ``device`` defaults to ``cuda``."""
-    if n_stages > 1:
+    ``n_stages > 1`` column-shards the state over the stages: on ``mesh``
+    when its size matches (each shard on its stage's device, blocks on
+    stage 0's), else emulated on ``device`` (default ``cuda``)."""
+    if n_stages > 1 and mesh is not None and mesh.size == n_stages:
+        state = init_sharded_state(n_nodes, n_stages, mesh=mesh)
+        step, device = make_mesh_ingest(mesh), mesh.devices[0]
+    elif n_stages > 1:
         state = init_sharded_state(n_nodes, n_stages, device=device)
         step = ingest_block_sharded
     else:
@@ -770,13 +891,18 @@ def count_stream_per_edge(n_nodes: int, blocks, *, block_size: int | None = None
 
 def count_windowed_stream(n_nodes: int, epochs, window_epochs: int, *,
                           block_size: int | None = None, n_stages: int = 1,
-                          device=None) -> int:
+                          mesh=None, device=None) -> int:
     """Consume an iterable of EPOCHS — each an iterable of (B, 2) numpy edge
     blocks — and return the triangle count of the final window (the last
     ``window_epochs`` epochs), host-synced. One :class:`BlockBuffer` spans
     the epochs (each epoch's tail flushes at its boundary; the tail shape is
-    sticky), and ``expire_epoch`` slides the window between epochs."""
-    if n_stages > 1:
+    sticky), and ``expire_epoch`` slides the window between epochs.
+    ``n_stages > 1`` shards every epoch bitset as :func:`count_stream`
+    shards its state, on ``mesh`` when its size matches."""
+    if n_stages > 1 and mesh is not None and mesh.size == n_stages:
+        state = init_windowed_sharded_state(n_nodes, window_epochs, n_stages, mesh=mesh)
+        step, device = make_mesh_ingest_windowed(mesh), mesh.devices[0]
+    elif n_stages > 1:
         state = init_windowed_sharded_state(n_nodes, window_epochs, n_stages, device=device)
         step = ingest_block_windowed_sharded
     else:

@@ -1,4 +1,4 @@
-"""Dynamic-pipeline triangle counting (the paper's contribution) on one GPU.
+"""Dynamic-pipeline triangle counting (the paper's contribution) on the GPU.
 
 Counting semantics (equal to Aráoz–Zoltan's filter semantics): fix any
 total order on nodes; the filter responsible for rank r counts streamed
@@ -8,8 +8,9 @@ at its min-rank vertex. Four execution paths:
 - dense:   Δ = sum(U ⊙ (U @ U)) with U the strictly upper triangular
            rank-permuted adjacency — the live-grid CUDA kernel.
 - ring:    row blocks of U are the stage-resident filters; the blocks
-           themselves stream through every stage (``dynamic_pipeline``),
-           each visit one masked matmul-sum kernel launch.
+           themselves stream through every stage (``dynamic_pipeline``:
+           the stage chain, or the ring on a mesh), each visit one masked
+           matmul-sum kernel launch.
 - sparse:  padded sorted forward-adjacency + per-edge sorted intersection —
            the memory-bound path for huge sparse graphs (NY road network).
 - bitset:  stage-resident membership bitmasks; *edge blocks* stream through
@@ -22,10 +23,12 @@ its plain PyTorch version.
 """
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
-from repro_torch.core.dynamic_pipeline import FilterSpec, run_sequential
+from repro_torch.core.dynamic_pipeline import DynamicPipeline, FilterSpec, run_sequential
 from repro_torch.core.partition import RingPartition, ring_partition
 from repro_torch.graphs.formats import Graph
 from repro_torch.kernels.bitset_count.ops import bitset_edge_count
@@ -71,6 +74,10 @@ def count_triangles_sparse(nbrs: torch.Tensor, edges: torch.Tensor, *,
 # --------------------------------------------------------------------------
 # Ring (dense row-block streaming) — the dynamic pipeline
 # --------------------------------------------------------------------------
+# The spec constructors are memoized, as in the reference, so a pipeline's
+# per-spec memo (``DynamicPipeline.jit``) sees the same spec for the same
+# shape; bounded, since every rows_per_stage is a new key.
+@lru_cache(maxsize=64)
 def dense_ring_spec(rows_per_stage: int) -> FilterSpec:
     """FilterSpec for the dense ring. Resident = this stage's row block U_s
     (R, n_pad) uint8; streamed blocks are the row blocks of every stage; the
@@ -110,19 +117,45 @@ def build_dense_ring_operands(
     return part, u.reshape(n_stages, part.rows_per_stage, n_pad)
 
 
-def count_triangles_ring(g: Graph, *, n_stages: int | None = None,
-                         balance: bool = True, device=None) -> int:
-    """Dense count through the stage chain (one device)."""
-    n_stages = n_stages or 1
-    part, blocks = build_dense_ring_operands(g, n_stages, balance=balance,
-                                             device=device)
+def _ring_run(spec: FilterSpec, resident, stream, n_stages: int, mesh, sequential: bool):
+    """The reference's dispatch: the ring on ``mesh`` when it has more than
+    one stage and ``sequential`` is off, else the stage chain."""
+    if sequential or mesh is None or mesh.size == 1:
+        return run_sequential(spec, resident, stream, n_stages)
+    if n_stages != mesh.size:
+        raise ValueError(f"n_stages={n_stages} on a mesh of {mesh.size} stages")
+    return DynamicPipeline(mesh, mesh.axis_names[0]).run(spec, resident, stream)
+
+
+def _ring_setup(mesh, n_stages: int | None, device) -> tuple[int, torch.device]:
+    """(stage count, operand device): a mesh's width and stage 0's device
+    unless given; a device of another type than the mesh's raises."""
+    if mesh is None:
+        return n_stages or 1, resolve_device(device)
+    dev = mesh.devices[0] if device is None else resolve_device(device)
+    if dev.type != mesh.device_type:
+        raise ValueError(f"device {dev} is not of the mesh's type {mesh.device_type!r}")
+    return n_stages or mesh.size, dev
+
+
+def count_triangles_ring(g: Graph, *, mesh=None, n_stages: int | None = None,
+                         balance: bool = True, sequential: bool = False,
+                         device=None) -> int:
+    """Distributed dense count. With a ``mesh`` of more than one stage it
+    runs :class:`DynamicPipeline`, each stage on its own device and stream;
+    with ``sequential=True`` (or no mesh, or a one-stage mesh) the
+    paper-faithful stage chain on one device. Operands are built on
+    ``device`` (default: the mesh's first stage, else ``cuda``)."""
+    n_stages, dev = _ring_setup(mesh, n_stages, device)
+    part, blocks = build_dense_ring_operands(g, n_stages, balance=balance, device=dev)
     spec = dense_ring_spec(part.rows_per_stage)
-    return int(run_sequential(spec, blocks, blocks, n_stages))
+    return int(_ring_run(spec, blocks, blocks, n_stages, mesh, sequential))
 
 
 # --------------------------------------------------------------------------
 # Bitset ring (edge-block streaming) — the literal edge stream
 # --------------------------------------------------------------------------
+@lru_cache(maxsize=1)
 def bitset_ring_spec() -> FilterSpec:
     """Resident = (n_pad, W) int32 membership bitmask over this stage's
     responsible ranks; streamed = (B, 2) int32 edge blocks in rank space.
@@ -181,9 +214,12 @@ def build_bitset_ring_operands(
             torch.from_numpy(edges.reshape(n_stages, edge_block, 2)).to(dev))
 
 
-def count_triangles_bitset_ring(g: Graph, *, n_stages: int | None = None,
-                                balance: bool = True, device=None) -> int:
-    n_stages = n_stages or 1
+def count_triangles_bitset_ring(g: Graph, *, mesh=None, n_stages: int | None = None,
+                                balance: bool = True, sequential: bool = False,
+                                device=None) -> int:
+    """Bitset count with the edge blocks streaming through the stages: on
+    ``mesh`` as :func:`count_triangles_ring` says, else the stage chain."""
+    n_stages, dev = _ring_setup(mesh, n_stages, device)
     part, masks, edges = build_bitset_ring_operands(g, n_stages, balance=balance,
-                                                    device=device)
-    return int(run_sequential(bitset_ring_spec(), masks, edges, n_stages))
+                                                    device=dev)
+    return int(_ring_run(bitset_ring_spec(), masks, edges, n_stages, mesh, sequential))

@@ -85,7 +85,8 @@ class TriangleServer:
 
     One ``TriangleCounter`` lives for the server's lifetime, on ``device``
     (``cuda`` unless ``device="cpu"`` is asked for; it raises without a
-    card). Small graphs whose plan is the dense path are grouped by padded
+    card) and, with ``mesh=``, on that ring mesh: ring plans and
+    ring-sharded streams of the mesh's width run on its stages. Small graphs whose plan is the dense path are grouped by padded
     node bucket and counted with ONE batched live-grid kernel launch per
     group (``count_batch``, executed under the group's planner plan so the
     backend decision survives batching); everything else runs its
@@ -109,12 +110,12 @@ class TriangleServer:
     """
 
     def __init__(self, resources=None, serve_cfg: TriangleServeConfig | None = None,
-                 *, device=None, prefetch_depth: int | None = None,
-                 adaptive_block: bool = False):
+                 mesh=None, prefetch_depth: int | None = None,
+                 adaptive_block: bool = False, *, device=None):
         from repro_torch.api import TriangleCounter
         from repro_torch.serve.sessions import StreamMultiplexer
 
-        self.counter = TriangleCounter(resources, device=device)
+        self.counter = TriangleCounter(resources, device=device, mesh=mesh)
         self.cfg = serve_cfg or TriangleServeConfig()
         self.streams = StreamMultiplexer(self.counter,
                                          prefetch_depth=prefetch_depth,

@@ -11,10 +11,14 @@ The memory story is the planner's (``api.planner.admit_session``): each
 active session pins its adjacency-so-far bitset — n²/8 bytes dense, ×E for
 a sliding-window session of E epoch bitsets, the linear-in-n hybrid state
 past the bitset's reach — and the multiplexer accounts those pinned bytes
-against ``Resources.memory_bytes``. The port's counter has no mesh
-(``mesh_matches`` is False until ROADMAP.md queue A item 5), so an
-emulated-sharded state is charged in full, as the reference charges one
-without a mesh. Residency is a SCHEDULING decision, not a permanent grant:
+against ``Resources.memory_bytes``. A ring-sharded state is charged
+n²/8/S only where the counter's mesh hosts the ring one stage per device,
+as in the reference; an emulated-sharded state is charged in full, and so
+is a mesh state whose stages share one card, since its shards add up there.
+On such a mesh a bitset that fits whole is sharded over every stage, for
+the stages' streams (``api.planner.mesh_admission``,
+``device_state_bytes``). Residency is a SCHEDULING decision, not a
+permanent grant:
 
 - **Fair share + preemption** (``policy="fair"``, the default): every
   session opens with a ``priority=`` (higher runs first; default 0). A
@@ -49,7 +53,13 @@ active sessions and the candidate (a pure function of their (n, plan)
 pairs). Off the card the reserve is 0 and every verdict is the reference's.
 A closing or evicted session drops its state before the freed budget
 admits a waiter, so on the card the memory is free when the waiter
-allocates.
+allocates. Free is not contiguous, though: under a mixed order of opens,
+preemptions and closes of multi-GB states, the caching allocator's fixed
+segments fragment until an 8.73 GB delta table finds no block (an NVIDIA
+H100 80GB HBM3 at 700 W, ``chip_smoke.py`` [serve streams] (f)), so a
+serving process on the card runs with
+``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True``, set before CUDA
+starts.
 
 ASYNC PREFETCH (``prefetch_depth=K``): each active session gets a
 :class:`_PrefetchDriver` — one background ``PropagatingThread`` that owns
@@ -1007,12 +1017,14 @@ class StreamMultiplexer:
 
         pairs = ([(r.n_nodes, r.plan) for r in self._recs.values()
                   if r.state == "active"] if actives else [])
-        return card_reserve_bytes(pairs + list(extra))
+        return card_reserve_bytes(pairs + list(extra), self.counter.mesh)
 
     def _restored_state_bytes(self, ckpt) -> int:
-        """Device bytes a ``restore_stream(ckpt)`` will pin HERE, without
-        touching the device: the full state — the port has no mesh, so an
-        emulated-sharded state pins every shard."""
+        """Device bytes a ``restore_stream(ckpt)`` will pin HERE, on its
+        busiest device, without touching the device: one epoch-ring slice
+        per stage a device hosts when this counter's mesh hosts the stage
+        axis, the full state otherwise (emulated sharding pins every shard)
+        — ``StreamSession.state_bytes`` before the session exists."""
         p = ckpt.plan
         if p.state_layout == "hybrid":
             from repro_torch.core.streaming import hybrid_state_nbytes
@@ -1021,27 +1033,28 @@ class StreamMultiplexer:
             # allocation formula, same figure admission charged at open
             return hybrid_state_nbytes(ckpt.n_nodes, p.hub_slots,
                                        p.tail_capacity)
+        from repro_torch.api.planner import device_state_bytes
+
         w = -(-ckpt.n_nodes // 32)
         per_stage = (max(p.window_epochs, 1) * 4 * ckpt.n_nodes
                      * -(-w // p.n_stages))
-        if p.n_stages > 1 and not self.counter.mesh_matches(p.n_stages):
-            return per_stage * p.n_stages
-        return per_stage
+        return device_state_bytes(per_stage, p.n_stages, self.counter.mesh)
 
     def _admission(self, n_nodes: int, bytes_in_use: int,
                    window: int | None, *, priority: int = 0,
                    preempt: bool = False, block_size: int | None = None,
                    idle: bool = False):
-        """Mesh-aware admission: the planner's per-stage accounting only
-        holds when the counter's mesh hosts the stage axis; without a
-        matching mesh the decision is re-taken at ring width 1. With
+        """Mesh-aware admission (``api.planner.mesh_admission``): the
+        planner's per-stage accounting only holds where the counter's mesh
+        hosts the stage axis one stage per device; otherwise the decision is
+        re-taken at ring width 1. With
         ``preempt`` the planner also sees the active sessions'
         ``(state_bytes, priority)`` and may return a ``"preempt"`` verdict.
         On the card every decision is taken against ``memory_bytes`` less
         the card's reserve — of the active sessions (none when ``idle``) and
         the candidate at the plan it is admitted with, retaken until that
         reserve holds. Returns ``(Admission, victim_sids)``."""
-        from repro_torch.api.planner import admit_session
+        from repro_torch.api.planner import mesh_admission
 
         active = ([r for r in self._recs.values() if r.state == "active"]
                   if preempt else [])
@@ -1052,18 +1065,10 @@ class StreamMultiplexer:
             if reserve:
                 res = dataclasses.replace(
                     res, memory_bytes=max(res.memory_bytes - reserve, 0))
-            adm = admit_session(n_nodes, res, bytes_in_use=bytes_in_use,
-                                window_epochs=window or 0, priority=priority,
-                                actives=actives,
-                                prefetch_depth=self.prefetch_depth or 0)
-            if (adm.admitted and adm.plan.n_stages > 1
-                    and not self.counter.mesh_matches(adm.plan.n_stages)):
-                adm = admit_session(
-                    n_nodes, dataclasses.replace(res, max_stages=1),
-                    bytes_in_use=bytes_in_use, window_epochs=window or 0,
-                    priority=priority, actives=actives,
-                    prefetch_depth=self.prefetch_depth or 0)
-            return adm
+            return mesh_admission(n_nodes, res, self.counter.mesh,
+                                  bytes_in_use=bytes_in_use, window_epochs=window or 0,
+                                  priority=priority, actives=actives,
+                                  prefetch_depth=self.prefetch_depth or 0)
 
         reserve = self._card_reserve(actives=not idle)
         adm = decide(reserve)

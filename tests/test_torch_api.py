@@ -164,8 +164,11 @@ def test_count_triangles_front_door():
     for method in ("auto", "dense", "sparse", "ring", "bitset", "mapreduce"):
         assert count_triangles(g, method=method, counter=c) == want
     assert count_triangles(g, method="ring", n_stages=3, device="cpu") == want
+    # the legacy ring kwargs fall through to the ring entry points, as in
+    # the reference; on any other method they raise
+    assert count_triangles(g, method="ring", mesh=None, counter=c) == want
     with pytest.raises(TypeError):
-        count_triangles(g, method="ring", mesh=None, counter=c)
+        count_triangles(g, method="sparse", mesh=None, counter=c)
 
 
 def test_plan_that_contradicts_the_device_is_refused():

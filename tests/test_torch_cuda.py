@@ -604,6 +604,139 @@ def test_card_reserve_keeps_a_card_budget_from_over_admitting(cuda):
 
 
 # --------------------------------------------------------------------------
+# The ring mesh on one card: every stage on a CUDA stream of its own
+# --------------------------------------------------------------------------
+def _one_card_mesh(n_stages=4):
+    from repro_torch.launch import make_ring_mesh
+
+    return make_ring_mesh(n_stages, devices=[torch.device("cuda", 0)] * n_stages)
+
+
+@pytest.mark.parametrize("method", ["ring", "bitset_ring"])
+def test_mesh_rings_on_one_card_equal_the_brute_count(cuda, method):
+    """Counts through ``DynamicPipeline`` on four streams of the card, ten
+    of them and ten queued pipeline runs back to back with no host sync,
+    all equal to the brute count; S² kernel launches a count."""
+    from repro_torch.core.dynamic_pipeline import DynamicPipeline
+    from repro_torch.core.triangle_pipeline import (
+        bitset_ring_spec,
+        build_bitset_ring_operands,
+        build_dense_ring_operands,
+        dense_ring_spec,
+    )
+
+    g = gen.gnp(300, 0.3, seed=8)
+    want = count_triangles_brute(g)
+    mesh = _one_card_mesh()
+    c = TriangleCounter(Resources(n_devices=4, backend="cuda"), mesh=mesh)
+    assert c.device == torch.device("cuda", 0) and c.mesh_matches(4)
+    kernel = {"ring": "masked_matmul_sum", "bitset_ring": "bitset_edge_count"}[method]
+    before = launch_counts()[kernel]
+    outs = [c.count(g, plan=Plan(method=method, n_stages=4, use_kernel=True,
+                                 interpret=False)) for _ in range(10)]
+    assert [o.item() for o in outs] == [want] * 10
+    assert launch_counts()[kernel] - before == 10 * 16
+    if method == "ring":
+        part, blocks = build_dense_ring_operands(g, 4, device=cuda)
+        spec, resident, stream = dense_ring_spec(part.rows_per_stage), blocks, blocks
+    else:
+        _, resident, stream = build_bitset_ring_operands(g, 4, device=cuda)
+        spec = bitset_ring_spec()
+    pipe = DynamicPipeline(mesh)
+    totals = [pipe.run(spec, resident, stream) for _ in range(10)]
+    assert [int(t) for t in totals] == [want] * 10
+
+
+@pytest.mark.parametrize("window", [0, 3])
+def test_mesh_stream_on_one_card_equals_the_cpu_emulated_state(cuda, window):
+    """A four-stage mesh session on the card (shards on four streams)
+    equals the CPU port's emulated sharded session array for array; K3 and
+    K4 launch twice a shard a block (once per epoch age and shard in a
+    window: E + 1 and 2E)."""
+    from repro_torch.core import streaming
+
+    n, S, block = 3000, 4, 4096
+    rng = np.random.default_rng(6)
+    edges = rng.integers(0, n, size=(30_000, 2)).astype(np.int32)
+    chunks = np.array_split(edges, 9)
+    plans = [Plan(method="stream", n_stages=S, block_size=block, window_epochs=window,
+                  **flags) for flags in ({"use_kernel": True, "interpret": False}, {})]
+    card = TriangleCounter(Resources(backend="cuda"), plan=plans[0], mesh=_one_card_mesh(S))
+    cpu = TriangleCounter(Resources(), plan=plans[1], device="cpu")
+    before = launch_counts()
+    sessions = [card.open_stream(n), cpu.open_stream(n)]
+    for i, chunk in enumerate(chunks):
+        for s in sessions:
+            if window and i % 3 == 2:
+                s.advance()
+            s.feed(chunk)
+    a, b = (s.finalize() for s in sessions)
+    after = launch_counts()
+    assert a.item() == b.item() and a.stats["on_mesh"] and not b.stats["on_mesh"]
+    sa, sb = (streaming.snapshot_state(s.state) for s in sessions)
+    assert sorted(sa) == sorted(sb)
+    for k in sa:
+        np.testing.assert_array_equal(sa[k], sb[k])
+    per_k3, per_k4 = (window + 1, 2 * window) if window else (2, 2)
+    for name, per in (("bitset_edge_count", per_k3), ("bitset_pair_count", per_k4)):
+        assert after[name] - before[name] == per * S * a.stats["n_blocks"]
+
+
+def test_mesh_ingest_never_waits_for_the_card(cuda):
+    """The mesh ingests add no host sync to the bitset ingest's: events
+    and stream waits only (CUDA's sync debug mode raises on a sync)."""
+    from repro_torch.core import streaming
+
+    mesh = _one_card_mesh()
+    rng = np.random.default_rng(4)
+    edges = rng.integers(0, 5000, size=(40_000, 2)).astype(np.int32)
+    blocks = list(streaming.padded_blocks([edges], 5000, 8192, device=cuda))
+    unbounded = streaming.init_sharded_state(5000, 4, mesh=mesh)
+    windowed = streaming.init_windowed_sharded_state(5000, 3, 4, mesh=mesh)
+    ingest = streaming.make_mesh_ingest(mesh)
+    ingest_windowed = streaming.make_mesh_ingest_windowed(mesh)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in blocks:
+            ingest(unbounded, b)
+            ingest_windowed(windowed, b)
+            streaming.expire_epoch(windowed)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    cpu = streaming.count_stream(5000, [edges], block_size=8192, device="cpu")
+    assert int(unbounded["count"]) == cpu
+
+
+def test_same_card_mesh_admission_charges_every_shard(cuda):
+    """The deliberate difference, on the card: a multiplexer over four
+    stages of one card shards a bitset that fits whole over the stages and
+    charges all four shards — the reference would charge one, n²/8/S, on a
+    matching mesh, and over-admit the card."""
+    from repro_torch.api import planner
+
+    n, S, block = 20_000, 4, 4096
+    shard = 4 * n * (-(-(-(-n // 32)) // S))
+    res = Resources(memory_bytes=planner._CARD_FIXED_BYTES + 16 * S * shard,
+                    backend="cuda")
+    mux = StreamMultiplexer(TriangleCounter(res, device=cuda, mesh=_one_card_mesh(S)),
+                            block_size=block)
+    sid = mux.open(n)
+    rec = mux._recs[sid]
+    assert rec.plan.n_stages == S and rec.plan.state_layout == "bitset"
+    assert mux.bytes_in_use == S * shard == rec.session.state_bytes \
+        == sum(x.nbytes for x in rec.session.state["adj"])
+    rng = np.random.default_rng(5)
+    edges = rng.integers(0, n, size=(20_000, 2)).astype(np.int32)
+    for i in range(0, len(edges), block):
+        mux.feed(sid, edges[i:i + block])
+    r = mux.close(sid)
+    assert r.stats["on_mesh"] and mux.bytes_in_use == 0
+    assert r.item() == TriangleCounter(Resources(), device="cpu").count_stream(
+        n, [edges], plan=Plan(method="stream", block_size=block)).item()
+
+
+# --------------------------------------------------------------------------
 # K6 and K7, and the LM and recsys paths on the card
 # --------------------------------------------------------------------------
 _K6 = {"wgmma": "flash_attention_wgmma", "fma": "flash_attention",

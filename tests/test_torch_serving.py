@@ -17,9 +17,9 @@ bytes (without x64 a count is 4 bytes narrower, ROADMAP.md §C).
 Also the reference's own cases of ``tests/test_serve_sessions.py``,
 ``tests/test_preemptible_serving.py`` and the stream half of
 ``tests/test_streaming_and_serve.py`` on the port, seeded loops in place of
-``hypothesis``. Their forced-8-device mesh cases wait for the port's
-multi-device rings (ROADMAP.md, queue A item 5); the single-session
-checkpoint cases are in ``tests/test_torch_sessions.py``. The card's
+``hypothesis``. Their forced-8-device mesh cases are in
+``tests/test_torch_mesh.py``; the single-session checkpoint cases are in
+``tests/test_torch_sessions.py``. The card's
 admission reserve (``card_reserve_bytes``) is pinned here on the CPU."""
 import dataclasses
 import os
@@ -507,9 +507,9 @@ def test_over_budget_session_queues_then_replays_exactly():
 
 
 def test_emulated_sharding_does_not_discount_admission():
-    """Without a mesh (``mesh_matches`` is False in the port) the emulated
-    shards all sit on one device, so the multiplexer re-takes the decision
-    at ring width 1: the hybrid state, charged in full."""
+    """Without a mesh (``mesh_matches`` is False) the emulated shards all
+    sit on one device, so the multiplexer re-takes the decision at ring
+    width 1: the hybrid state, charged in full."""
     res = Resources(n_devices=8, memory_bytes=256 << 20)
     assert admit_session(100_000, res).action == "admit-sharded"
     counter = _counter(res)
@@ -1091,10 +1091,11 @@ def test_card_admission_charges_the_ingest_reserve_cpu_does_not(monkeypatch):
 # The count_triangles shim, default_counter, utilities
 # --------------------------------------------------------------------------
 def test_count_triangles_shares_the_default_counter_and_refuses_other_kwargs():
-    """The shim keeps one counter per device, takes plan fields, and
-    raises ``TypeError`` for every other keyword: the reference's legacy
-    ring kwargs have nowhere to go until the multi-device rings
-    (ROADMAP.md, queue A item 5)."""
+    """The shim keeps one counter per device and takes plan fields. The
+    reference's legacy ring kwargs (``sequential=``, ``mesh=``) fall through
+    to the ring entry points, as in the reference, without touching the
+    default counter; for any other method, and for any other keyword, the
+    shim raises ``TypeError``."""
     g = graph_from_arrays(60, gen.gnp(60, 0.4, seed=4).edges)
     want = count_triangles_brute(gen.gnp(60, 0.4, seed=4))
     c = default_counter("cpu")
@@ -1104,20 +1105,50 @@ def test_count_triangles_shares_the_default_counter_and_refuses_other_kwargs():
     assert count_triangles(g, method="dense", device="cpu") == want
     assert count_triangles(g, method="ring", n_stages=2, device="cpu") == want
     assert sum(c._seen.values()) == uses + 3
-    for method in ("ring", "bitset", "sparse"):
-        with pytest.raises(TypeError, match="sequential"):
-            count_triangles(g, method=method, sequential=True, device="cpu")
+    for method in ("ring", "bitset"):
+        assert count_triangles(g, method=method, sequential=True, device="cpu") == want
+        assert count_triangles(g, method=method, n_stages=3, mesh=None,
+                               device="cpu") == want
+    assert sum(c._seen.values()) == uses + 3
+    for method, kw in (("sparse", {"sequential": True}), ("dense", {"mesh": None}),
+                       ("ring", {"dtype": "uint8"})):
+        with pytest.raises(TypeError, match=next(iter(kw))):
+            count_triangles(g, method=method, device="cpu", **kw)
 
 
 def test_mesh_kwarg_raises_until_the_multi_device_rings():
-    """``mesh=`` has no port until ROADMAP.md queue A item 5 (multi-device
-    rings): the shim raises ``TypeError`` instead of falling through, and
-    the counter's ``mesh_matches`` is always False."""
+    """``mesh=`` routes to the ring (ROADMAP.md, queue A item 5): through
+    the shim to the ring entry points, and through the counter, whose
+    ``mesh_matches`` answers from its mesh — a mesh of more than one stage,
+    of the plan's width."""
+    from repro_torch.core import dynamic_pipeline
+    from repro_torch.launch import make_ring_mesh
+
     g = graph_from_arrays(30, gen.gnp(30, 0.4, seed=1).edges)
-    for method in ("ring", "bitset", "dense"):
-        with pytest.raises(TypeError, match="mesh"):
-            count_triangles(g, method=method, mesh=None, device="cpu")
+    want = count_triangles_brute(gen.gnp(30, 0.4, seed=1))
+    mesh = make_ring_mesh(4, devices=["cpu"] * 4)
+    runs = []
+    plain_run = dynamic_pipeline.DynamicPipeline.run
+
+    def counted(self, spec, resident, stream):
+        runs.append(self.mesh)
+        return plain_run(self, spec, resident, stream)
+
+    dynamic_pipeline.DynamicPipeline.run = counted
+    try:
+        for method in ("ring", "bitset"):
+            assert count_triangles(g, method=method, mesh=mesh) == want
+        assert runs == [mesh, mesh]
+        c = _counter(Resources(n_devices=4), mesh=mesh)
+        assert c.count(g, plan=Plan(method="ring", n_stages=4)).item() == want
+        assert len(runs) == 3
+    finally:
+        dynamic_pipeline.DynamicPipeline.run = plain_run
+    with pytest.raises(TypeError, match="mesh"):
+        count_triangles(g, method="dense", mesh=mesh, device="cpu")
     assert not _counter().mesh_matches(4)
+    assert c.mesh_matches(4) and not c.mesh_matches(2) and not c.mesh_matches(1)
+    assert not _counter(mesh=make_ring_mesh(1, devices=["cpu"])).mesh_matches(1)
 
 
 def test_adaptive_block_sizer_equals_the_reference():
