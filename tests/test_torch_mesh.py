@@ -386,9 +386,12 @@ def test_mesh_state_layout_bytes_and_expiry():
 @pytest.mark.parametrize("window", [None, 3])
 def test_checkpoint_moves_between_mesh_and_emulated_counters(window):
     """tests/test_preemptible_serving.py's mesh checkpoint and restore,
-    both ways between a mesh counter and an emulated one: every finished
-    state equals the reference's uninterrupted emulated session, and a
-    restore onto the mesh that took the checkpoint adds no ingest key."""
+    both ways between a mesh counter and an emulated one. After every op
+    each state equals the reference's emulated session that took the same
+    checkpoint (the checkpoint ingests the buffered tail, so blocks after it
+    differ from an unbroken feed's); the finished state equals the
+    reference's uninterrupted session; a restore onto the mesh that took
+    the checkpoint adds no ingest key."""
     n, S = 200, 4
     mesh = _cpu_mesh(S)
     p = Plan(method="stream", n_stages=S, block_size=300, window_epochs=window or 0)
@@ -410,13 +413,23 @@ def test_checkpoint_moves_between_mesh_and_emulated_counters(window):
         ref_s = run(RefTriangleCounter(plan=ref_p).open_stream(n), ops)
         ref_r = ref_s.finalize()
         want = ref_streaming.snapshot_state(ref_s.state)
+        twin = RefTriangleCounter(plan=ref_p).open_stream(n)
+        steps = []
+        for i, op in enumerate(ops):
+            if i == cut:
+                twin.checkpoint()
+            steps.append(ref_streaming.snapshot_state(run(twin, [op]).state))
     mesh_c, emu_c = TriangleCounter(plan=p, mesh=mesh), TriangleCounter(plan=p, device="cpu")
     for first, second in ((mesh_c, emu_c), (emu_c, mesh_c), (mesh_c, mesh_c)):
-        s = run(first.open_stream(n), ops[:cut])
+        s = first.open_stream(n)
+        for i, op in enumerate(ops[:cut]):
+            _arrays_equal(streaming.snapshot_state(run(s, [op]).state), steps[i])
         ck = s.checkpoint()
         assert ck.arrays["epochs" if window else "adj"].shape[0] == S
         keys = streaming.ingest_trace_count()
-        rest = run(second.restore_stream(ck), ops[cut:])
+        rest = second.restore_stream(ck)
+        for i, op in enumerate(ops[cut:], cut):
+            _arrays_equal(streaming.snapshot_state(run(rest, [op]).state), steps[i])
         if second is mesh_c:
             assert isinstance(rest.state["epochs" if window else "adj"], list)
         if first is second:
