@@ -75,10 +75,10 @@
    exact-count refusal raising); (f) on a multiplexer over a one-card mesh
    of ``MESH_STAGES`` stages, NY-size sessions opened until one queues and
    then a seeded mixed order of priority-0 and priority-1 opens,
-   preemptions and closes — mesh sessions (bitsets admitted whole, sharded
-   over the stages), hybrid ones and plain bitsets admitted by preemption —
-   every active session fed a block after each change, no out-of-memory
-   error.
+   preemptions and closes — mesh sessions (opened under a four-stage
+   plan), bitsets and hybrid ones the planner sizes — every active session
+   fed a block after each change, no out-of-memory error, under the
+   allocator settings the multiplexer makes itself.
 7. [ring mesh] The dynamic pipeline's ring on ``make_ring_mesh(4,
    devices=[cuda:0] * 4)``, each stage on its own CUDA stream: (a)
    ``TriangleCounter(mesh=)`` with ring and bitset_ring forced on every
@@ -87,15 +87,17 @@
    K3 launches a count; the pipeline alone 20 times queued without a
    synchronisation; FNA.5's and FB107x9's walls at S = 2, 4, 8 beside the
    stage chain's (printed, no claim); (b) ``TriangleServer(mesh=)``'s
-   ``serve_streams`` of FNA.5, NY and FB107x9 on four-stage mesh sessions
+   ``serve_streams`` of FNA.5, NY and FB107x9, each under the planner's
+   plan at four stages
    (counts = resident, ``on_mesh``, K3 and K4 twice a shard a block), and
    the same interleave by hand with every shard ``torch.equal`` to the
    emulated sharded state fed the same blocks (NY: 8.73 GB in four 2.18 GB
    shards); (c) FB107x9's window of 4 over 8 epochs on the mesh equal to
    [stream]'s; (d) a mesh checkpoint restored on an emulated counter and
    the reverse, bit-identical to an uninterrupted session, no new ingest
-   key; (e) the multiplexer on the one-card mesh charging NY's four shards
-   in full, beside ``admit_session``'s verdicts.
+   key; (e) the multiplexer on the one-card mesh charging a four-stage NY
+   session's four shards in full, and planning NY at ring width 1 without
+   a plan, beside ``admit_session``'s verdicts.
 8. [lm] Yi-6B at full width and depth (32 layers, d_model 4,096, 32/4
    heads, d_ff 11,008, vocab 64,000; f32 weights drawn on the card from a
    seeded generator): ``LMServer.generate`` on 8 seeded prompts of 256 to
@@ -1667,11 +1669,13 @@ def mixed_admission(graphs: dict, res) -> dict:
     one-card mesh of ``MESH_STAGES`` stages until one queues, then a seeded
     mixed order of opens (priority 0 and 1), preemptions and closes; after
     every change each active session is fed one block of ``SERVE_BLOCK``
-    rows of its own cursor into NY's shuffled edges. The sessions are mesh
-    (bitsets admitted whole, sharded over the stages), hybrid, and plain
-    bitset (admitted by preemption). An out-of-memory error raises; the
-    pinned bytes and the reserve stay within the budget after every
-    change."""
+    rows of its own cursor into NY's shuffled edges. The first two opens
+    and the ``mesh`` ones run a ``MESH_STAGES``-stage plan on the mesh; the
+    planner sizes the rest, bitsets and then hybrids near the budget. An
+    out-of-memory error raises; the pinned bytes and the reserve stay
+    within the budget after every change. The script sets no allocator
+    option: the multiplexer's first admission turns the allocator's
+    expandable segments on, which the phase checks."""
     import gc
 
     import numpy as np
@@ -1686,6 +1690,7 @@ def mixed_admission(graphs: dict, res) -> dict:
     mesh = make_ring_mesh(MESH_STAGES, devices=[torch.device(DEVICE, 0)] * MESH_STAGES)
     mux = StreamMultiplexer(TriangleCounter(res, device=DEVICE, mesh=mesh),
                             block_size=SERVE_BLOCK)
+    ring = stream_plan(n, res, MESH_STAGES)
     rng = np.random.default_rng(24)
     edges = ny.edges[rng.permutation(ny.n_edges)]
     cursor, kinds, log_ops = {}, set(), []
@@ -1708,16 +1713,24 @@ def mixed_admission(graphs: dict, res) -> dict:
     sids = []
     t0 = time.perf_counter()
     while not sids or mux.status(sids[-1]) == "active":
-        sids.append(mux.open(n))
+        sids.append(mux.open(n, plan=ring if len(sids) < 2 else None))
         changed("open")
     filled = len(sids) - 1
+    alloc_conf = {v: os.environ.get(v) for v in ("PYTORCH_CUDA_ALLOC_CONF", "PYTORCH_ALLOC_CONF")}
+    expandable = None
+    if DEVICE == "cuda":  # the card's allocator; a CPU rehearsal has none
+        expandable = sum(seg["is_expandable"] for seg in torch.cuda.memory_snapshot())
+        if "expandable" in str(alloc_conf) or not expandable:
+            raise AssertionError(f"(f) allocator: {alloc_conf}, {expandable} expandable "
+                                 "segments after the multiplexer's first admissions")
     order = ["open1"] + list(rng.permutation(
-        ["open1", "preempt", "close", "close", "close", "open0", "open0"]))
+        ["open1", "mesh1", "preempt", "close", "close", "close", "open0", "open0"]))
     for op in order:
         live = [s for s in sids if mux.status(s) != "closed"]
         active = [s for s in live if mux.status(s) == "active"]
-        if op.startswith("open"):
-            sids.append(mux.open(n, priority=int(op[-1])))
+        if op.startswith(("open", "mesh")):
+            sids.append(mux.open(n, priority=int(op[-1]),
+                                 plan=ring if op.startswith("mesh") else None))
         elif op == "preempt":
             mux.preempt(active[int(rng.integers(len(active)))])
         else:
@@ -1735,12 +1748,13 @@ def mixed_admission(graphs: dict, res) -> dict:
     if not want <= kinds:
         raise AssertionError(f"(f) session kinds {sorted(kinds)} lack {sorted(want - kinds)}")
     log(f"  (f) mixed order on a {MESH_STAGES}-stage one-card mesh: {filled} NY-size "
-        f"sessions admitted before one queued, then {' '.join(order)}, one block fed to "
+        f"sessions admitted before one queued ({expandable} expandable allocator segments "
+        f"by then, no allocator option set), then {' '.join(order)}, one block fed to "
         f"every active session after each change; kinds (layout, stages) "
         f"{sorted(kinds)}; sched {mux.sched_stats}; peak allocated {peak} B of the "
         f"{res.memory_bytes} B budget; no out-of-memory error; {wall:.1f} s")
     out = dict(filled=filled, order=order, kinds=sorted(kinds), peak_bytes=peak,
-               sched=mux.sched_stats, wall_s=wall)
+               sched=mux.sched_stats, wall_s=wall, expandable_segments=expandable)
     del mux
     gc.collect()
     torch.cuda.empty_cache()
@@ -1892,9 +1906,10 @@ def ring_mesh_phase(graphs: dict) -> dict:
     feeds = {nm: ragged(graphs[nm].edges[rng.permutation(graphs[nm].n_edges)], rng, 50_000)
              for nm in names}
     server = TriangleServer(device=DEVICE, mesh=mesh)
+    ring = {nm: stream_plan(graphs[nm].n_nodes, detected, S) for nm in names}
     k0 = launch_counts()
     results, wall = timed_sync(lambda: server.serve_streams(
-        [(graphs[nm].n_nodes, feeds[nm]) for nm in names]))
+        [(graphs[nm].n_nodes, feeds[nm], ring[nm]) for nm in names]))
     k1 = launch_counts()
     for nm, r in zip(names, results):
         if r.item() != graphs["_served"][nm] or not r.stats["on_mesh"] \
@@ -1908,7 +1923,7 @@ def ring_mesh_phase(graphs: dict) -> dict:
         f"{blocks} blocks in {wall * 1e3:.1f} ms, each count = resident, on_mesh, "
         f"K3 and K4 2 x {S} shards a block")
     del results
-    sids = {nm: server.open_stream(graphs[nm].n_nodes) for nm in names}
+    sids = {nm: server.open_stream(graphs[nm].n_nodes, plan=ring[nm]) for nm in names}
     feed_round_robin(server.streams, {sids[nm]: feeds[nm] for nm in names})
     emulated = TriangleCounter(detected, device=DEVICE)
     ny_bytes = None
@@ -2007,7 +2022,7 @@ def ring_mesh_phase(graphs: dict) -> dict:
     # (e) admission on the same-card mesh
     ny = graphs["NY"]
     mux = StreamMultiplexer(TriangleCounter(detected, device=DEVICE, mesh=mesh))
-    sid = mux.open(ny.n_nodes)
+    sid = mux.open(ny.n_nodes, plan=stream_plan(ny.n_nodes, detected, S))
     rec = mux._recs[sid]
     w = -(-ny.n_nodes // 32)
     shard = 4 * ny.n_nodes * -(-w // S)
@@ -2018,13 +2033,20 @@ def ring_mesh_phase(graphs: dict) -> dict:
             or mux.state_bytes_of(sid) != S * shard or per_stage.state_bytes != shard:
         raise AssertionError(f"(e) NY on the mesh: {rec.plan.n_stages} stages, "
                              f"{mux.bytes_in_use} B in use, not {S} x {shard} B")
+    # without a plan the planner never picks the ring on one card: ring width 1
+    planned = mux.open(ny.n_nodes)
+    width1 = (mux._recs[planned].plan.n_stages, mux.state_bytes_of(planned))
+    if width1 != (1, planner_whole.state_bytes) or planner_whole.action != "admit-dense":
+        raise AssertionError(f"(e) NY planned on the mesh: {width1}, {planner_whole.action}")
+    mux.close(planned)
     log(f"  (e) StreamMultiplexer on the {S}-stage one-card mesh, Resources.detect(): NY "
-        f"opened on {rec.plan.n_stages} stages, bytes_in_use {mux.bytes_in_use} B = {S} x "
-        f"{shard} B shards (reserve {mux.reserve_bytes} B); admit_session's verdict: "
+        f"opened under a {S}-stage plan on {rec.plan.n_stages} stages, bytes_in_use "
+        f"{S * shard} B = {S} x {shard} B shards (reserve {mux.reserve_bytes} B); "
+        f"NY opened without a plan: {width1[0]} stage, {width1[1]} B; admit_session's verdict: "
         f"{planner_whole.action} {planner_whole.state_bytes} B at the detected budget, "
         f"{per_stage.action} {per_stage.state_bytes} B a stage at {int(1.2 * shard)} B "
         f"over {S} devices (the reference's charge on any matching mesh)")
-    summary["e"] = dict(bytes_in_use=mux.bytes_in_use, shard_bytes=shard,
+    summary["e"] = dict(bytes_in_use=S * shard, shard_bytes=shard, width1=width1,
                         reserve_bytes=mux.reserve_bytes, admit_session=planner_whole.action,
                         per_stage_verdict=[per_stage.action, per_stage.state_bytes])
     mux.close(sid)
@@ -2593,13 +2615,6 @@ def main() -> int:
               "of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, src)
-    # The caching allocator's fixed segments fragment under a mixed order of
-    # multi-GB states and scratch ([serve streams] (f) on an NVIDIA H100
-    # 80GB HBM3 at 700 W: an 8.73 GB delta table found no contiguous block
-    # beside 8.5 GiB of free fragments); expandable segments map freed
-    # pages to any later request. Set before CUDA starts, as a server
-    # process sets it.
-    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():

@@ -237,7 +237,6 @@ class TriangleCounter:
         self.resources = resources or Resources.detect(self.device)
         self.fixed_plan = plan
         self.mesh = mesh
-        self._pipeline = None  # the mesh's DynamicPipeline, made on first use
         self._seen: dict[tuple, int] = {}  # cache key -> uses
 
     # -- planning ----------------------------------------------------------
@@ -352,7 +351,7 @@ class TriangleCounter:
         emulated (S, ...) layout either way)."""
         from repro_torch.core import streaming
 
-        self._check_stream_plan(ckpt.plan)
+        self.check_stream_plan(ckpt.plan)
         on_mesh = self.mesh_matches(ckpt.plan.n_stages)
         session = StreamSession(
             self, ckpt.n_nodes, ckpt.plan, ckpt.block_size, on_mesh,
@@ -405,7 +404,10 @@ class TriangleCounter:
                 session.feed(b)
         return session.finalize()
 
-    def _check_stream_plan(self, p: Plan) -> None:
+    def check_stream_plan(self, p: Plan) -> None:
+        """Raise ``ValueError`` when ``p``'s kernel flags contradict this
+        counter's device (a stream multiplexer checks a caller's plan at
+        ``open``, before the session waits for memory)."""
         self._check_plan(p)
 
     def mesh_matches(self, n_stages: int) -> bool:
@@ -421,13 +423,11 @@ class TriangleCounter:
         """The callable that runs ``spec`` for plan ``p``: the mesh's
         pipeline (memoized per spec) when the mesh hosts the plan's ring,
         else the stage chain on this device."""
-        from repro_torch.core.dynamic_pipeline import DynamicPipeline, run_sequential
+        from repro_torch.core.dynamic_pipeline import mesh_runtime, run_sequential
 
         if not self.mesh_matches(p.n_stages):
             return lambda r, s: run_sequential(spec, r, s, p.n_stages)
-        if self._pipeline is None:
-            self._pipeline = DynamicPipeline(self.mesh, self.mesh.axis_names[0])
-        return self._pipeline.jit(spec)
+        return mesh_runtime(self.mesh, self.mesh.axis_names[0]).pipeline.jit(spec)
 
     def _run_stream(self, g, p: Plan):
         # A memory-resident graph executed under a stream plan: feed its own
@@ -606,7 +606,7 @@ class StreamSession:
         from repro_torch.api.planner import device_state_bytes
         from repro_torch.core import streaming
 
-        counter._check_stream_plan(plan)
+        counter.check_stream_plan(plan)
         self.counter = counter
         self.n_nodes = n_nodes
         self.plan = plan

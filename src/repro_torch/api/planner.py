@@ -684,46 +684,89 @@ def device_state_bytes(stage_bytes: int, n_stages: int, mesh=None) -> int:
     return stage_bytes * n_stages
 
 
+def plan_state_bytes(n_nodes: int, plan: Plan, mesh=None) -> int:
+    """Device bytes a stream of ``n_nodes`` nodes under ``plan`` pins on the
+    busiest device of ``mesh``, without touching a device: the hybrid
+    state's allocation, or the epoch ring's column shards through
+    :func:`device_state_bytes` — ``StreamSession.state_bytes`` before the
+    session exists."""
+    if plan.state_layout == "hybrid":
+        from repro_torch.core.streaming import hybrid_state_nbytes
+
+        return hybrid_state_nbytes(n_nodes, plan.hub_slots, plan.tail_capacity)
+    w = -(-n_nodes // 32)
+    per_stage = max(plan.window_epochs, 1) * 4 * n_nodes * -(-w // max(plan.n_stages, 1))
+    return device_state_bytes(per_stage, plan.n_stages, mesh)
+
+
 def mesh_admission(n_nodes: int, resources: Resources | None = None, mesh=None,
                    **kw) -> Admission:
     """:func:`admit_session` (``kw`` are its keywords) as a multiplexer
-    whose counter holds ``mesh`` takes it.
-
-    - The planner's n²/8/S-per-stage accounting holds only where the mesh
-      hosts the plan's ring with one stage per device. Otherwise — no
-      mesh, a mesh of another width, or stages that share a device and so
-      add up on it (:func:`device_state_bytes`) — the decision is re-taken
-      at ring width 1, where the charge is the whole state. On a mesh of
-      distinct devices this is the reference's rule, verdict for verdict.
-    - A mesh whose stages share a device gives a session no memory, only
-      streams: there a bitset admitted whole at ring width 1
-      (``"admit-dense"``) is sharded over every stage of the mesh instead,
-      and charged what its busiest device holds (on one card, every shard)
-      — if that still fits, the shards' padding words included. The
-      reference has no such mesh; this is the port's deliberate
-      difference."""
+    whose counter holds ``mesh`` takes it: the planner's n²/8/S-per-stage
+    accounting holds only where the mesh hosts the plan's ring with one
+    stage per device. Otherwise — no mesh, a mesh of another width, or
+    stages that share a device and so add up on it
+    (:func:`device_state_bytes`) — the decision is re-taken at ring width
+    1, where the charge is the whole state. On a mesh of distinct devices
+    this is the reference's rule, verdict for verdict; where the stages
+    share a device the planner never picks the ring (it gives a session no
+    memory there), and a session reaches it through an explicit plan
+    (:func:`plan_admission`)."""
     res = resources or Resources()
     adm = admit_session(n_nodes, res, **kw)
     if (adm.admitted and adm.plan.n_stages > 1
             and device_state_bytes(adm.state_bytes, adm.plan.n_stages, mesh)
             != adm.state_bytes):
-        res = dataclasses.replace(res, max_stages=1)
-        adm = admit_session(n_nodes, res, **kw)
-    if adm.action != "admit-dense" or mesh is None or mesh.stages_per_device() == 1:
-        return adm
-    n, s = max(int(n_nodes), 1), mesh.size
-    w = -(-n // 32)
-    charge = device_state_bytes(max(adm.plan.window_epochs, 1) * 4 * n * -(-w // s), s, mesh)
-    surplus = max(charge - adm.state_bytes, 0)  # the shards' padding words
-    if surplus:
-        smaller = dataclasses.replace(res, memory_bytes=max(res.memory_bytes - surplus, 0))
-        if admit_session(n_nodes, smaller, **kw).action != "admit-dense":
-            return adm
-    return dataclasses.replace(
-        adm, action="admit-sharded", state_bytes=charge,
-        plan=dataclasses.replace(adm.plan, n_stages=s),
-        reason=(f"admit-sharded: {s} stages sharing {len(mesh.physical_devices())} "
-                f"device(s), {charge} B on the busiest one; " + adm.reason))
+        adm = admit_session(n_nodes, dataclasses.replace(res, max_stages=1), **kw)
+    return adm
+
+
+def plan_admission(n_nodes: int, plan: Plan, resources: Resources | None = None,
+                   mesh=None, *, bytes_in_use: int = 0, priority: int = 0,
+                   actives=None, prefetch_depth: int = 0) -> Admission:
+    """Admission of a stream that runs the caller's ``plan`` instead of the
+    planner's. The charge is what the plan pins on the busiest device of
+    ``mesh`` (:func:`plan_state_bytes`), taken against the remainder as
+    :func:`admit_session` takes a planned state: admitted if it fits, else
+    ``"preempt"`` if checkpointing strictly-lower-priority ``actives``
+    (lowest priority first, then largest state) frees enough, else
+    ``"queue"``; the prefetch pipeline's blocks shrink the remainder first.
+    The reference's multiplexer plans every session itself; this is how a
+    session reaches a ring the planner would not pick, such as the stages
+    of a mesh that share one card."""
+    res = resources or Resources()
+    charge = plan_state_bytes(n_nodes, plan, mesh)
+    prefetch_bytes = 2 * int(prefetch_depth) * plan.block_size * 2 * 4
+    remaining = max(res.memory_bytes - bytes_in_use - prefetch_bytes, 0)
+    if prefetch_depth:
+        plan = dataclasses.replace(plan, prefetch_depth=int(prefetch_depth))
+    kind = ("hybrid" if plan.state_layout == "hybrid"
+            else "sharded" if plan.n_stages > 1 else "dense")
+    if charge <= remaining:
+        return Admission(
+            action=f"admit-{kind}", plan=plan, state_bytes=charge,
+            reason=(f"admit-{kind}: the caller's plan pins {charge} B, within the "
+                    f"{remaining} B remaining ({bytes_in_use} B already pinned)"))
+    eligible = sorted(
+        (i for i, (_, prio) in enumerate(actives or ()) if prio < priority),
+        key=lambda i: (actives[i][1], -actives[i][0], i))
+    freed = 0
+    for k, i in enumerate(eligible):
+        freed += actives[i][0]
+        if charge <= remaining + freed:
+            return Admission(
+                action="preempt", plan=plan, state_bytes=charge,
+                victims=tuple(eligible[:k + 1]),
+                reason=(f"preempt: the caller's plan pins {charge} B, which fits only "
+                        f"after checkpointing {k + 1} lower-priority active(s) "
+                        f"({freed} B freed)"))
+    return Admission(
+        action="queue", plan=None, state_bytes=charge,
+        reason=(f"the caller's plan pins {charge} B but {remaining} B of "
+                f"{res.memory_bytes} B remain"
+                + (f"; preempting all {len(eligible)} lower-priority active(s) "
+                   f"frees only {freed} B" if eligible else "")
+                + " — queue until an active session closes"))
 
 
 # --------------------------------------------------------------------------

@@ -213,11 +213,11 @@ class DynamicPipeline:
     issued on the caller's current stream after it waited on every stage.
     """
 
-    def __init__(self, mesh, axis_name: str = "stage"):
+    def __init__(self, mesh, axis_name: str = "stage", streams: StageStreams | None = None):
         self.n_stages = _check_axis(mesh, axis_name)
         self.mesh = mesh
         self.axis_name = axis_name
-        self.streams = StageStreams(mesh)
+        self.streams = streams or StageStreams(mesh)
         self._memo: collections.OrderedDict = collections.OrderedDict()
 
     def run(self, spec: FilterSpec, resident, stream):
@@ -266,23 +266,16 @@ class ShardedStateStream:
     Used by ``core.streaming`` for the column-sharded adjacency bitset
     (n²/8/S bytes per stage)."""
 
-    _shared: dict = {}
-
-    def __init__(self, mesh, axis_name: str = "stage"):
+    def __init__(self, mesh, axis_name: str = "stage", streams: StageStreams | None = None):
         self.n_stages = _check_axis(mesh, axis_name)
         self.mesh = mesh
         self.axis_name = axis_name
-        self.streams = StageStreams(mesh)
+        self.streams = streams or StageStreams(mesh)
 
     @classmethod
     def shared(cls, mesh, axis_name: str = "stage") -> "ShardedStateStream":
-        """One runtime — hence one set of stage streams — per (mesh, axis):
-        every consumer on one mesh (each stream session's mesh ingest)
-        issues its stages' work on the same streams."""
-        key = (mesh, axis_name)
-        if key not in cls._shared:
-            cls._shared[key] = cls(mesh, axis_name)
-        return cls._shared[key]
+        """The mesh's one sharded-state runtime (:func:`mesh_runtime`)."""
+        return mesh_runtime(mesh, axis_name).sharded
 
     def _psum(self, parts: list) -> torch.Tensor:
         """Σ of the per-stage ``parts`` on stage 0's device, issued on stage
@@ -343,3 +336,21 @@ class ShardedStateStream:
             st.wait(0, *evs)
             combine(self._psum(terms))
         st.end([st.record(0)] * n)
+
+
+class MeshRuntime(collections.namedtuple("MeshRuntime", "pipeline sharded")):
+    """The ring and the sharded-state runtime of one (mesh, axis), on one set
+    of stage streams."""
+
+
+@functools.lru_cache(maxsize=32)
+def mesh_runtime(mesh, axis_name: str) -> MeshRuntime:
+    """The runtimes of ``mesh``, made once per (mesh, axis): every consumer
+    on one mesh — the ring counts, the counter's cache entries, each stream
+    session's mesh ingest — issues its stages' work on the same streams.
+    Both runtimes open each run with the stages waiting on the caller and
+    close it with the caller waiting on them, so they share the streams
+    safely."""
+    streams = StageStreams(mesh)
+    return MeshRuntime(DynamicPipeline(mesh, axis_name, streams),
+                       ShardedStateStream(mesh, axis_name, streams))

@@ -28,7 +28,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from repro_torch.core.dynamic_pipeline import DynamicPipeline, FilterSpec, run_sequential
+from repro_torch.core.dynamic_pipeline import FilterSpec, mesh_runtime, run_sequential
 from repro_torch.core.partition import RingPartition, ring_partition
 from repro_torch.graphs.formats import Graph
 from repro_torch.kernels.bitset_count.ops import bitset_edge_count
@@ -124,7 +124,7 @@ def _ring_run(spec: FilterSpec, resident, stream, n_stages: int, mesh, sequentia
         return run_sequential(spec, resident, stream, n_stages)
     if n_stages != mesh.size:
         raise ValueError(f"n_stages={n_stages} on a mesh of {mesh.size} stages")
-    return DynamicPipeline(mesh, mesh.axis_names[0]).run(spec, resident, stream)
+    return mesh_runtime(mesh, mesh.axis_names[0]).pipeline.run(spec, resident, stream)
 
 
 def _ring_setup(mesh, n_stages: int | None, device) -> tuple[int, torch.device]:

@@ -154,15 +154,16 @@ class TriangleServer:
         return results
 
     # -- streaming sessions ------------------------------------------------
-    def open_stream(self, n_nodes: int, *, block_size: int | None = None,
+    def open_stream(self, n_nodes: int, *, plan=None, block_size: int | None = None,
                     window: int | None = None, priority: int = 0,
                     deadline_s: float | None = None) -> int:
         """Open one streaming session on the server's multiplexer; returns
         its session id (admitted, queued, or admitted by preempting
         strictly-lower-priority actives). ``window=E`` opens a
         sliding-window session; ``priority`` ranks it for fair-share
-        scheduling; ``deadline_s`` reaps it if idle that long."""
-        return self.streams.open(n_nodes, block_size=block_size, window=window,
+        scheduling; ``deadline_s`` reaps it if idle that long; ``plan``
+        runs it under the caller's stream plan instead of the planner's."""
+        return self.streams.open(n_nodes, plan=plan, block_size=block_size, window=window,
                                  priority=priority, deadline_s=deadline_s)
 
     def feed(self, sid: int, edges) -> None:
@@ -197,10 +198,13 @@ class TriangleServer:
         buffer host-side). Sessions are closed in request order once the
         interleave finishes, so freed state admits queued requests FIFO.
         Returns per-request ``CountResult``s in request order, bit-identical
-        to running each request through ``serve_stream`` alone."""
-        its = [iter(blocks) for _, blocks in requests]
-        sids = [self.streams.open(n, block_size=block_size)
-                for n, _ in requests]
+        to running each request through ``serve_stream`` alone. A request
+        given as ``(n_nodes, blocks, plan)`` runs under that stream plan
+        instead of the planner's (``StreamMultiplexer.open``)."""
+        its = [iter(r[1]) for r in requests]
+        sids = [self.streams.open(r[0], plan=r[2] if len(r) > 2 else None,
+                                  block_size=block_size)
+                for r in requests]
         live = set(range(len(requests)))
         while live:
             for i in sorted(live):

@@ -13,12 +13,12 @@ a sliding-window session of E epoch bitsets, the linear-in-n hybrid state
 past the bitset's reach — and the multiplexer accounts those pinned bytes
 against ``Resources.memory_bytes``. A ring-sharded state is charged
 n²/8/S only where the counter's mesh hosts the ring one stage per device,
-as in the reference; an emulated-sharded state is charged in full, and so
-is a mesh state whose stages share one card, since its shards add up there.
-On such a mesh a bitset that fits whole is sharded over every stage, for
-the stages' streams (``api.planner.mesh_admission``,
-``device_state_bytes``). Residency is a SCHEDULING decision, not a
-permanent grant:
+as in the reference (``api.planner.mesh_admission``); an emulated-sharded
+state is charged in full, and so is a mesh state whose stages share one
+card, since its shards add up there (``device_state_bytes``). The planner
+never picks such a ring; ``open(plan=)`` runs a session under the caller's
+plan instead, charged what that plan pins (``plan_admission``). Residency
+is a SCHEDULING decision, not a permanent grant:
 
 - **Fair share + preemption** (``policy="fair"``, the default): every
   session opens with a ``priority=`` (higher runs first; default 0). A
@@ -55,11 +55,12 @@ A closing or evicted session drops its state before the freed budget
 admits a waiter, so on the card the memory is free when the waiter
 allocates. Free is not contiguous, though: under a mixed order of opens,
 preemptions and closes of multi-GB states, the caching allocator's fixed
-segments fragment until an 8.73 GB delta table finds no block (an NVIDIA
-H100 80GB HBM3 at 700 W, ``chip_smoke.py`` [serve streams] (f)), so a
-serving process on the card runs with
-``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True``, set before CUDA
-starts.
+segments fragment until an 8.73 GB delta table finds no block beside
+8.5 GiB of free fragments (an NVIDIA H100 80GB HBM3 at 700 W,
+``chip_smoke.py`` [serve streams] (f)). So the first session a multiplexer
+on the card activates turns the allocator's expandable segments on for the
+process (:func:`expandable_segments`), which map freed pages to any later
+request; a process that turned them off explicitly is refused.
 
 ASYNC PREFETCH (``prefetch_depth=K``): each active session gets a
 :class:`_PrefetchDriver` — one background ``PropagatingThread`` that owns
@@ -105,6 +106,31 @@ import torch
 
 from repro_torch.utils import PropagatingThread, count_dtype
 
+
+def expandable_segments() -> None:
+    """Turn the CUDA caching allocator's expandable segments on for this
+    process: segments allocated from here on grow and shrink by pages, so a
+    multi-GB request finds the memory that closed sessions freed, wherever
+    it lies. The multiplexer's admission promises that an admitted session
+    fits beside the others, and fixed segments break that promise under a
+    mixed order of opens and closes. Raises ``RuntimeError`` when the
+    process's ``PYTORCH_CUDA_ALLOC_CONF`` (or ``PYTORCH_ALLOC_CONF``) turned
+    them off explicitly; leaves the ``cudaMallocAsync`` backend, which has
+    no such segments, as it is."""
+    for var in ("PYTORCH_CUDA_ALLOC_CONF", "PYTORCH_ALLOC_CONF"):
+        conf = os.environ.get(var, "").replace(" ", "").lower()
+        if "expandable_segments:false" in conf:
+            raise RuntimeError(
+                f"{var}={os.environ[var]!r} turns expandable segments off: a stream "
+                f"multiplexer on the card needs them, since fixed segments fragment "
+                f"until an admitted session finds no block")
+    if torch.cuda.get_allocator_backend() != "native":
+        return
+    setting = getattr(torch._C, "_accelerator_setAllocatorSettings", None) \
+        or torch.cuda.memory._set_allocator_settings
+    setting("expandable_segments:True")
+
+
 # Epoch marker in a waiting session's host-side buffer: replayed as advance()
 # so a windowed request admitted late still sees its epoch boundaries.
 _ADVANCE = "advance"
@@ -137,6 +163,8 @@ class _Session:
     n_preempts: int = 0
     served_blocks: int = 0
     plan: object | None = None
+    # the plan the caller opened it with (open(plan=)), None for the planner's
+    asked: object | None = None
     # live async prefetch pipeline (None on the synchronous path or while
     # the session is waiting — drivers exist only for ACTIVE sessions)
     driver: object | None = None
@@ -615,7 +643,7 @@ class StreamMultiplexer:
         self._next_id = 0
 
     # -- lifecycle ---------------------------------------------------------
-    def open(self, n_nodes: int, *, block_size: int | None = None,
+    def open(self, n_nodes: int, *, plan=None, block_size: int | None = None,
              window: int | None = None, priority: int = 0,
              deadline_s: float | None = None) -> int:
         """Admit (or queue) one more stream; returns its session id.
@@ -627,7 +655,14 @@ class StreamMultiplexer:
         strictly-lower-priority actives when checkpointing them frees enough
         device budget. ``deadline_s`` is an idle timeout. A stream whose
         state can NEVER fit — queue verdict even against an idle server — is
-        rejected with ``ValueError`` instead of queueing forever."""
+        rejected with ``ValueError`` instead of queueing forever.
+
+        ``plan`` (a ``"stream"`` plan) runs the session under the caller's
+        plan instead of the planner's: admission charges what it pins on
+        the busiest device (``api.planner.plan_admission``), and its
+        ``window_epochs`` is the window. This is how a session runs on every
+        stage of a mesh that shares one card, a ring the planner never
+        picks there."""
         if (not isinstance(n_nodes, (int, np.integer))
                 or isinstance(n_nodes, bool) or n_nodes <= 0):
             raise ValueError(f"n_nodes must be a positive int, got {n_nodes!r}")
@@ -639,6 +674,15 @@ class StreamMultiplexer:
             raise ValueError(f"priority must be an int, got {priority!r}")
         if deadline_s is not None and not deadline_s > 0:
             raise ValueError(f"deadline_s must be > 0, got {deadline_s!r}")
+        if plan is not None:
+            if plan.method != "stream":
+                raise ValueError(f"open(plan=) needs a 'stream' plan, got {plan.method!r}")
+            if window is not None and window != plan.window_epochs:
+                raise ValueError(
+                    f"window={window} conflicts with the plan's window_epochs="
+                    f"{plan.window_epochs} — pass the window through the plan")
+            self.counter.check_stream_plan(plan)
+            window = plan.window_epochs or None
         self._reap()
         # let live waiters claim any free budget (e.g. freed by an explicit
         # preempt) before the fairness gate treats them as blocking
@@ -650,7 +694,7 @@ class StreamMultiplexer:
             block_size=block_size if block_size is not None else self.block_size,
             window=int(window) if window is not None else None,
             priority=int(priority), deadline_s=deadline_s,
-            last_activity=self._clock())
+            last_activity=self._clock(), asked=plan)
         # fairness gate: admit around the waiters only with strictly higher
         # priority than every one of them (FIFO within a priority level;
         # policy="fifo" never admits around any waiter). Parked sessions are
@@ -663,7 +707,7 @@ class StreamMultiplexer:
             adm, victim_sids = self._admission(
                 rec.n_nodes, self.bytes_in_use, rec.window,
                 priority=rec.priority, preempt=self.policy == "fair",
-                block_size=rec.block_size)
+                block_size=rec.block_size, plan=plan)
             if adm.admitted:
                 from repro_torch.api.planner import BackpressureError
 
@@ -677,7 +721,7 @@ class StreamMultiplexer:
                     self._admit(rec, adm)
                     return sid
         idle, _ = self._admission(rec.n_nodes, 0, rec.window,
-                                  block_size=rec.block_size, idle=True)
+                                  block_size=rec.block_size, idle=True, plan=plan)
         if not idle.admitted:
             raise ValueError(
                 f"stream of {rec.n_nodes} nodes can never be admitted on "
@@ -1021,40 +1065,28 @@ class StreamMultiplexer:
 
     def _restored_state_bytes(self, ckpt) -> int:
         """Device bytes a ``restore_stream(ckpt)`` will pin HERE, on its
-        busiest device, without touching the device: one epoch-ring slice
-        per stage a device hosts when this counter's mesh hosts the stage
-        axis, the full state otherwise (emulated sharding pins every shard)
-        — ``StreamSession.state_bytes`` before the session exists."""
-        p = ckpt.plan
-        if p.state_layout == "hybrid":
-            from repro_torch.core.streaming import hybrid_state_nbytes
+        busiest device, without touching the device
+        (``api.planner.plan_state_bytes`` under this counter's mesh)."""
+        from repro_torch.api.planner import plan_state_bytes
 
-            # hybrid plans are single-stage by construction — the exact
-            # allocation formula, same figure admission charged at open
-            return hybrid_state_nbytes(ckpt.n_nodes, p.hub_slots,
-                                       p.tail_capacity)
-        from repro_torch.api.planner import device_state_bytes
-
-        w = -(-ckpt.n_nodes // 32)
-        per_stage = (max(p.window_epochs, 1) * 4 * ckpt.n_nodes
-                     * -(-w // p.n_stages))
-        return device_state_bytes(per_stage, p.n_stages, self.counter.mesh)
+        return plan_state_bytes(ckpt.n_nodes, ckpt.plan, self.counter.mesh)
 
     def _admission(self, n_nodes: int, bytes_in_use: int,
                    window: int | None, *, priority: int = 0,
                    preempt: bool = False, block_size: int | None = None,
-                   idle: bool = False):
+                   idle: bool = False, plan=None):
         """Mesh-aware admission (``api.planner.mesh_admission``): the
         planner's per-stage accounting only holds where the counter's mesh
         hosts the stage axis one stage per device; otherwise the decision is
-        re-taken at ring width 1. With
+        re-taken at ring width 1. A caller's ``plan`` is admitted as it is
+        (``api.planner.plan_admission``). With
         ``preempt`` the planner also sees the active sessions'
         ``(state_bytes, priority)`` and may return a ``"preempt"`` verdict.
         On the card every decision is taken against ``memory_bytes`` less
         the card's reserve — of the active sessions (none when ``idle``) and
         the candidate at the plan it is admitted with, retaken until that
         reserve holds. Returns ``(Admission, victim_sids)``."""
-        from repro_torch.api.planner import mesh_admission
+        from repro_torch.api.planner import mesh_admission, plan_admission
 
         active = ([r for r in self._recs.values() if r.state == "active"]
                   if preempt else [])
@@ -1065,10 +1097,12 @@ class StreamMultiplexer:
             if reserve:
                 res = dataclasses.replace(
                     res, memory_bytes=max(res.memory_bytes - reserve, 0))
+            kw = dict(bytes_in_use=bytes_in_use, priority=priority, actives=actives,
+                      prefetch_depth=self.prefetch_depth or 0)
+            if plan is not None:
+                return plan_admission(n_nodes, plan, res, self.counter.mesh, **kw)
             return mesh_admission(n_nodes, res, self.counter.mesh,
-                                  bytes_in_use=bytes_in_use, window_epochs=window or 0,
-                                  priority=priority, actives=actives,
-                                  prefetch_depth=self.prefetch_depth or 0)
+                                  window_epochs=window or 0, **kw)
 
         reserve = self._card_reserve(actives=not idle)
         adm = decide(reserve)
@@ -1085,6 +1119,8 @@ class StreamMultiplexer:
         return adm, [active[i].sid for i in adm.victims]
 
     def _admit(self, rec: _Session, adm) -> None:
+        if self.counter.device.type == "cuda":
+            expandable_segments()
         # adm.plan carries window_epochs, so a windowed admission opens a
         # windowed session without re-stating the window here
         rec.session = self.counter.open_stream(
@@ -1135,6 +1171,8 @@ class StreamMultiplexer:
             self._sched["preemptions"] += 1
 
     def _restore_from(self, rec: _Session, ckpt) -> None:
+        if self.counter.device.type == "cuda":
+            expandable_segments()
         rec.session = self.counter.restore_stream(ckpt)
         rec.plan = self._run_plan(ckpt.plan, ckpt.block_size)
         rec.state = "active"
@@ -1227,7 +1265,7 @@ class StreamMultiplexer:
                 adm, victim_sids = self._admission(
                     rec.n_nodes, self.bytes_in_use, rec.window,
                     priority=rec.priority, preempt=self.policy == "fair",
-                    block_size=rec.block_size)
+                    block_size=rec.block_size, plan=rec.asked)
                 if not adm.admitted:
                     return
                 try:

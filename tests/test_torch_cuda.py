@@ -710,9 +710,10 @@ def test_mesh_ingest_never_waits_for_the_card(cuda):
 
 def test_same_card_mesh_admission_charges_every_shard(cuda):
     """The deliberate difference, on the card: a multiplexer over four
-    stages of one card shards a bitset that fits whole over the stages and
-    charges all four shards — the reference would charge one, n²/8/S, on a
-    matching mesh, and over-admit the card."""
+    stages of one card charges a four-stage session all four shards — the
+    reference would charge one, n²/8/S, on a matching mesh, and over-admit
+    the card — and plans a session without a plan at ring width 1. Its
+    first session turns the allocator's expandable segments on."""
     from repro_torch.api import planner
 
     n, S, block = 20_000, 4, 4096
@@ -721,7 +722,13 @@ def test_same_card_mesh_admission_charges_every_shard(cuda):
                     backend="cuda")
     mux = StreamMultiplexer(TriangleCounter(res, device=cuda, mesh=_one_card_mesh(S)),
                             block_size=block)
-    sid = mux.open(n)
+    planned = mux.open(n)
+    assert mux._recs[planned].plan.n_stages == 1
+    assert mux.state_bytes_of(planned) == 4 * n * -(-n // 32)
+    ring = dataclasses.replace(mux._recs[planned].plan, n_stages=S)
+    mux.close(planned)
+    assert any(seg["is_expandable"] for seg in torch.cuda.memory_snapshot())
+    sid = mux.open(n, plan=ring)
     rec = mux._recs[sid]
     assert rec.plan.n_stages == S and rec.plan.state_layout == "bitset"
     assert mux.bytes_in_use == S * shard == rec.session.state_bytes \

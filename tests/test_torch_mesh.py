@@ -14,6 +14,7 @@ its own mesh tests do, for its mesh ring counts, a mesh session's
 checkpoint and a multiplexer's verdicts on the mesh. Admission on a mesh is
 arithmetic, so it is tested with meshes of ``cuda`` device descriptors,
 which need no card to construct."""
+import dataclasses
 import json
 import os
 import subprocess
@@ -132,6 +133,11 @@ def test_ring_mesh_shape_sharing_and_hashing():
     assert _cuda_mesh([0, 0, 1, 1]).stages_per_device() == 2
     assert _cpu_mesh(8).stages_per_device() == 8
     assert streaming.make_mesh_ingest(_cpu_mesh(4)) is streaming.make_mesh_ingest(_cpu_mesh(4))
+    # one runtime per mesh: the ring and the sharded state on the same streams
+    rt = dp.mesh_runtime(_cpu_mesh(4), "stage")
+    assert rt is dp.mesh_runtime(_cpu_mesh(4), "stage") is not dp.mesh_runtime(_cpu_mesh(2), "stage")
+    assert dp.ShardedStateStream.shared(_cpu_mesh(4)) is rt.sharded
+    assert rt.pipeline.streams is rt.sharded.streams and rt.pipeline.n_stages == 4
 
 
 # --------------------------------------------------------------------------
@@ -600,10 +606,9 @@ def test_stages_sharing_a_device_are_charged_their_sum():
     """The deliberate difference: the reference charges n²/8/S per stage
     on any matching mesh; where stages share a device the port charges what
     lands on it. Eight stages on one card give a session no memory, so the
-    planner's sharded verdict is re-taken at ring width 1; a bitset that
-    fits whole is then sharded over the eight stages and charged all eight
-    shards, padding included — or stays whole where the padding would not
-    fit."""
+    planner's sharded verdict is re-taken at ring width 1, verdict for
+    verdict as without a mesh; a caller's eight-stage plan is charged all
+    eight shards, padding included."""
     res = Resources(n_devices=8, memory_bytes=REF_BUDGET)
     one_card = _cuda_mesh([0] * 8)
     shared = mesh_admission(4096, res, one_card)
@@ -612,13 +617,15 @@ def test_stages_sharing_a_device_are_charged_their_sum():
     assert mesh_admission(4096, res, _cuda_mesh(range(8))).action == "admit-sharded"
     opens = (1024, 1024, 300, 1024)
     got, plain = _port_verdicts(one_card, opens), _port_verdicts(None, opens)
-    # 1,024 nodes: 32 words a row, 4 a shard, no padding; 300 nodes: 10
-    # words in 8 shards of 2 (19,200 B) would not fit the 17,856 B left,
-    # the whole 12,000 B does
-    assert [v[:2] for v in got] == [["active", 8], ["active", 8], ["active", 1],
-                                    ["queued", None]]
-    assert [v[3:] for v in got] == [v[3:] for v in plain]
+    assert got == plain
     assert [v[:2] for v in plain] == [["active", 1]] * 3 + [["queued", None]]
+    # 300 nodes: 10 words a row, 2 a shard, so eight shards pin 19,200 B
+    # where the whole bitset pins 12,000 B
+    p = Plan(method="stream", n_stages=8, block_size=256)
+    assert planner.plan_state_bytes(300, p, one_card) == 8 * 4 * 300 * 2
+    assert planner.plan_state_bytes(300, p, _cuda_mesh(range(8))) == 4 * 300 * 2
+    assert planner.plan_state_bytes(300, p) == 8 * 4 * 300 * 2
+    assert planner.plan_state_bytes(300, dataclasses.replace(p, n_stages=1)) == 12_000
     shard = 4 * 4096 * 16
     assert device_state_bytes(shard, 8, one_card) == 8 * shard
     assert device_state_bytes(shard, 8, _cuda_mesh([0, 1] * 4)) == 4 * shard
@@ -627,10 +634,44 @@ def test_stages_sharing_a_device_are_charged_their_sum():
     assert device_state_bytes(shard, 4, _cuda_mesh(range(8))) == 4 * shard
 
 
+def test_plan_admission_charges_what_the_plan_pins():
+    """A caller's plan is admitted as it is: admitted where its charge fits,
+    else preempting strictly-lower-priority actives (lowest priority, then
+    largest state) until it fits, else queued; the prefetch blocks shrink
+    the remainder first."""
+    n, one_card = 1024, _cuda_mesh([0] * 4)
+    p = Plan(method="stream", n_stages=4, block_size=256)
+    whole = 4 * n * 32
+    res = Resources(memory_bytes=3 * whole)
+    a = planner.plan_admission(n, p, res, one_card)
+    assert (a.action, a.plan, a.state_bytes) == ("admit-sharded", p, whole)
+    assert planner.plan_admission(n, p, res, _cuda_mesh(range(4))).state_bytes == whole // 4
+    assert planner.plan_admission(n, dataclasses.replace(p, n_stages=1), res).action \
+        == "admit-dense"
+    full = planner.plan_admission(n, p, res, one_card, bytes_in_use=2 * whole + 1)
+    assert full.action == "queue" and full.plan is None
+    actives = [(whole // 2, 0), (whole, 1), (whole // 2, 0)]
+    pre = planner.plan_admission(n, p, res, one_card, bytes_in_use=3 * whole,
+                                 priority=2, actives=actives)
+    assert pre.action == "preempt" and pre.victims == (0, 2) and pre.plan == p
+    pre = planner.plan_admission(n, p, res, one_card, bytes_in_use=3 * whole,
+                                 priority=1, actives=[(whole // 2, 0), (whole, 0)])
+    assert pre.action == "preempt" and pre.victims == (1,)
+    assert planner.plan_admission(n, p, res, one_card, bytes_in_use=3 * whole,
+                                  priority=0, actives=actives).action == "queue"
+    depth = planner.plan_admission(n, p, res, one_card, bytes_in_use=2 * whole,
+                                   prefetch_depth=2)
+    assert depth.action == "queue" and "remain" in depth.reason
+    depth = planner.plan_admission(n, p, Resources(memory_bytes=4 * whole), one_card,
+                                   bytes_in_use=2 * whole, prefetch_depth=2)
+    assert depth.action == "admit-sharded" and depth.plan.prefetch_depth == 2
+
+
 def test_a_same_device_mesh_session_pins_its_whole_state():
     """On a real multiplexer over a mesh of eight cpu stages (one device):
-    an open is charged as without a mesh, and an adopted eight-stage mesh
-    checkpoint is charged all eight shards, as its session pins them."""
+    an adopted eight-stage mesh checkpoint and an open under an eight-stage
+    plan are charged all eight shards, as their sessions pin them, and an
+    open without a plan is planned at ring width 1, as without a mesh."""
     n, S = 4096, 8
     mesh = _cpu_mesh(S)
     res = Resources(n_devices=S, memory_bytes=8 << 20)
@@ -648,14 +689,51 @@ def test_a_same_device_mesh_session_pins_its_whole_state():
     assert r.stats["on_mesh"] and r.item() == s.finalize().item()
     assert mux.bytes_in_use == 0
     plain = StreamMultiplexer(TriangleCounter(res, device="cpu"))
-    a, b = plain.open(n), mux.open(n)
+    a, b = plain.open(n, plan=p), mux.open(n, plan=p)
     assert mux.bytes_in_use == plain.bytes_in_use == full
-    assert plain._recs[a].plan.n_stages == 1 and mux._recs[b].plan.n_stages == S
+    assert plain._recs[a].plan.n_stages == mux._recs[b].plan.n_stages == S
+    c = mux.open(n)
+    assert mux._recs[c].plan.n_stages == 1 and mux.state_bytes_of(c) == 4 * n * 128
+    mux.close(c)
     for m, sid in ((mux, b), (plain, a)):
         m.feed(sid, _stream(n, 3000, 3))
     r, r_plain = mux.close(b), plain.close(a)
     assert r.stats["on_mesh"] and not r_plain.stats["on_mesh"]
     assert r.item() == r_plain.item() == s.finalize().item()
+
+
+def test_open_with_a_plan_queues_and_admits_under_that_plan():
+    """``open(plan=)`` and ``TriangleServer.serve_streams(plan=)`` run
+    sessions under the caller's plan: four-stage sessions on a mesh of one
+    cpu device, charged their four shards; a waiter is admitted later under
+    the plan it asked for, and every count equals the unsharded count."""
+    n, S = 1024, 4
+    whole = 4 * n * 32
+    p = Plan(method="stream", n_stages=S, block_size=256)
+    server = TriangleServer(Resources(memory_bytes=2 * whole), mesh=_cpu_mesh(S))
+    mux = server.streams
+    feeds = [_stream(n, 2500, seed) for seed in range(3)]
+    want = [TriangleCounter(device="cpu").count_stream(
+        n, [f], plan=dataclasses.replace(p, n_stages=1)).item() for f in feeds]
+    sids = [server.open_stream(n, plan=p) for _ in feeds]
+    assert [mux.status(s) for s in sids] == ["active", "active", "queued"]
+    assert mux.bytes_in_use == 2 * whole
+    for sid, f in zip(sids, feeds):
+        server.feed(sid, f)
+    got = [server.close_stream(sid) for sid in sids]
+    assert [r.item() for r in got] == want
+    assert all(r.plan.n_stages == S and r.stats["on_mesh"] for r in got)
+    served = server.serve_streams([(n, [f], p) for f in feeds])
+    assert [r.item() for r in served] == want and mux.bytes_in_use == 0
+    assert all(r.plan.n_stages == S and r.stats["on_mesh"] for r in served)
+    with pytest.raises(ValueError, match="'stream' plan"):
+        mux.open(n, plan=dataclasses.replace(p, method="ring"))
+    with pytest.raises(ValueError, match="conflicts"):
+        mux.open(n, plan=p, window=2)
+    with pytest.raises(ValueError, match="contradicts"):
+        mux.open(n, plan=dataclasses.replace(p, use_kernel=True))
+    with pytest.raises(ValueError, match="never be admitted"):
+        mux.open(4 * n, plan=p)
 
 
 def test_card_reserve_charges_every_delta_table_a_card_holds_at_once():

@@ -1087,6 +1087,40 @@ def test_card_admission_charges_the_ingest_reserve_cpu_does_not(monkeypatch):
     assert got["card"] == ["bitset", "bitset"]
 
 
+def test_a_card_multiplexer_turns_expandable_segments_on(monkeypatch):
+    """The first session a multiplexer on the card activates turns the
+    caching allocator's expandable segments on, so the memory that closed
+    sessions free serves any later state; a CPU multiplexer leaves the
+    allocator alone, the cudaMallocAsync backend is left as it is, and a
+    process that turned the segments off is refused."""
+    from repro_torch.serve import sessions
+
+    calls = []
+    monkeypatch.setattr(sessions, "expandable_segments", lambda: calls.append("on"))
+    mux = _mux()
+    mux.close(mux.open(256))
+    mux.adopt(_counter(RES2).open_stream(256).checkpoint())
+    assert calls == []
+    monkeypatch.undo()
+    settings = []
+    monkeypatch.setattr(torch.cuda, "get_allocator_backend", lambda: "native")
+    monkeypatch.setattr(torch._C, "_accelerator_setAllocatorSettings", settings.append,
+                        raising=False)
+    for var in ("PYTORCH_CUDA_ALLOC_CONF", "PYTORCH_ALLOC_CONF"):
+        monkeypatch.setenv(var, "max_split_size_mb:64")
+    sessions.expandable_segments()
+    assert settings == ["expandable_segments:True"]
+    monkeypatch.setattr(torch.cuda, "get_allocator_backend", lambda: "cudaMallocAsync")
+    sessions.expandable_segments()
+    assert settings == ["expandable_segments:True"]
+    for var in ("PYTORCH_CUDA_ALLOC_CONF", "PYTORCH_ALLOC_CONF"):
+        monkeypatch.setenv(var, "max_split_size_mb:64, expandable_segments:False")
+        with pytest.raises(RuntimeError, match="turns expandable segments off"):
+            sessions.expandable_segments()
+        monkeypatch.setenv(var, "")
+    assert settings == ["expandable_segments:True"]
+
+
 # --------------------------------------------------------------------------
 # The count_triangles shim, default_counter, utilities
 # --------------------------------------------------------------------------
