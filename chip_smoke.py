@@ -98,7 +98,28 @@
    key; (e) the multiplexer on the one-card mesh charging a four-stage NY
    session's four shards in full, and planning NY at ring width 1 without
    a plan, beside ``admit_session``'s verdicts.
-8. [lm] Yi-6B at full width and depth (32 layers, d_model 4,096, 32/4
+8. [cluster] The cluster tier (``serve.cluster``) with worker processes
+   sharing the card, each given half of the card's free memory (read after
+   this process emptied its cache, less ``CLUSTER_MARGIN``) as its share:
+   (a) two workers behind ``ClusterServer.serve_streams`` over (6)'s
+   streams of the Table-1 graphs and FB107x9, each count equal to the
+   resident one, K3 and K4 twice a block in the workers, the wall printed
+   beside (6)'s in-process one; (b) NY-size sessions opened through the
+   router until it raises ``BackpressureError`` (``checkpoint_every_bytes
+   =None``), none queued on a worker, the router's ledger and each
+   worker's ``bytes_in_use`` equal to ``worker_admission``'s predictions
+   (the card's reserve included), each worker queueing one more asked past
+   the router; every session fed NY's stream and closed to NY's count, one
+   NY checkpoint spilled and timed; (c) an FB107x9 session migrated
+   mid-stream onto a worker that served its block shape: exact count, no
+   new ingest key, the evict and restore walls printed; (d) a worker
+   SIGKILLed mid-stream, its sessions resurrected on the survivor from a
+   checkpoint plus the journal and by a full replay, exact counts; (e) one
+   worker of ``MESH_STAGES`` stages on the one card, which advertises
+   ``mesh_devices = 0``: NY-size sessions placed to the router's refusal
+   at ring width 1, verdict for verdict its own, and an FB107x9 count. The
+   workers' kernel launches (their ``stats`` replies) join the main path's.
+9. [lm] Yi-6B at full width and depth (32 layers, d_model 4,096, 32/4
    heads, d_ff 11,008, vocab 64,000; f32 weights drawn on the card from a
    seeded generator): ``LMServer.generate`` on 8 seeded prompts of 256 to
    1,024 tokens, 4 to a batch, 32 new tokens each; the same batches through
@@ -116,12 +137,12 @@
    prefill's distance (FlashAttention's own accuracy test); their distance
    from the chunked prefill's is printed against 2e-2 of the largest logit,
    and where the two paths part, layer by layer.
-9. [recsys] AutoInt at its full config (3.9M-row table): ``ctr_logits`` and
+10. [recsys] AutoInt at its full config (3.9M-row table): ``ctr_logits`` and
    ``retrieval_scores`` (100,000 candidates) on 16,384 seeded rows, and
    ``lookup_multihot(use_kernel=True)`` (K7) on 16,384 × 39 bags of 8 ids
    against ``use_kernel=False``; the smoke config on the card against the
    CPU port.
-10. Profiles one planner-chosen count of FNA.5 and of NY, one planner-chosen
+11. Profiles one planner-chosen count of FNA.5 and of NY, one planner-chosen
    ``count_stream`` of NY and of YT, (a)'s interleaved ``serve_streams``, and
    one Yi-6B flash prefill plus 32 decode steps in f32 and in bf16, with
    ``torch.profiler``: host wall,
@@ -132,7 +153,7 @@
    host-to-device copy row for each count); an inconsistent one is profiled
    again with four times the markers, and the third raises.
 
-Phases 2 to 9 are the main path: every kernel's launch count is set to 0
+Phases 2 to 10 are the main path: every kernel's launch count is set to 0
 before them and must be above 0 after them. Any mismatch or exception exits
 non-zero. The last three lines are the ``kernels`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Imports nothing
@@ -229,6 +250,13 @@ LOGITS_REL = {"float32": 1e-3, "bfloat16": 2e-2}
 SERVE_BLOCK = 8192
 # [ring mesh]: the stages of the mesh, all on the one card
 MESH_STAGES = 4
+# [cluster]: the card's free memory left to this process beside the workers'
+# shares (each worker's own CUDA context is inside its share, charged by its
+# multiplexer's reserve)
+CLUSTER_MARGIN = 1 << 30
+# [cluster] (b): hybrid NY-size sessions fed a whole stream (the others one
+# block; each hybrid block costs ~10 ms of ingest)
+CLUSTER_HYBRIDS_FED = 4
 # [ring mesh] (a) repeats each resident mesh count this many times back to
 # back, with no synchronisation between them: a missing event between the
 # stages' streams shows as counts that differ
@@ -1336,7 +1364,8 @@ def hybrid_phase(graphs: dict, stream_table: list) -> list:
 # --------------------------------------------------------------------------
 def feed_round_robin(mux, feeds: dict, part: slice = slice(None)) -> None:
     """Feed each session of ``feeds`` (sid -> ragged blocks) the blocks of
-    ``part``, one block a session in turn."""
+    ``part``, one block a session in turn, through ``mux`` (a multiplexer,
+    or a cluster router and its global session ids)."""
     todo = {sid: blocks[part] for sid, blocks in feeds.items()}
     for j in range(max((len(b) for b in todo.values()), default=0)):
         for sid, blocks in todo.items():
@@ -2063,6 +2092,326 @@ def ring_mesh_phase(graphs: dict) -> dict:
 # --------------------------------------------------------------------------
 # Phases 8 and 9: the LM and the recsys paths (main path too)
 # --------------------------------------------------------------------------
+def check_launch_deltas(label: str, k0: dict, k1: dict, want: dict) -> None:
+    """Each kernel of ``want`` launched exactly ``want[name]`` times from
+    the counts ``k0`` to ``k1``."""
+    for name, w in want.items():
+        got = k1.get(name, 0) - k0.get(name, 0)
+        if got != w:
+            raise AssertionError(f"{label}: {name} launched {got} times, not {w}")
+
+
+def worker_launches(router) -> dict:
+    """Kernel launches the router's live workers counted in their own
+    processes (their ``stats`` replies), summed by kernel."""
+    out: dict = {}
+    for st in router.stats()["workers"]:
+        for name, k in st.get("launches", {}).items():
+            out[name] = out.get(name, 0) + k
+    return out
+
+
+def fill_router(router, n: int, block_size: int | None = None) -> tuple:
+    """Open sessions of ``n`` nodes (at ``block_size``) through ``router``
+    until it refuses one with ``BackpressureError``; recompute, worker by
+    worker, what
+    ``worker_admission`` predicts for each in turn. Returns (gids, the
+    predictions by gid, the refusal). Fails unless the router's ledger and
+    every worker's own ``bytes_in_use`` equal the predictions' sums, no
+    worker holds a queued session, and each worker, asked past the router
+    for one more, queues it itself."""
+    from repro_torch.api import BackpressureError, WorkerLoad, worker_admission
+
+    gids = []
+    while True:
+        try:
+            gids.append(router.open(n, block_size=block_size))
+        except BackpressureError as err:
+            refused = str(err)
+            break
+    used = [0] * len(router.workers)
+    placed = [[] for _ in router.workers]
+    predicted = {}
+    for gid in gids:
+        wi = router.worker_of(gid)
+        w = router.workers[wi]
+        block = block_size or w.block_size
+        adm = worker_admission(n, WorkerLoad(w.resources, charged_bytes=used[wi],
+                                             mesh_devices=w.mesh_devices,
+                                             sessions=tuple(placed[wi]),
+                                             block_size=block))
+        if not adm.admitted:
+            raise AssertionError(f"session {gid} placed on worker {wi}, which "
+                                 f"worker_admission refuses: {adm.reason}")
+        used[wi] += adm.state_bytes
+        placed[wi].append((n, dataclasses.replace(
+            adm.plan, block_size=int(block or adm.plan.block_size))))
+        predicted[gid] = adm
+    stats = router.stats()["workers"]
+    pinned = [st["bytes_in_use"] for st in stats]
+    if router.charged_bytes() != used or pinned != used:
+        raise AssertionError(f"ledger {router.charged_bytes()}, workers' own "
+                             f"{pinned}, predictions {used}")
+    statuses = {router.status(g) for g in gids}
+    if statuses != {"active"} or any(st["n_queued"] for st in stats):
+        raise AssertionError(f"router-placed sessions {statuses}, queued "
+                             f"{[st['n_queued'] for st in stats]}")
+    for wi, w in enumerate(router.workers):
+        reply, _ = w.rpc({"op": "open", "n_nodes": n, "block_size": block_size})
+        w.rpc({"op": "close", "sid": reply["sid"]})
+        if reply["status"] != "queued":
+            raise AssertionError(f"worker {wi} admitted ({reply['status']}) the "
+                                 f"session the router refused: {refused}")
+    return gids, predicted, refused
+
+
+def timed_rpcs(worker, walls: dict) -> None:
+    """Record the host wall of each of ``worker``'s RPCs in ``walls`` (op ->
+    list of s); ``del worker.rpc`` undoes it."""
+    plain = worker.rpc
+
+    def rpc(header, arrays=None):
+        t0 = time.perf_counter()
+        out = plain(header, arrays)
+        walls.setdefault(header["op"], []).append(time.perf_counter() - t0)
+        return out
+
+    worker.rpc = rpc
+
+
+def cluster_phase(graphs: dict, in_process_ms: float) -> dict:
+    """[cluster]: the cluster tier with worker processes sharing the card
+    (module docstring, 8). ``in_process_ms`` is [serve streams] (a)'s
+    synchronous wall of the same requests. Returns the summary, with the
+    workers' kernel launches under ``launches``."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import WorkerLoad, worker_admission
+    from repro_torch.serve.cluster import ClusterRouter
+    from repro_torch.serve.serve_loop import ClusterServer
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    share = (free - CLUSTER_MARGIN) // 2
+    log(f"  free {free} B of {total} B after the parent's empty_cache: two workers of "
+        f"{share} B each, {CLUSTER_MARGIN} B left to this process")
+    summary = {"free_bytes": free, "share_bytes": share}
+    launches: dict = {}
+
+    def add(counts: dict) -> None:
+        for name, k in counts.items():
+            launches[name] = launches.get(name, 0) + k
+
+    served = graphs["_served"]
+    fb, ny = graphs[LARGE_NAME], graphs["NY"]
+    rng = np.random.default_rng(30)
+    fb_feeds = ragged(fb.edges[rng.permutation(fb.n_edges)], rng, 20_000)
+    ny_feeds = ragged(ny.edges[rng.permutation(ny.n_edges)], rng, 50_000)
+    spec = {"memory_bytes": share, "device": DEVICE}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with ClusterServer([spec, spec], checkpoint_dir=tmp,
+                           checkpoint_every_bytes=None) as srv:
+            router = srv.router
+            summary["spawn_s"] = time.perf_counter() - t0
+            log(f"  two workers ready in {summary['spawn_s']:.1f} s (pids "
+                f"{[w.pid for w in router.workers]})")
+
+            # (a) the Table-1 graphs and FB107x9 through ClusterServer.serve_streams,
+            # on the fresh workers and again on warm ones
+            reqs = graphs["_serve_streams"]
+            walls_a = []
+            for label in ("fresh workers", "warm workers"):
+                k0 = worker_launches(router)
+                t0 = time.perf_counter()
+                res = srv.serve_streams(reqs)
+                walls_a.append((time.perf_counter() - t0) * 1e3)
+                counts = [r.item() for r in res]
+                for nm, c in zip(GRAPHS, counts):
+                    if c != served[nm]:
+                        raise AssertionError(f"[cluster] (a) {nm}: {c} != resident "
+                                             f"{served[nm]}")
+                blocks = sum(r.stats["n_blocks"] for r in res)
+                check_stream_launches("[cluster] (a)", k0, worker_launches(router),
+                                      blocks, 2, 2)
+                homes = {nm: r.stats["worker"] for nm, r in zip(GRAPHS, res)}
+                if set(homes.values()) != {0, 1}:
+                    raise AssertionError(f"[cluster] (a) not spread over both workers: "
+                                         f"{homes}")
+                plan_block = {nm: r.plan.block_size for nm, r in zip(GRAPHS, res)}
+                log(f"  (a) ClusterServer.serve_streams, {label}: {len(reqs)} sessions on "
+                    f"2 workers ({homes}), {blocks} blocks ({plan_block}: each worker plans "
+                    f"within its share), every count = resident; wall {walls_a[-1]:.3f} ms "
+                    f"against [serve streams] (a)'s in-process {in_process_ms:.3f} ms")
+            summary["a"] = dict(wall_ms=walls_a, in_process_ms=in_process_ms,
+                                blocks=blocks, homes=homes, plan_block=plan_block)
+            del res
+
+            # (b) NY-size sessions through the router until it refuses one
+            k0 = worker_launches(router)
+            t0 = time.perf_counter()
+            gids, predicted, refused = fill_router(router, ny.n_nodes, SERVE_BLOCK)
+            fill_s = time.perf_counter() - t0
+            layout = {g: predicted[g].plan.state_layout for g in gids}
+            kinds = {k: sum(v == k for v in layout.values()) for k in ("bitset", "hybrid")}
+            log(f"  (b) {len(gids)} NY-size sessions placed ({kinds['bitset']} bitset, "
+                f"{kinds['hybrid']} hybrid; ledger {router.charged_bytes()} B = Σ "
+                f"worker_admission = each worker's bytes_in_use, none queued) in "
+                f"{fill_s:.1f} s before BackpressureError ({refused[:70]}...); each "
+                f"worker, asked past the router, queued the next one")
+            # every bitset and CLUSTER_HYBRIDS_FED hybrid sessions take a whole
+            # stream (the first of each kind FB107x9's edges on NY's ids), the
+            # other hybrids NY's first block: any part of NY has no triangle
+            bitsets = [g for g in gids if layout[g] == "bitset"]
+            hybrids = [g for g in gids if layout[g] == "hybrid"]
+            perm = rng.permutation(ny.n_nodes)[:fb.n_nodes].astype(np.int32)
+            fb_on_ny = [perm[b] for b in fb_feeds]
+            mixed = set(bitsets[:1] + hybrids[:1])
+            feeds = {g: fb_on_ny if g in mixed else ny_feeds
+                     for g in bitsets + hybrids[:CLUSTER_HYBRIDS_FED]}
+            feeds.update({g: ny_feeds[:1] for g in hybrids[CLUSTER_HYBRIDS_FED:]})
+            want = {g: served[LARGE_NAME] if g in mixed else served["NY"] for g in gids}
+            t0 = time.perf_counter()
+            feed_round_robin(router, feeds, slice(0, len(ny_feeds) // 2))
+            ny_spill = {}
+            if bitsets:
+                t1 = time.perf_counter()
+                path = router.checkpoint(bitsets[-1])
+                ny_spill = dict(checkpoint_s=time.perf_counter() - t1,
+                                disk_bytes=os.path.getsize(path),
+                                state_bytes=predicted[bitsets[-1]].state_bytes)
+                log(f"  (b) one NY checkpoint (snapshot + compressed spill of "
+                    f"{ny_spill['state_bytes']} B): {ny_spill['checkpoint_s']:.1f} s, "
+                    f"{ny_spill['disk_bytes']} B on disk")
+            feed_round_robin(router, feeds, slice(len(ny_feeds) // 2, None))
+            results = {g: router.close(g) for g in gids}
+            feed_s = time.perf_counter() - t0
+            nb = {k: sum(r.stats["n_blocks"] for g, r in results.items() if layout[g] == k)
+                  for k in ("bitset", "hybrid")}
+            bad = {g: (r.item(), want[g]) for g, r in results.items()
+                   if r.item() != want[g]}
+            if bad or router.charged_bytes() != [0, 0]:
+                raise AssertionError(f"[cluster] (b) counts (got, want) {bad}, "
+                                     f"ledger {router.charged_bytes()}")
+            k1 = worker_launches(router)
+            want_k = {"bitset_edge_count": 2 * nb["bitset"] + nb["hybrid"],
+                      "bitset_pair_count": 2 * (nb["bitset"] + nb["hybrid"]),
+                      "bitset_edge_count_per_edge": nb["hybrid"]}
+            check_launch_deltas("[cluster] (b) in the workers", k0, k1, want_k)
+            log(f"  (b) {len(feeds) - len(hybrids[CLUSTER_HYBRIDS_FED:])} sessions fed a "
+                f"whole stream ({len(mixed)} FB107x9's edges on NY's ids, counted "
+                f"{served[LARGE_NAME]}; the others NY's, counted {served['NY']}), the "
+                f"other {len(hybrids[CLUSTER_HYBRIDS_FED:])} hybrids one block, no "
+                f"out-of-memory error; {feed_s:.1f} s of feeds and closes; {nb['bitset']} "
+                f"bitset + {nb['hybrid']} hybrid blocks of {SERVE_BLOCK} rows, K3/K4/K5 in "
+                f"the workers as per block")
+            summary["b"] = dict(sessions=len(gids), **kinds, fill_s=fill_s, feed_s=feed_s,
+                                blocks=nb, ny_spill=ny_spill)
+            del results
+
+            # (c) an FB107x9 session migrated mid-stream onto a warm worker
+            s1 = router.open(fb.n_nodes, block_size=SERVE_BLOCK)
+            s2 = router.open(fb.n_nodes, block_size=SERVE_BLOCK)
+            src, dst = router.worker_of(s2), router.worker_of(s1)
+            if src == dst:
+                raise AssertionError("[cluster] (c) both sessions on one worker")
+            half = len(fb_feeds) // 2
+            feed_round_robin(router, {s1: fb_feeds, s2: fb_feeds[:half]})
+            before = router.workers[dst].rpc({"op": "stats"})[0]["ingest_traces"]
+            walls: dict = {}
+            for i in (src, dst):
+                timed_rpcs(router.workers[i], walls)
+            t0 = time.perf_counter()
+            router.migrate(s2, to=dst)
+            migrate_s = time.perf_counter() - t0
+            for i in (src, dst):
+                del router.workers[i].rpc
+            feed_round_robin(router, {s2: fb_feeds[half:]})
+            new_keys = router.workers[dst].rpc({"op": "stats"})[0]["ingest_traces"] - before
+            r1, r2 = router.close(s1), router.close(s2)
+            if (r1.item(), r2.item()) != (served[LARGE_NAME],) * 2 or new_keys != 0 \
+                    or r2.stats["worker"] != dst:
+                raise AssertionError(f"[cluster] (c) counts {r1.item()}, {r2.item()}, "
+                                     f"{new_keys} new ingest keys on the target")
+            log(f"  (c) FB107x9 session migrated mid-stream worker {src} -> {dst}: evict "
+                f"(checkpoint + spill) {walls['evict'][0] * 1e3:.1f} ms, restore "
+                f"{walls['restore'][0] * 1e3:.1f} ms, {migrate_s * 1e3:.1f} ms in all; "
+                f"count {r2.item()} exact, 0 new ingest keys on the warm target")
+            summary["c"] = dict(evict_ms=walls["evict"][0] * 1e3,
+                                restore_ms=walls["restore"][0] * 1e3,
+                                migrate_ms=migrate_s * 1e3)
+
+            # (d) SIGKILL a worker mid-stream: its sessions resurrect on the survivor
+            a, b, c = (router.open(fb.n_nodes, block_size=SERVE_BLOCK) for _ in range(3))
+            victim = router.worker_of(a)
+            if router.worker_of(c) != victim or router.worker_of(b) == victim:
+                raise AssertionError("[cluster] (d) unexpected placement")
+            feed_round_robin(router, {a: fb_feeds[:half], b: fb_feeds[:half], c: fb_feeds[:half]})
+            router.checkpoint(a)  # a: checkpoint + journal; c: the journal alone
+            add(router.workers[victim].rpc({"op": "stats"})[0]["launches"])
+            router.workers[victim].proc.kill()
+            t0 = time.perf_counter()
+            router.feed(a, fb_feeds[half])  # the failure detector: a's worker is gone
+            failover_s = time.perf_counter() - t0
+            feed_round_robin(router, {a: fb_feeds[half + 1:], b: fb_feeds[half:],
+                                 c: fb_feeds[half:]})
+            st = router.stats()
+            got = [router.close(g).item() for g in (a, b, c)]
+            if got != [served[LARGE_NAME]] * 3 or st["worker_deaths"] != 1 \
+                    or st["resurrections"] != 2 or st["workers"][victim] != {"alive": False}:
+                raise AssertionError(f"[cluster] (d) counts {got}, stats {st}")
+            log(f"  (d) worker {victim} SIGKILLed mid-stream: its two sessions resurrected "
+                f"on the survivor (one from its checkpoint + journal, one by a full "
+                f"replay) in {failover_s * 1e3:.1f} ms; all three counted {got[0]}")
+            summary["d"] = dict(failover_ms=failover_s * 1e3)
+            add(worker_launches(router))
+
+        # (e) one worker of MESH_STAGES stages on the one card
+        gc.collect()
+        free_e = torch.cuda.mem_get_info()[0]
+        one_card = f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE
+        with ClusterRouter([{"memory_bytes": free_e - CLUSTER_MARGIN, "devices": MESH_STAGES,
+                             "device": one_card}],
+                           checkpoint_dir=tmp, checkpoint_every_bytes=None) as router:
+            w = router.workers[0]
+            if (w.mesh_devices, w.resources.n_devices, w.resources.max_stages) != \
+                    (0, MESH_STAGES, MESH_STAGES):
+                raise AssertionError(f"[cluster] (e) hello: mesh_devices {w.mesh_devices}, "
+                                     f"{w.resources}")
+            gids, predicted, _ = fill_router(router, ny.n_nodes, SERVE_BLOCK)
+            retaken, used, placed = 0, 0, []
+            for g in gids:  # the verdicts had the mesh's width been advertised
+                wide = worker_admission(ny.n_nodes, WorkerLoad(
+                    w.resources, charged_bytes=used, mesh_devices=MESH_STAGES,
+                    sessions=tuple(placed), block_size=SERVE_BLOCK))
+                retaken += wide.admitted and wide.plan.n_stages > 1
+                used += predicted[g].state_bytes
+                placed.append((ny.n_nodes, dataclasses.replace(predicted[g].plan,
+                                                               block_size=SERVE_BLOCK)))
+            widths = {router.close(g).plan.n_stages for g in gids}
+            g = router.open(fb.n_nodes, block_size=SERVE_BLOCK)
+            feed_round_robin(router, {g: fb_feeds})
+            r = router.close(g)
+            if widths != {1} or r.item() != served[LARGE_NAME] or r.plan.n_stages != 1:
+                raise AssertionError(f"[cluster] (e) widths {widths}, FB107x9 "
+                                     f"{r.item()} at {r.plan.n_stages} stages")
+            log(f"  (e) a worker of {MESH_STAGES} stages on one card advertises "
+                f"mesh_devices=0: {len(gids)} NY-size sessions placed, every one at ring "
+                f"width 1 and verdict for verdict the worker's own ({retaken} of them a "
+                f"{MESH_STAGES}-stage plan had the mesh's width been advertised); FB107x9 "
+                f"counted {r.item()} there")
+            summary["e"] = dict(sessions=len(gids), retaken=retaken)
+            add(worker_launches(router))
+    summary["launches"] = launches
+    log(f"  kernel launches in the workers: {launches}")
+    return summary
+
+
 def logits_agree(label: str, got, want, rel: float = 1e-3) -> float:
     """max |got - want| <= rel * max |want|, both finite; returns the ratio."""
     import torch
@@ -2709,6 +3058,12 @@ def main() -> int:
     ring_mesh = ring_mesh_phase(graphs)
     log(f"[ring mesh] done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    log("[cluster] ClusterServer / ClusterRouter over worker processes sharing the card: "
+        "the Table-1 streams, NY-size sessions to the router's refusal, a migration, a "
+        "SIGKILLed worker, a worker of four stages on the one card")
+    cluster = cluster_phase(graphs, serve_streams["a"]["sync"]["wall_ms"])
+    log(f"[cluster] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     log("[lm] Yi-6B at full width and depth, f32 weights: LMServer.generate, flash prefill "
         "(tf32x3 K6) + decode_step, forward")
     lm = lm_phase()
@@ -2725,7 +3080,9 @@ def main() -> int:
     log(f"[recsys] done in {time.perf_counter() - t0:.1f} s")
     torch.cuda.synchronize()
     launches = launch_counts()  # the main path ends here
-    log(f"[main path] kernel launches: {launches}")
+    for name, k in cluster.pop("launches").items():  # counted in the workers
+        launches[name] += k
+    log(f"[main path] kernel launches (this process and the [cluster] workers): {launches}")
     missing = [name for name, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
@@ -2782,6 +3139,7 @@ def main() -> int:
     log("[hybrid table] " + json.dumps(hybrid_table))
     log("[serve streams summary] " + json.dumps(serve_streams))
     log("[ring mesh summary] " + json.dumps(ring_mesh))
+    log("[cluster summary] " + json.dumps(cluster))
     log("[lm summary] " + json.dumps(lm["summary"]))
     log("[lm bf16 summary] " + json.dumps(lm_bf16["summary"]))
     log("[recsys summary] " + json.dumps(recsys))

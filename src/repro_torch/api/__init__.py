@@ -43,17 +43,21 @@ from repro_torch.api.planner import (
     BackpressureError,
     GraphStats,
     HybridSizing,
+    Placement,
     Plan,
     Resources,
+    WorkerLoad,
     admit_session,
     backend_exec_flags,
     card_reserve_bytes,
     device_state_bytes,
     hybrid_sizing,
     mesh_admission,
+    place_session,
     plan,
     plan_for_graph,
     stream_sizing,
+    worker_admission,
 )
 from repro_torch.api.counter import (
     CountResult,
@@ -73,17 +77,21 @@ __all__ = [
     "BackpressureError",
     "GraphStats",
     "HybridSizing",
+    "Placement",
     "Plan",
     "Resources",
+    "WorkerLoad",
     "admit_session",
     "backend_exec_flags",
     "card_reserve_bytes",
     "device_state_bytes",
     "hybrid_sizing",
     "mesh_admission",
+    "place_session",
     "plan",
     "plan_for_graph",
     "stream_sizing",
+    "worker_admission",
     "CountResult",
     "SessionCheckpoint",
     "StreamSession",

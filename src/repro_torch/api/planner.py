@@ -19,7 +19,10 @@ against ``Resources.memory_bytes``.
 Session admission (:func:`admit_session`) is the serving tier's memory
 accounting, as in the reference; on the card the multiplexer also charges
 one ingest's device scratch (:func:`card_reserve_bytes`). Multi-worker
-placement comes with the cluster tier (ROADMAP.md, queue A item 4).
+placement (:func:`place_session` over one :class:`WorkerLoad` a worker)
+is the cluster router's: the reference's least-loaded-by-bytes rule, with each
+``cuda`` worker's verdict taken under the reserve its multiplexer charges
+(:func:`worker_admission`).
 """
 from __future__ import annotations
 
@@ -844,3 +847,153 @@ def card_reserve_bytes(sessions, mesh=None) -> int:
     return (_CARD_FIXED_BYTES
             + max((ingest_scratch_bytes(n, p, mesh) for n, p in pairs), default=0)
             + sum(prefetch_inflight_bytes(p) for _, p in pairs))
+
+
+# --------------------------------------------------------------------------
+# Multi-worker placement — per-worker capacity accounting on the cluster tier
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class WorkerLoad:
+    """One worker's capacity story, as the router sees it.
+
+    ``resources`` is the worker's advertised budget (its ``Resources``:
+    memory, ring width, backend); ``charged_bytes`` is the sum of the
+    planner-predicted state bytes of every session the router has placed on
+    it — the Afrati–Ullman accounting unit: placement is charged in BYTES of
+    pinned bitset state, never in session counts. ``mesh_devices`` is the
+    ring width whose per-stage n²/8/S discount the worker's mesh really
+    gives (0 = none): a mesh of one stage per device advertises its width,
+    and a mesh whose stages share a device advertises 0, since its shards
+    add up there — exactly the multiplexer's re-take rule
+    (:func:`mesh_admission`), so the router predicts the bytes the worker
+    will charge.
+
+    ``sessions`` holds the ``(n_nodes, plan)`` of the sessions the router
+    placed on the worker, each plan at the block size it runs: on a
+    ``cuda`` worker :func:`worker_admission` charges the card's reserve of
+    these and the candidate (:func:`card_reserve_bytes`), as the worker's
+    multiplexer does. ``block_size`` is the block size the worker will run
+    the candidate at (None = the plan's). On a CPU worker neither is read,
+    and every verdict is the reference's."""
+
+    resources: Resources
+    charged_bytes: int = 0
+    mesh_devices: int = 0
+    sessions: tuple = ()
+    block_size: int | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """The planner's verdict on placing one session across many workers.
+
+    ``action`` is ``"place"`` (``worker`` indexes the chosen entry in the
+    ``loads`` sequence and ``admission`` is that worker's verdict),
+    ``"queue"`` (no worker fits RIGHT NOW but at least one could when idle —
+    the caller should retry after sessions close), or ``"reject"`` (the
+    session could NEVER fit any worker, even idle — the front door should
+    refuse it outright instead of queueing forever)."""
+
+    action: str
+    worker: int | None
+    admission: Admission | None
+    state_bytes: int
+    reason: str
+
+    @property
+    def placed(self) -> bool:
+        return self.action == "place"
+
+
+def worker_admission(n_nodes: int, load: WorkerLoad, *,
+                     window_epochs: int = 0,
+                     bytes_in_use: int | None = None) -> Admission:
+    """:func:`admit_session` through one worker's mesh model: when the
+    planner's ring width does not match ``load.mesh_devices``, the
+    per-stage discount is unreal (the shards share a device), so the
+    decision is RE-TAKEN at ring width 1 — the rule the worker's
+    multiplexer applies (:func:`mesh_admission`), lifted here so the
+    router's predicted bytes always equal what the worker will charge.
+
+    On a ``cuda`` worker the decision is taken, as its multiplexer takes
+    it, against ``memory_bytes`` less :func:`card_reserve_bytes` of
+    ``load.sessions`` and the candidate at the plan it is admitted with
+    (run at ``load.block_size``), retaken until that reserve holds. The
+    reference knows no reserve; a router using its rule would place
+    sessions the card's worker then queues. Like the reference, the model
+    is a worker without a prefetch pipeline."""
+    used = load.charged_bytes if bytes_in_use is None else bytes_in_use
+
+    def decide(res: Resources) -> Admission:
+        adm = admit_session(n_nodes, res, bytes_in_use=used,
+                            window_epochs=window_epochs)
+        if (adm.admitted and adm.plan.n_stages > 1
+                and adm.plan.n_stages != load.mesh_devices):
+            adm = admit_session(
+                n_nodes, dataclasses.replace(res, max_stages=1),
+                bytes_in_use=used, window_epochs=window_epochs)
+        return adm
+
+    res = load.resources
+    if res.backend != "cuda":
+        return decide(res)
+    sessions = list(load.sessions)
+    reserve = card_reserve_bytes(sessions)
+    while True:
+        adm = decide(dataclasses.replace(
+            res, memory_bytes=max(res.memory_bytes - reserve, 0)))
+        if not adm.admitted:
+            return adm
+        # a smaller budget never plans a larger block, so the reserve only
+        # grows until it holds
+        run = dataclasses.replace(
+            adm.plan, block_size=int(load.block_size or adm.plan.block_size))
+        need = card_reserve_bytes(sessions + [(n_nodes, run)])
+        if need <= reserve:
+            return adm
+        reserve = need
+
+
+def place_session(n_nodes: int, loads, *, window_epochs: int = 0) -> Placement:
+    """Least-loaded-by-bytes placement of one more stream session.
+
+    ``loads`` is the router's view of its live workers (a sequence of
+    :class:`WorkerLoad`). Every worker gets the mesh-aware
+    :func:`worker_admission` verdict at its current ``charged_bytes``; among
+    the workers that ADMIT, the one with the fewest charged bytes wins (ties
+    break to the lowest index — deterministic placement). When nobody admits
+    the verdict degrades the same way :func:`admit_session` does: ``"queue"``
+    if some worker could host the session idle (re-checked with no session
+    placed on it), ``"reject"`` if none ever could — the cluster front
+    door's never-fits rejection."""
+    if not loads:
+        return Placement(action="reject", worker=None, admission=None,
+                         state_bytes=0, reason="no live workers")
+    fitting = []
+    for i, load in enumerate(loads):
+        adm = worker_admission(n_nodes, load, window_epochs=window_epochs)
+        if adm.admitted:
+            fitting.append((i, load, adm))
+    if fitting:
+        i, load, adm = min(fitting, key=lambda t: (t[1].charged_bytes, t[0]))
+        return Placement(
+            action="place", worker=i, admission=adm,
+            state_bytes=adm.state_bytes,
+            reason=(f"least-loaded-by-bytes: worker {i} at "
+                    f"{load.charged_bytes} B charged ({len(fitting)} of "
+                    f"{len(loads)} worker(s) fit); {adm.reason}"))
+    idle_fits = any(
+        worker_admission(n_nodes, dataclasses.replace(
+            load, charged_bytes=0, sessions=()),
+            window_epochs=window_epochs).admitted
+        for load in loads)
+    window = f"windowed ({window_epochs} epochs) " if window_epochs else ""
+    if idle_fits:
+        return Placement(
+            action="queue", worker=None, admission=None, state_bytes=0,
+            reason=(f"{window}session of {n_nodes} nodes fits no worker at "
+                    f"current load — retry after sessions close"))
+    return Placement(
+        action="reject", worker=None, admission=None, state_bytes=0,
+        reason=(f"{window}session of {n_nodes} nodes can NEVER fit any of "
+                f"the {len(loads)} worker(s), even idle"))

@@ -4,8 +4,9 @@
 ``TriangleServer``); ``sessions`` holds the concurrent multi-stream
 machinery — ``StreamMultiplexer`` (the preemptible fair-share scheduler
 over ``api.StreamSession``) and ``CheckpointStore`` (its bounded host/disk
-parking lot for preempted sessions' checkpoints). The cluster tier
-(``ClusterServer``, router and workers) is ROADMAP.md queue A item 4.
+parking lot for preempted sessions' checkpoints); ``cluster`` holds the
+multi-process tier (``ClusterRouter``, ``WorkerClient``, the worker
+process and their wire protocol) that ``serve_loop.ClusterServer`` fronts.
 """
 from repro_torch.serve.serve_loop import LMServer, ServeConfig, TriangleServeConfig, TriangleServer
 from repro_torch.serve.sessions import CheckpointStore, StreamMultiplexer

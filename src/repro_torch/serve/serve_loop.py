@@ -15,8 +15,9 @@ The triangle server also serves streams: ``open_stream``/``feed``/
 ``close_stream`` (and ``serve_streams``, many at once) ride
 ``serve.sessions.StreamMultiplexer`` — planner admission, preemption,
 deadlines, bounded backpressure and, with ``prefetch_depth=K``, background
-re-blocking. The multi-host ``ClusterServer`` comes with the cluster tier
-(ROADMAP.md, queue A item 4)."""
+re-blocking. ``ClusterServer`` is the same streaming surface over worker
+PROCESSES (``serve.cluster``): sessions placed by planner-predicted bytes,
+journaled, checkpointed, migrated and failed over by the router."""
 from __future__ import annotations
 
 import dataclasses
@@ -223,3 +224,103 @@ class TriangleServer:
         block from the server's resources."""
         return self.serve_streams([(n_nodes, blocks)],
                                   block_size=block_size)[0]
+
+
+class ClusterServer:
+    """The multi-host front door: ``TriangleServer``'s streaming surface
+    over a :class:`~repro_torch.serve.cluster.ClusterRouter` of worker PROCESSES.
+
+    Where ``TriangleServer`` multiplexes sessions inside one process (one
+    host's ``Resources.memory_bytes`` caps the aggregate state), the
+    cluster server places each session on a worker by planner-predicted
+    state bytes (``place_session``: least-loaded-by-bytes, never-fits
+    rejection at ``open_stream``) and rides the router's durability
+    machinery — journaled feeds, checkpoint barriers, live migration, and
+    failover that resurrects a dead worker's sessions from their spilled
+    checkpoints. Session ids are GLOBAL (router-issued); results are the
+    same ``CountResult``s, counts bit-identical to a single-process run.
+
+    ``workers`` is a list of :class:`~repro_torch.serve.cluster.WorkerClient`\\ s
+    or spawn-spec dicts (``{"memory_bytes": ..., "devices": ...,
+    "device": ...}``; a worker runs on ``cuda`` unless its spec says
+    ``"device": "cpu"``); remaining keyword arguments go to the router. Use as a context manager
+    (or call ``shutdown()``) so worker subprocesses are reaped."""
+
+    def __init__(self, workers, **router_kwargs):
+        from repro_torch.serve.cluster import ClusterRouter
+
+        self.router = ClusterRouter(workers, **router_kwargs)
+
+    # -- TriangleServer's streaming surface, routed ------------------------
+    def open_stream(self, n_nodes: int, *, block_size: int | None = None,
+                    window: int | None = None, priority: int = 0) -> int:
+        """Place one streaming session on the least-loaded fitting worker;
+        returns its global session id. ``BackpressureError`` = fits no
+        worker at current load (retry after closes); ``ValueError`` = could
+        never fit any worker, even idle."""
+        return self.router.open(n_nodes, block_size=block_size,
+                                window=window, priority=priority)
+
+    def feed(self, sid: int, edges) -> None:
+        """Feed one (B, 2) edge block (journaled, then dispatched)."""
+        self.router.feed(sid, edges)
+
+    def advance_stream(self, sid: int) -> None:
+        """Slide a windowed session's window one epoch."""
+        self.router.advance(sid)
+
+    def stream_status(self, sid: int) -> str:
+        """``"active"`` / ``"queued"`` / ``"preempted"`` on its worker,
+        ``"displaced"`` while failover has no home for it, ``"closed"``."""
+        return self.router.status(sid)
+
+    def close_stream(self, sid: int):
+        """Finalize a session; returns its ``CountResult`` (idempotent)."""
+        return self.router.close(sid)
+
+    def serve_streams(self, requests, *, block_size: int | None = None) -> list:
+        """Serve many ``(n_nodes, blocks)`` requests concurrently across
+        the cluster, round-robin interleaved — ``TriangleServer``'s
+        signature, placement decided per session."""
+        its = [iter(blocks) for _, blocks in requests]
+        sids = [self.router.open(n, block_size=block_size)
+                for n, _ in requests]
+        live = set(range(len(requests)))
+        while live:
+            for i in sorted(live):
+                try:
+                    block = next(its[i])
+                except StopIteration:
+                    live.discard(i)
+                    continue
+                self.router.feed(sids[i], block)
+        return [self.router.close(sid) for sid in sids]
+
+    # -- cluster-only controls ---------------------------------------------
+    def checkpoint_stream(self, sid: int) -> str | None:
+        """Durability barrier: spill the session's state to the checkpoint
+        dir and truncate its replay journal."""
+        return self.router.checkpoint(sid)
+
+    def migrate_stream(self, sid: int, to: int | None = None) -> int:
+        """Move a live session to another worker (checkpoint → evict →
+        restore; bit-identical, zero new traces on a warm target)."""
+        return self.router.migrate(sid, to=to)
+
+    def rebalance(self, *, threshold_bytes: int = 0) -> int | None:
+        """One gap-shrinking migration between the most- and least-loaded
+        workers (``None`` when already balanced)."""
+        return self.router.rebalance(threshold_bytes=threshold_bytes)
+
+    def stats(self) -> dict:
+        """Router counters + per-worker ledger/multiplexer gauges."""
+        return self.router.stats()
+
+    def shutdown(self) -> None:
+        self.router.shutdown()
+
+    def __enter__(self) -> "ClusterServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.shutdown()

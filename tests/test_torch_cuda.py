@@ -1036,3 +1036,79 @@ def test_recsys_on_the_card_launches_k7_and_matches_the_cpu_port(cuda):
     ids = torch.from_numpy(rng.integers(0, cfg.vocab_per_field, (6, cfg.n_sparse)))
     torch.testing.assert_close(autoint.ctr_logits(model, cfg, ids.to(cuda)).cpu(),
                                autoint.ctr_logits(host, cfg, ids), rtol=1e-5, atol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# The cluster tier on the card: worker processes sharing it
+# --------------------------------------------------------------------------
+def test_a_card_worker_counts_as_the_cpu_port_and_closes_to_int64(cuda, tmp_path):
+    """A ``--device cuda`` worker's open / feed / close over the wire equals
+    the CPU port's count; the count is copied off the card and arrives as
+    int64, and the worker's own launch counters show K3 and K4 ran in it."""
+    from repro_torch.api import planner
+    from repro_torch.serve.cluster import WorkerClient
+
+    n, block = 20_000, 4096
+    edges = np.random.default_rng(11).integers(0, n, size=(30_000, 2)).astype(np.int32)
+    w = WorkerClient.spawn(memory_bytes=planner._CARD_FIXED_BYTES + (1 << 30),
+                           log_dir=str(tmp_path))
+    try:
+        assert (w.resources.backend, w.mesh_devices) == ("cuda", 0)
+        reply, _ = w.rpc({"op": "open", "n_nodes": n, "block_size": block})
+        sid = reply["sid"]
+        assert reply["status"] == "active"
+        for seq, i in enumerate(range(0, len(edges), block)):
+            w.rpc({"op": "feed", "sid": sid, "seq": seq}, {"edges": edges[i:i + block]})
+        reply, arrays = w.rpc({"op": "close", "sid": sid})
+        stats, _ = w.rpc({"op": "stats"})
+    finally:
+        w.shutdown()
+    assert arrays["count"].dtype == np.int64 and arrays["count"].size == 1
+    want = TriangleCounter(Resources(), device="cpu").count_stream(
+        n, [edges], plan=Plan(method="stream", block_size=block)).item()
+    assert int(arrays["count"][0]) == want
+    assert reply["stats"]["n_blocks"] == -(-len(edges) // block)
+    assert stats["launches"]["bitset_edge_count"] > 0
+    assert stats["launches"]["bitset_pair_count"] > 0
+
+
+def test_the_routers_verdicts_are_card_workers_own_under_the_reserve(cuda, tmp_path):
+    """Two card workers — one plain, one of four stages on this one card —
+    filled through the router until it refuses: no worker ever queues a
+    session the router placed, each worker pins what the router charged,
+    the four-stage worker advertises width 0 and runs width-1 plans, and a
+    further open sent past the router queues on either worker. The
+    reference's rule, with no reserve, would have placed more."""
+    from repro_torch.api import BackpressureError, WorkerLoad, planner, worker_admission
+    from repro_torch.serve.cluster import ClusterRouter
+
+    n, block = 20_000, 4096
+    state = 4 * n * (-(-n // 32))
+    share = planner._CARD_FIXED_BYTES + int(3.5 * state)
+    specs = [{"memory_bytes": share}, {"memory_bytes": share, "devices": 4,
+                                       "device": "cuda:0"}]
+    with ClusterRouter(specs, checkpoint_dir=str(tmp_path),
+                       checkpoint_every_bytes=None) as router:
+        plain, meshed = router.workers
+        assert (meshed.resources.n_devices, meshed.mesh_devices) == (4, 0)
+        gids = []
+        with pytest.raises(BackpressureError):
+            while True:
+                gids.append(router.open(n, block_size=block))
+        assert len(gids) >= 4
+        assert all(router.status(g) == "active" for g in gids)
+        st = router.stats()["workers"]
+        assert [s["bytes_in_use"] for s in st] == router.charged_bytes()
+        assert [s["n_queued"] for s in st] == [0, 0]
+        for i, w in enumerate(router.workers):
+            no_reserve = worker_admission(n, WorkerLoad(
+                dataclasses.replace(w.resources, backend="cpu"),
+                charged_bytes=router.charged_bytes()[i]))
+            assert no_reserve.admitted
+            reply, _ = w.rpc({"op": "open", "n_nodes": n, "block_size": block})
+            assert reply["status"] == "queued"
+            w.rpc({"op": "close", "sid": reply["sid"]})
+        results = [router.close(g) for g in gids]
+        assert all(r.plan.n_stages == 1 for r in results)
+        assert {r.stats["worker"] for r in results} == {0, 1}
+        assert router.charged_bytes() == [0, 0]
