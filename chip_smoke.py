@@ -15,7 +15,9 @@
    and FNA.5's 4,472 rows of its 8,192 bucket as the main path gives them;
    K2 also all ones past 2³¹ and a ring whose rows break TMA's rule), flash attention
    (K6: at D = 64, 128 the wgmma kernel for bf16 and the three-pass TF32
-   kernel for f32, at other head dims the FMA kernel)
+   kernel for f32, at other head dims the FMA kernel, also at MLA's head
+   dims 192 and 24 with V zero past its width, and timed at
+   DeepSeek-V2-Lite's prefill shape beside SDPA)
    and EmbeddingBag (K7) within the reference kernel tests'
    tolerances, at Yi-6B's and AutoInt's full widths among others. The plain
    versions' float32 products run in true float32 (PyTorch's TF32 off,
@@ -142,9 +144,28 @@
    ``lookup_multihot(use_kernel=True)`` (K7) on 16,384 × 39 bags of 8 ids
    against ``use_kernel=False``; the smoke config on the card against the
    CPU port.
-11. Profiles one planner-chosen count of FNA.5 and of NY, one planner-chosen
-   ``count_stream`` of NY and of YT, (a)'s interleaved ``serve_streams``, and
-   one Yi-6B flash prefill plus 32 decode steps in f32 and in bf16, with
+11. [lm deepseek] DeepSeek-V2-Lite (``configs/deepseek_v2_lite_16b.py``:
+   27 layers, d_model 2,048, 16 heads, MLA with kv_lora 512 and nope 128 /
+   rope 64 / v 128, 64 routed experts top-6 plus 2 shared, the first layer
+   dense): (a) both DeepSeek smoke configs (V2-Lite's and V2 236B's, the
+   one with q-LoRA) in f32 on the card against the CPU port, chunked and
+   flash prefill and 8 decode steps within 1e-3 of the largest logit; (c)
+   f32 at full width and ``DS_REDUCED_LAYERS`` layers (reduced: all 27
+   would be 62.8 GB) through [lm]'s checks (server, flash prefill within
+   1e-3 of the chunked one, forward); (b) bf16 at full width and depth,
+   31.41 GB of weights drawn on the card: [lm bf16]'s checks (the server on
+   the same 8 prompts, the flash prefill launching the FMA K6 at head dim
+   192 once per layer, decode, the flash prefill no farther from f32
+   arithmetic — one f32 layer on the card at a time — than twice the
+   chunked one), the share of (token, MoE layer) routed expert sets that
+   differ between the flash and chunked paths, and one MLA and one MoE
+   layer at full width against f32 arithmetic from the same bf16 inputs
+   (routing equal as integers) within 2e-2 of the largest value.
+12. Profiles one planner-chosen count of FNA.5 and of NY, one planner-chosen
+   ``count_stream`` of NY and of YT, (a)'s interleaved ``serve_streams``,
+   one Yi-6B flash prefill plus 32 decode steps in f32 and in bf16, and one
+   DeepSeek-V2-Lite bf16 flash prefill plus 8 decode steps (with its
+   device-to-host copies: each MoE layer reads its group sizes once), with
    ``torch.profiler``: host wall,
    device busy time, the device's idle share. Each window opens with marker
    kernels, and a profile counts only when it is consistent (a marker
@@ -153,7 +174,7 @@
    host-to-device copy row for each count); an inconsistent one is profiled
    again with four times the markers, and the third raises.
 
-Phases 2 to 10 are the main path: every kernel's launch count is set to 0
+Phases 2 to 11 are the main path: every kernel's launch count is set to 0
 before them and must be above 0 after them. Any mismatch or exception exits
 non-zero. The last three lines are the ``kernels`` JSON line, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Imports nothing
@@ -202,6 +223,12 @@ K6_ROUTES = {"fma": "flash_attention", "wgmma": "flash_attention_wgmma",
              "tf32x3": "flash_attention_tf32x3"}
 # Yi-6B's attention at a long prefill: K6 is timed at this shape.
 YI_ATTN = dict(b=1, hq=32, hkv=4, s=8192, d=128)
+# DeepSeek-V2-Lite's MLA flash prefill: K6 at head dim nope + rope = 192
+# with V padded from 128, 16 heads (as many kv heads), the LM phase's 4
+# prompts of 1,024 tokens. K6's FMA route is checked and timed here, with
+# the ragged S and the smoke configs' head dim 24 (V from 16) beside it.
+DS_ATTN = dict(b=4, h=16, s=1024, d=192, dv=128)
+DS_ATTN_CHECKS = ((4, 16, 1024, 192, 128), (4, 16, 127, 192, 128), (2, 4, 200, 24, 16))
 # K2 against its plain version (each with and without the upper-triangular
 # skip): ragged single tiles, several output tiles and contraction slices
 K2_SHAPES = ((64, 64, 64), (100, 70, 130), (33, 1, 17), (512, 2048, 2048),
@@ -244,6 +271,12 @@ BF16_P_ROUND = 2.0**-8
 # ``bf16_logits_check``, since each bf16 path alone lies about 2e-2 of the
 # largest logit from f32 arithmetic on the same weights (PERF.md).
 LOGITS_REL = {"float32": 1e-3, "bfloat16": 2e-2}
+# [lm deepseek] (c): DeepSeek-V2-Lite in f32 at full width is cut to this
+# depth (its first, dense layer and three MoE layers): all 27 f32 layers
+# would take 62.8 GB beside the Yi-6B models the phase runs next to
+DS_REDUCED_LAYERS = 4
+# [profile]: decode steps profiled after DeepSeek-V2-Lite's flash prefill
+DS_PROFILE_STEPS = 8
 # [serve streams] (b) and (c): every NY-size session runs this block size
 # (the bitset ingest's (n, W) delta table is the same at any block; the
 # hybrid sessions' block-local packing grows with B²)
@@ -878,7 +911,67 @@ def check_attention(gen) -> dict:
                f"max abs err {pre['max_abs_err']:.3e}" if route == "tf32x3" else ""))
         del q, k, v
         torch.cuda.empty_cache()
+    rows["flash_attention"]["at_deepseek_shape"] = check_attention_mla(gen, run)
     return rows
+
+
+def check_attention_mla(gen, run) -> dict:
+    """K6's FMA route at MLA's head dims (``DS_ATTN_CHECKS``): causal, f32
+    and bf16, V zero past dv as ``mla_full`` pads it, within the reference
+    kernel test's 2e-5 (f32) and 3e-2 (bf16) of its plain version, each
+    call one FMA launch (``run``). Then timed at DeepSeek-V2-Lite's prefill
+    shape (``DS_ATTN``) in both dtypes beside its plain version and SDPA on
+    the same inputs, with its bounds on the FMA pipes (the route's own) and
+    on the bf16 tensor cores. Returns those times by dtype."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    def qkv(b, h, s, d, dv, dtype):
+        q, k, v = (torch.randn(b, h, s, d, generator=gen).to(dtype).to(DEVICE)
+                   for _ in range(3))
+        v[..., dv:] = 0
+        return q, k, v
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = 2e-5 if dtype == torch.float32 else 3e-2
+        worst = 0.0
+        for b, h, s, d, dv in DS_ATTN_CHECKS:
+            q, k, v = qkv(b, h, s, d, dv, dtype)
+            got = run(q, k, v)
+            err, ok = close(got, attention_ref(q, k, v), tol)
+            if not ok or got[..., dv:].any():
+                raise AssertionError(f"flash_attention (FMA) {dtype} B={b} H={h} S={s} D={d}: "
+                                     f"max abs err {err}, not within rtol = atol = {tol} (or "
+                                     "nonzero past dv)")
+            worst = max(worst, err)
+            del q, k, v, got
+        log(f"  flash_attention      MLA head dims {[c[3] for c in DS_ATTN_CHECKS]} (S "
+            f"{[c[2] for c in DS_ATTN_CHECKS]}), {dtype}, causal: the FMA kernel within "
+            f"rtol = atol = {tol:g}, max abs err {worst:.3e}")
+    b, h, s, d, dv = (DS_ATTN[x] for x in ("b", "h", "s", "d", "dv"))
+    flops = 4 * b * h * d * s * (s + 1) / 2
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = qkv(b, h, s, d, dv, dtype)
+        nbytes = 4 * q.numel() * q.element_size()
+        row = out[str(dtype).removeprefix("torch.")] = dict(
+            shape=[b, h, h, s, d], gflop=flops / 1e9,
+            ms=time_ms(lambda: run(q, k, v), reps=10),
+            plain_ms=time_ms(lambda: attention_ref(q, k, v), reps=3),
+            library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True), reps=10),
+            fma_bound_ms=flops / PEAK_F32_FLOPS * 1e3,
+            bf16_tc_bound_ms=flops / PEAK_BF16_FLOPS * 1e3,
+            bytes_bound_ms=nbytes / PEAK_BYTES * 1e3)
+        log(f"  flash_attention      {dtype} at DeepSeek-V2-Lite's prefill shape "
+            f"{tuple(q.shape)} ({flops / 1e9:.2f} GFLOP): FMA kernel {row['ms']:.4f} ms, SDPA "
+            f"{row['library_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms; bound "
+            f"{row['fma_bound_ms']:.4f} ms on the FMA pipes, {row['bf16_tc_bound_ms']:.4f} ms "
+            f"on the bf16 tensor cores, {row['bytes_bound_ms']:.4f} ms by bytes")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
 
 
 def check_embedding_bag(gen) -> dict:
@@ -2427,36 +2520,68 @@ def logits_agree(label: str, got, want, rel: float = 1e-3) -> float:
     return diff / top
 
 
-def lm_phase(arch: str = "yi_6b", dtype: str = "float32", n_prompts: int = 8,
-             lengths=(256, 1024), max_batch: int = 4, new_tokens: int = 32) -> dict:
-    """The LM path at full width and depth in ``dtype`` (float32 or
-    bfloat16): the server, the flash prefill and decode, and (float32)
-    forward, as the module docstring says. Returns what the profile phase
-    reuses (the model and one batch)."""
+def k6_head_dim(cfg) -> int:
+    """The head dim the LM's flash prefill hands K6: MLA's nope + rope
+    (V padded to it), else the config's head dim."""
+    return cfg.mla.nope_head_dim + cfg.mla.rope_head_dim if cfg.mla else cfg.hd
+
+
+def smoke_on_card(arch: str, decode_steps: int = 8) -> None:
+    """``arch``'s smoke config in f32 on the card against the CPU port on
+    the same weights: the chunked and the flash prefill, then
+    ``decode_steps`` greedy decode steps from the flash prefill's cache,
+    each step's logits within 1e-3 of the largest."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as tf
+
+    small = get_smoke(arch)
+    m_dev = tf.init_params(torch.Generator(device=DEVICE).manual_seed(1), small, device=DEVICE)
+    m_cpu = tf.Transformer(small, device="cpu")
+    m_cpu.load_state_dict({k: v.cpu() for k, v in m_dev.state_dict().items()})
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, small.vocab, (2, 33)))
+    s_max = 33 + decode_steps
+    for flash in (False, True):
+        a, c_dev = tf.prefill(m_dev, small, toks.to(DEVICE), s_max, use_flash=flash, chunk_q=16)
+        b, c_cpu = tf.prefill(m_cpu, small, toks, s_max, use_flash=flash, chunk_q=16)
+        logits_agree(f"{small.name} {'flash' if flash else 'chunked'} prefill, card vs CPU "
+                     "port", a.cpu(), b)
+    ratio, tok = 0.0, b.argmax(-1, keepdim=True)
+    for step in range(decode_steps):
+        a, _ = tf.decode_step(m_dev, small, c_dev, tok.to(DEVICE), 33 + step)
+        b, _ = tf.decode_step(m_cpu, small, c_cpu, tok, 33 + step)
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{small.name} decode step {step}: logits are not finite")
+        ratio = max(ratio, float((a.cpu() - b).abs().max() / b.abs().max()))
+        tok = b.argmax(-1, keepdim=True)
+    log(f"  {small.name} {decode_steps} decode steps, card vs CPU port: max |diff| / max "
+        f"|logit| {ratio:.3e} (<= 0.001)")
+    if not ratio <= 1e-3:
+        raise AssertionError(f"{small.name} decode steps on the card: {ratio} > 1e-3")
+
+
+def lm_phase(arch: str = "yi_6b", dtype: str = "float32", n_prompts: int = 8,
+             lengths=(256, 1024), max_batch: int = 4, new_tokens: int = 32,
+             cfg=None) -> dict:
+    """The LM path at full width in ``dtype`` (float32 or bfloat16): the
+    server, the flash prefill and decode, and (float32) forward, as the
+    module docstring says; ``cfg`` replaces the arch's full config (a depth
+    cut). Returns what the profile phase reuses (the model and one batch)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.flash_attention.ops import kernel_route
     from repro_torch.models import transformer as tf
     from repro_torch.serve import LMServer, ServeConfig
 
     wdtype = getattr(torch, dtype)
-    if dtype == "float32":
-        # the smoke config on the card against the CPU port, same weights
-        small = get_smoke(arch)
-        m_dev = tf.init_params(torch.Generator(device=DEVICE).manual_seed(1), small,
-                               device=DEVICE)
-        m_cpu = tf.Transformer(small, device="cpu")
-        m_cpu.load_state_dict({k: v.cpu() for k, v in m_dev.state_dict().items()})
-        toks = torch.from_numpy(np.random.default_rng(3).integers(0, small.vocab, (2, 33)))
-        a, _ = tf.prefill(m_dev, small, toks.to(DEVICE), 40, use_flash=True)
-        b, _ = tf.prefill(m_cpu, small, toks, 40, use_flash=True)
-        logits_agree(f"{small.name} flash prefill, card vs CPU port", a.cpu(), b)
-        del m_dev, m_cpu
-
-    cfg = get_config(arch)
+    if dtype == "float32" and cfg is None:
+        smoke_on_card(arch)
+    cfg = cfg or get_config(arch)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()  # by earlier phases (the f32 model in bf16's pass)
     torch.cuda.reset_peak_memory_stats()
@@ -2466,8 +2591,10 @@ def lm_phase(arch: str = "yi_6b", dtype: str = "float32", n_prompts: int = 8,
     torch.cuda.synchronize()
     n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
-        f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}: {cfg.n_params()} "
-        f"params, {n_bytes} B of {dtype} weights (norm scales float32) drawn on the card in "
+        f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}"
+        + (f", MLA {cfg.mla}" if cfg.mla else "") + (f", MoE {cfg.moe}" if cfg.moe else "")
+        + f": {cfg.n_params()} params, {n_bytes} B of {dtype} weights (norm scales"
+        + (" and routers" if cfg.moe else "") + " float32) drawn on the card in "
         f"{time.perf_counter() - t0:.3f} s")
     rng = np.random.default_rng(13)
     lens = rng.integers(lengths[0], lengths[1] + 1, n_prompts)
@@ -2492,7 +2619,7 @@ def lm_phase(arch: str = "yi_6b", dtype: str = "float32", n_prompts: int = 8,
     # cache in the weights' dtype); the server's own prefill (chunked
     # attention) recomputed for its logits and timed: that is the served
     # path's time to first token
-    route = K6_ROUTES[kernel_route(wdtype, cfg.hd)]
+    route = K6_ROUTES[kernel_route(wdtype, k6_head_dim(cfg))]
     k6 = launch_counts()
     agree, flash_ms, ttft_ms, decode_ms, ratios, kept = 0, [], [], [], [], []
     batch0 = None
@@ -2541,8 +2668,8 @@ def lm_phase(arch: str = "yi_6b", dtype: str = "float32", n_prompts: int = 8,
     k6 = after[route] - k6[route]
     log(f"  greedy tokens equal between the server and the flash path: {agree} of "
         f"{n_prompts * new_tokens}")
-    log(f"  K6 launches: {k6} of {route} = {cfg.n_layers} layers x {n_batches} flash prefills "
-        f"(none of the other routes)")
+    log(f"  K6 launches: {k6} of {route} (head dim {k6_head_dim(cfg)}) = {cfg.n_layers} layers "
+        f"x {n_batches} flash prefills (none of the other routes)")
     for i, (c, f, d) in enumerate(zip(ttft_ms, flash_ms, decode_ms)):
         log(f"  batch {i}: time to first token {c:.3f} ms (the server's prefill, chunked "
             f"attention, as generate runs it); the flash prefill (K6) {f:.3f} ms; decode "
@@ -2568,7 +2695,8 @@ def lm_phase(arch: str = "yi_6b", dtype: str = "float32", n_prompts: int = 8,
         extra["parting_layers"] = parting_layers(model, cfg, batch0)
         ratios = [r["flash_vs_f32"] / r["chunked_vs_f32"] for r in extra["bf16_logits"]]
     return dict(model=model, cfg=cfg, batch=batch0, new_tokens=new_tokens, cache_dtype=wdtype,
-                summary=dict(dtype=dtype, generate_s=gen_s,
+                summary=dict(config=cfg.name, n_layers=cfg.n_layers, dtype=dtype,
+                             generate_s=gen_s,
                              tokens_per_s=n_prompts * new_tokens / gen_s,
                              ttft_ms=ttft_ms, flash_prefill_ms=flash_ms,
                              decode_ms_per_token=decode_ms, peak_bytes=peak,
@@ -2576,26 +2704,46 @@ def lm_phase(arch: str = "yi_6b", dtype: str = "float32", n_prompts: int = 8,
                              tokens_equal=agree, logit_ratio=max(ratios), **extra))
 
 
-def bf16_logits_check(model, cfg, kept: list) -> list:
-    """The bf16 flash prefill's last-token logits held to f32 arithmetic on
-    the same (bf16) weights: no farther from it than twice the distance of
-    the server's bf16 chunked prefill — the accuracy test of FlashAttention's
-    own suite (a kernel's error against an f32 reference at most twice that
-    of a plain implementation in the same dtype), as a fraction of the
-    largest logit. The two bf16 paths' distance from each other is printed
-    beside it against ``LOGITS_REL["bfloat16"]``: both are about 2e-2 of the
-    largest logit from f32 arithmetic, so that distance is bf16's own noise
-    floor here (PERF.md). Returns the three distances per batch."""
+def f32_prefill_logits(model, cfg, tokens, chunk_q: int):
+    """The last-token logits of the chunked prefill in f32 arithmetic on
+    ``model``'s (bf16) weights — every bf16 value is an f32 value — with
+    one layer's f32 copy on the card at a time: a whole f32 copy of
+    DeepSeek-V2-Lite would take 62.8 GB. The same operations as
+    ``prefill`` of an f32 model, less the cache it fills."""
     import torch
 
     from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import rms_norm, rotary_cos_sin
 
-    truth = tf.Transformer(cfg, torch.float32, device=DEVICE)
-    truth.load_state_dict(model.state_dict())  # every bf16 value is an f32 value
+    x = model.embed[tokens.long()].float()
+    cos, sin = rotary_cos_sin(torch.arange(tokens.shape[1], device=x.device), tf._rope_dim(cfg),
+                              cfg.rope_theta)
+    for blk in model.layers:
+        b32 = tf.Block(cfg, torch.float32, moe_layer=blk.moe_layer, device=DEVICE)
+        b32.load_state_dict(blk.state_dict())
+        x, _ = tf._block(cfg, b32, x, cos, sin, use_flash=False, chunk_q=chunk_q)
+        del b32
+    x = rms_norm(x[:, -1:], model.final_norm, cfg.norm_eps)
+    return x[:, 0] @ model.unembed.float()
+
+
+def bf16_logits_check(model, cfg, kept: list) -> list:
+    """The bf16 flash prefill's last-token logits held to f32 arithmetic on
+    the same (bf16) weights (:func:`f32_prefill_logits`): no farther from
+    it than twice the distance of the server's bf16 chunked prefill — the
+    accuracy test of FlashAttention's own suite (a kernel's error against
+    an f32 reference at most twice that of a plain implementation in the
+    same dtype), as a fraction of the largest logit. The two bf16 paths'
+    distance from each other is printed beside it against
+    ``LOGITS_REL["bfloat16"]``: both are about 2e-2 of the largest logit
+    from f32 arithmetic at Yi-6B, so that distance is bf16's own noise
+    floor there (PERF.md). Returns the three distances per batch."""
+    import torch
+
     out = []
     for i, (tokens, s_max, got, want) in enumerate(kept):
         plen = tokens.shape[1]
-        exact, _ = tf.prefill(truth, cfg, tokens, s_max, chunk_q=min(512, plen))
+        exact = f32_prefill_logits(model, cfg, tokens, min(512, plen))
         if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
             raise AssertionError(f"bf16 batch {i}: logits are not finite")
         top = float(exact.abs().max())
@@ -2612,32 +2760,131 @@ def bf16_logits_check(model, cfg, kept: list) -> list:
                                  "as far from f32 arithmetic as the chunked prefill (> 2x)")
         out.append(dict(flash_vs_f32=f_err, chunked_vs_f32=c_err, flash_vs_chunked=pair))
         del exact
-    del truth
     torch.cuda.empty_cache()
     return out
 
 
-def parting_layers(model, cfg, tokens) -> list:
+def parting_layers(model, cfg, tokens) -> dict:
     """Where the bf16 flash and chunked paths part: max |x_flash - x_chunked|
     / max |x_chunked| of the residual stream after each layer, each path
-    fed its own previous output (batch 0)."""
+    fed its own previous output (batch 0); and, at each MoE layer, the
+    share of tokens whose set of routed experts differs between the two."""
     import torch
 
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe
     from repro_torch.models import transformer as tf
-    from repro_torch.models.layers import rotary_cos_sin
+    from repro_torch.models.layers import rms_norm, rotary_cos_sin
+
+    full = attn.mla_full if tf._is_mla(cfg) else attn.gqa_full
+    chunk = min(512, tokens.shape[1])
+
+    def layer(blk, x, flash):
+        h = x + full(blk.attn, cfg, rms_norm(x, blk.ln1.to(x.dtype), cfg.norm_eps), cos, sin,
+                     use_flash=flash, chunk_q=chunk)
+        experts = None
+        if blk.moe_layer:
+            z = rms_norm(h, blk.ln2.to(h.dtype), cfg.norm_eps)
+            experts = moe.route(blk.moe, cfg, z.reshape(-1, z.shape[-1]))[2].sort(-1).values
+        return tf._ffn(cfg, blk, h)[0], experts
 
     with torch.no_grad():
         xc = xf = model.embed[tokens.long()]
-        cos, sin = rotary_cos_sin(torch.arange(tokens.shape[1], device=xc.device), cfg.hd,
-                                  cfg.rope_theta)
-        chunk = min(512, tokens.shape[1])
-        out = []
+        cos, sin = rotary_cos_sin(torch.arange(tokens.shape[1], device=xc.device),
+                                  tf._rope_dim(cfg), cfg.rope_theta)
+        out, flips = [], []
         for blk in model.layers:
-            xc = tf._block(cfg, blk, xc, cos, sin, use_flash=False, chunk_q=chunk)
-            xf = tf._block(cfg, blk, xf, cos, sin, use_flash=True, chunk_q=chunk)
+            xc, ec = layer(blk, xc, False)
+            xf, ef = layer(blk, xf, True)
             out.append(float((xf - xc).abs().max() / xc.abs().max()))
+            if ec is not None:
+                flips.append(int((ec != ef).any(-1).sum()))
     log("  bf16 residual stream, flash vs chunked, per layer (batch 0): "
         + " ".join(f"{r:.2e}" for r in out))
+    n_tok = tokens.numel()
+    share = sum(flips) / (n_tok * len(flips)) if flips else 0.0
+    if flips:
+        log(f"  routed expert sets that differ between the flash and the chunked path (batch 0, "
+            f"{n_tok} tokens x {len(flips)} MoE layers): {sum(flips)}, share {share:.4e}; per "
+            "layer " + " ".join(map(str, flips)))
+    return dict(residual=out, expert_sets_differing=flips, expert_set_share=share)
+
+
+def deepseek_phase(arch: str = "deepseek_v2_lite_16b") -> dict:
+    """[lm deepseek], as the module docstring says: (a) both DeepSeek smoke
+    configs on the card against the CPU port; (c) f32 at full width and
+    ``DS_REDUCED_LAYERS`` layers through ``lm_phase``; (b) bf16 at full
+    width and depth through ``lm_phase`` (server, flash prefill on the FMA
+    K6 once per layer, decode, the flash prefill held to f32 arithmetic,
+    routing flips), then one MLA and one MoE layer against f32 arithmetic
+    from the same bf16 inputs (:func:`deepseek_layers`). Returns (b)'s
+    ``lm_phase`` result for [profile], with (c)'s summary and the layer
+    checks in its summary."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    for small in ("deepseek_v2_lite_16b", "deepseek_v2_236b"):
+        smoke_on_card(small)
+    cut = dataclasses.replace(get_config(arch), n_layers=DS_REDUCED_LAYERS)
+    log(f"  (c) f32, full width, {cut.n_layers} of {get_config(arch).n_layers} layers "
+        f"({cut.moe.n_dense_layers} dense + {cut.n_layers - cut.moe.n_dense_layers} MoE): "
+        "reduced, an f32 copy of all 27 would take 62.8 GB")
+    reduced = lm_phase(arch, "float32", cfg=cut)
+    del reduced["model"], reduced["batch"]
+    torch.cuda.empty_cache()
+    log(f"  (b) bf16, full width and depth ({get_config(arch).n_layers} layers)")
+    full = lm_phase(arch, "bfloat16")
+    full["summary"]["layers"] = deepseek_layers(full["model"], full["cfg"], full["batch"])
+    full["summary"]["reduced_f32"] = reduced["summary"]
+    return full
+
+
+def deepseek_layers(model, cfg, tokens) -> dict:
+    """One MLA and one MoE layer of the bf16 model at full width, each
+    against its plain version in f32 arithmetic on the same weights from
+    the same bf16 inputs (layer 1 of batch 0, after the dense layer 0):
+    MLA with the flash path (the FMA K6 at head dim 192) against f32
+    chunked attention, the MoE with its routing equal as integers (both
+    route ``x.float() @ router`` from the same values), each within
+    ``LOGITS_REL["bfloat16"]`` of the largest |value|."""
+    import torch
+
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import rms_norm, rotary_cos_sin
+
+    chunk = min(512, tokens.shape[1])
+    cos, sin = rotary_cos_sin(torch.arange(tokens.shape[1], device=tokens.device),
+                              tf._rope_dim(cfg), cfg.rope_theta)
+    x, _ = tf._block(cfg, model.layers[0], model.embed[tokens.long()], cos, sin,
+                     use_flash=False, chunk_q=chunk)
+    blk = model.layers[1]
+    xn = rms_norm(x, blk.ln1.to(x.dtype), cfg.norm_eps)
+    a32 = attn.MLA(cfg, torch.float32, device=DEVICE)
+    a32.load_state_dict(blk.attn.state_dict())
+    got = attn.mla_full(blk.attn, cfg, xn, cos, sin, use_flash=True)
+    want = attn.mla_full(a32, cfg, xn.float(), cos, sin, chunk_q=chunk)
+    out = dict(mla=float((got.float() - want).abs().max() / want.abs().max()))
+    z = rms_norm(x + got, blk.ln2.to(x.dtype), cfg.norm_eps).reshape(-1, cfg.d_model)
+    m32 = moe.MoE(cfg, torch.float32, device=DEVICE)
+    m32.load_state_dict(blk.moe.state_dict())
+    if not torch.equal(moe.route(blk.moe, cfg, z)[2], moe.route(m32, cfg, z.float())[2]):
+        raise AssertionError("MoE layer 1: bf16 and f32 copies route the same values apart")
+    y, aux = moe.moe_apply(blk.moe, cfg, z)
+    y32, aux32 = moe.moe_apply(m32, cfg, z.float())
+    out["moe"] = float((y.float() - y32).abs().max() / y32.abs().max())
+    out["moe_aux"] = [float(aux), float(aux32)]
+    log(f"  layer 1 at full width, {tuple(xn.shape)} bf16 against f32 arithmetic from the same "
+        f"inputs: MLA (flash, FMA K6) max |diff| / max |value| {out['mla']:.3e}; MoE (routing "
+        f"equal) {out['moe']:.3e}, aux {out['moe_aux'][0]:.6f} vs {out['moe_aux'][1]:.6f} (<= "
+        f"{LOGITS_REL['bfloat16']:g})")
+    if not max(out["mla"], out["moe"]) <= LOGITS_REL["bfloat16"]:
+        raise AssertionError(f"a full-width layer in bf16 is farther than "
+                             f"{LOGITS_REL['bfloat16']} from f32 arithmetic: {out}")
+    del a32, m32
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2742,15 +2989,18 @@ def profile_phase(graphs: dict) -> None:
                 sum(graphs["_served"][name] for name in GRAPHS))
 
 
-def profile_lm(lm: dict) -> dict:
-    """One flash prefill of the LM phase's first batch plus ``new_tokens``
-    decode steps under ``torch.profiler``, after a warm-up run: host wall,
-    device busy time, idle share, the largest device items."""
+def profile_lm(lm: dict, steps: int | None = None) -> dict:
+    """One flash prefill of the LM phase's first batch plus ``steps``
+    (default ``new_tokens``) decode steps under ``torch.profiler``, after a
+    warm-up run: host wall, device busy time, idle share, the largest
+    device items, and the device-to-host copies (each MoE layer reads its
+    group sizes to the host once a call)."""
     import torch
 
     from repro_torch.models import transformer as tf
 
-    model, cfg, tokens, n = lm["model"], lm["cfg"], lm["batch"], lm["new_tokens"]
+    model, cfg, tokens = lm["model"], lm["cfg"], lm["batch"]
+    n = steps or lm["new_tokens"]
 
     def run():
         logits, cache = tf.prefill(model, cfg, tokens, tokens.shape[1] + n,
@@ -2766,13 +3016,19 @@ def profile_lm(lm: dict) -> dict:
     label = (f"{cfg.name} {lm['summary']['dtype']} flash prefill {tuple(tokens.shape)} + {n} "
              "decode steps")
     p = profiled(label, run, need_h2d=False)
+    d2h = sum(e.count for e in p["dev_rows"] if "dtoh" in e.key.lower())
+    if cfg.moe and d2h != (cfg.n_layers - cfg.moe.n_dense_layers) * (n + 1) + 1:
+        raise AssertionError(f"{cfg.name}: {d2h} device-to-host copies in a prefill and {n} "
+                             "decode steps, not one a MoE layer a call plus the tokens")
     log(f"  {label}: wall={p['wall_ms']:.3f} ms device_busy={p['busy_ms']:.3f} ms "
-        f"device_idle_share={1 - p['busy_ms'] / p['wall_ms']:.4f} {p['check']}")
+        f"device_idle_share={1 - p['busy_ms'] / p['wall_ms']:.4f} d2h_copies={d2h} "
+        f"peak_allocated={p['peak']} B {p['check']}")
     top_dev = sorted(p["dev_rows"], key=lambda e: -e.self_device_time_total)[:8]
     log("    device: " + "; ".join(f"{e.key[:90]} {e.self_device_time_total / 1e3:.3f} ms "
                                    f"x{e.count}" for e in top_dev))
     return dict(wall_ms=p["wall_ms"], busy_ms=p["busy_ms"],
-                idle_share=1 - p["busy_ms"] / p["wall_ms"])
+                idle_share=1 - p["busy_ms"] / p["wall_ms"], decode_steps=n, d2h_copies=d2h,
+                peak_bytes=p["peak"])
 
 
 def profile_one(label: str, run, want: int) -> None:
@@ -3078,6 +3334,13 @@ def main() -> int:
         "lookup_multihot through K7")
     recsys = recsys_phase()
     log(f"[recsys] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log("[lm deepseek] DeepSeek-V2-Lite (MLA, DeepSeekMoE): the smoke configs on the card "
+        f"against the CPU port; f32 at full width and {DS_REDUCED_LAYERS} layers; bf16 at full "
+        "width and depth: LMServer.generate, flash prefill (the FMA K6 at head dim 192) + "
+        "decode_step, one MLA and one MoE layer against f32 arithmetic")
+    lm_ds = deepseek_phase()
+    log(f"[lm deepseek] done in {time.perf_counter() - t0:.1f} s")
     torch.cuda.synchronize()
     launches = launch_counts()  # the main path ends here
     for name, k in cluster.pop("launches").items():  # counted in the workers
@@ -3088,10 +3351,11 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     t0 = time.perf_counter()
     log("[profile] one planner-chosen count each, a NY and a YT count_stream, the interleaved "
-        "serve_streams, and a Yi-6B flash prefill + decode in f32 and in bf16, torch.profiler "
-        "(CPU + CUDA)")
-    for one in (lm, lm_bf16):
-        one["summary"]["profile"] = profile_lm(one)
+        "serve_streams, a Yi-6B flash prefill + decode in f32 and in bf16, and a "
+        f"DeepSeek-V2-Lite bf16 flash prefill + {DS_PROFILE_STEPS} decode steps, "
+        "torch.profiler (CPU + CUDA)")
+    for one, steps in ((lm_ds, DS_PROFILE_STEPS), (lm, None), (lm_bf16, None)):
+        one["summary"]["profile"] = profile_lm(one, steps)
         del one["model"], one["batch"]  # the counts' peaks below exclude the LM's weights
     torch.cuda.empty_cache()
     profile_phase(graphs)
@@ -3130,6 +3394,7 @@ def main() -> int:
             "kernel_ms": r["ms"], "shape": r["shape"],
             **({k: r[k] for k in ("k3_ms", "at_k3_shape", "dtype", "fma_bf16_ms",
                                   "fma_f32_ms", "fma_bound_ms", "at_prefill_shape",
+                                  "at_deepseek_shape",
                                   "at_fb107x9_shape", "at_bucket_shape",
                                   "live_block_bound_ms", "work_items", "slice")
                  if k in r}),
@@ -3142,6 +3407,7 @@ def main() -> int:
     log("[cluster summary] " + json.dumps(cluster))
     log("[lm summary] " + json.dumps(lm["summary"]))
     log("[lm bf16 summary] " + json.dumps(lm_bf16["summary"]))
+    log("[lm deepseek summary] " + json.dumps(lm_ds["summary"]))
     log("[recsys summary] " + json.dumps(recsys))
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": out}))

@@ -9,12 +9,11 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ["granite_8b", "nemotron_4_15b", "yi_6b", "autoint"]
+ARCHS = ["granite_8b", "nemotron_4_15b", "yi_6b", "deepseek_v2_lite_16b", "deepseek_v2_236b",
+         "autoint"]
 
 # the reference's other architectures -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "deepseek_v2_lite_16b": "queue A item 6a (MLA + MoE)",
-    "deepseek_v2_236b": "queue A item 6a (MLA + MoE)",
     "mace": "queue A item 6c (GNNs)",
     "dimenet": "queue A item 6c (GNNs)",
     "graphcast": "queue A item 6c (GNNs)",

@@ -51,21 +51,25 @@ def _get(tree: dict, *path):
 
 def lm_params_from_numpy(tree: dict, cfg, *, device=None):
     """The port's float32 :class:`~repro_torch.models.transformer.Transformer` from
-    the reference's LM pytree (numpy leaves): the ``dense`` stack's leading
-    layer axis is unstacked into the ``ModuleList``, weights keep their
-    (in, out) orientation, norm scales stay float32. Raises ``KeyError`` on
-    a missing leaf and ``ValueError`` on a misshaped one."""
-    from repro_torch.models.transformer import Transformer
+    the reference's LM pytree (numpy leaves): the leading layer axis of the
+    ``dense`` stack (the first ``n_dense_layers`` layers) and of the
+    ``moe_stack`` (the rest) is unstacked into the ``ModuleList``, leaf for
+    leaf (stacked expert weights keep their expert axis), weights keep their
+    (in, out) orientation, norm scales and the router stay float32. Raises
+    ``KeyError`` on a missing leaf and ``ValueError`` on a misshaped one."""
+    from repro_torch.models.transformer import Transformer, _n_dense
 
     model = Transformer(cfg, device=device)
-    if (n := _get(tree, "dense", "ln1")) is not None and len(n) != cfg.n_layers:
-        raise ValueError(f"the dense stack holds {len(n)} layers, the config {cfg.n_layers}")
+    n_dense = _n_dense(cfg)
+    for stack, n in (("dense", n_dense), ("moe_stack", cfg.n_layers - n_dense)):
+        if (ln := _get(tree, stack, "ln1")) is not None and len(ln) != n:
+            raise ValueError(f"the {stack} stack holds {len(ln)} layers, the config {n}")
     for name in ("embed", "final_norm", "unembed"):
         _put(getattr(model, name), _get(tree, name), name)
     for i, blk in enumerate(model.layers):
+        stack, j = ("dense", i) if i < n_dense else ("moe_stack", i - n_dense)
         for name, param in blk.named_parameters():
-            path = name.split(".")
-            _put(param, _get(tree, "dense", *path), "dense." + name, layer=i)
+            _put(param, _get(tree, stack, *name.split(".")), f"{stack}.{name}", layer=j)
     return model
 
 

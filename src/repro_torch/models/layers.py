@@ -74,6 +74,10 @@ class MLP(nn.Module):
             self.register_parameter(name, nn.Parameter(
                 torch.empty(shape, dtype=dtype, device=dev), requires_grad=False))
 
+    def draw_(self, generator: torch.Generator) -> None:
+        """Every weight N(0, 1/fan-in), drawn from ``generator``."""
+        fan_in_normal_(self, generator)
+
 
 def mlp_apply(p: MLP, x: torch.Tensor, act: str) -> torch.Tensor:
     """Gated (swiglu/geglu) or plain (relu2, Nemotron-style) MLP."""
@@ -92,8 +96,13 @@ def mlp_init(generator: torch.Generator, d_model: int, d_ff: int, act: str,
 
 def fan_in_normal_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every (in, out) weight of ``module`` in place with
-    N(0, 1/in), the reference's scale for projections."""
-    for w in module.parameters():
+    N(0, 1/in), the reference's scale for projections. Raises on a
+    parameter that is not a matrix: a stacked (E, in, out) weight or a norm
+    scale needs its own rule (``MoE.draw_``, ``MLA.draw_``)."""
+    for name, w in module.named_parameters():
+        if w.dim() != 2:
+            raise ValueError(f"{name}: fan_in_normal_ draws (in, out) matrices, not a "
+                             f"{tuple(w.shape)} parameter")
         normal_(w, generator, w.shape[0] ** -0.5)
     return module
 

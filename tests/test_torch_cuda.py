@@ -1018,6 +1018,78 @@ def test_lm_server_on_the_card(cuda):
     assert all(o.dtype == np.int32 and ((o >= 0) & (o < cfg.vocab)).all() for o in out)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,s,d", [(4, 16, 1024, 192), (2, 16, 127, 192), (2, 4, 37, 24)])
+def test_flash_attention_fma_at_mla_head_dims_equals_plain(cuda, dtype, b, h, s, d):
+    """K6's FMA route at MLA's head dims: DeepSeek-V2-Lite's nope + rope =
+    192 at its prefill shape (B = 4, 16 heads, 1,024 tokens) and ragged,
+    and the smoke configs' 24, with V zero past its 128 (resp. 16) columns
+    as mla_full pads it; causal, within the reference kernel test's 2e-5
+    (f32) and 3e-2 (bf16), one FMA launch each."""
+    g = torch.Generator(device=cuda).manual_seed(s + d)
+    q, k = (torch.randn(b, h, s, d, generator=g, device=cuda).to(dtype) for _ in range(2))
+    v = torch.zeros_like(k)
+    v[..., :d * 2 // 3] = torch.randn(b, h, s, d * 2 // 3, generator=g, device=cuda).to(dtype)
+    assert kernel_route(dtype, d) == "fma"
+    before = launch_counts()
+    got = flash_attention(q, k, v, causal=True)
+    _assert_one_launch(before, "fma")
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), attention_ref(q, k, v).float(), rtol=tol, atol=tol)
+    assert not got[..., d * 2 // 3:].any()
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b", "deepseek_v2_236b"])
+def test_moe_layer_on_the_card_matches_the_cpu_port(cuda, arch):
+    """One MoE layer of the smoke config on the card against the CPU port
+    on the same weights and tokens (56 tokens, and 3: fewer copies than
+    experts): routing equal as integers, y and aux within 2e-4."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import moe
+
+    cfg = get_smoke(arch)
+    layer = moe.moe_init(torch.Generator(device=cuda).manual_seed(5), cfg, device=cuda)
+    host = moe.MoE(cfg, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in layer.state_dict().items()})
+    for t in (56, 3):
+        x = torch.from_numpy(np.random.default_rng(t).standard_normal(
+            (t, cfg.d_model)).astype(np.float32))
+        assert torch.equal(moe.route(layer, cfg, x.to(cuda))[2].cpu(), moe.route(host, cfg, x)[2])
+        y, aux = moe.moe_apply(layer, cfg, x.to(cuda))
+        want, want_aux = moe.moe_apply(host, cfg, x)
+        torch.testing.assert_close(y.cpu(), want, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(aux.cpu(), want_aux, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b", "deepseek_v2_236b"])
+def test_deepseek_flash_prefill_launches_k6_per_layer_and_matches_the_cpu_port(cuda, arch):
+    """The DeepSeek smoke configs (MLA at head dim 24, MoE) on the card:
+    the flash prefill launches the FMA K6 once per layer and agrees with
+    the CPU port, and with the chunked prefill, within 2e-4, as does a
+    decode step."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as tf
+
+    cfg = get_smoke(arch)
+    model = tf.init_params(torch.Generator(device=cuda).manual_seed(6), cfg, device=cuda)
+    host = tf.Transformer(cfg, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    toks = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab, (2, 37)))
+    before = launch_counts()
+    got, cache = tf.prefill(model, cfg, toks.to(cuda), 40, use_flash=True)
+    _assert_one_launch(before, "fma", cfg.n_layers)
+    want, host_cache = tf.prefill(host, cfg, toks, 40, use_flash=True)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(cache["moe_stack"]["c"].cpu(), host_cache["moe_stack"]["c"],
+                               rtol=2e-4, atol=2e-4)
+    chunked, _ = tf.prefill(model, cfg, toks.to(cuda), 40, chunk_q=16)
+    torch.testing.assert_close(got, chunked, rtol=2e-4, atol=2e-4)
+    nxt = got.argmax(-1, keepdim=True)
+    step, _ = tf.decode_step(model, cfg, cache, nxt, 37)
+    host_step, _ = tf.decode_step(host, cfg, host_cache, nxt.cpu(), 37)
+    torch.testing.assert_close(step.cpu(), host_step, rtol=2e-4, atol=2e-4)
+
+
 def test_recsys_on_the_card_launches_k7_and_matches_the_cpu_port(cuda):
     from repro_torch.configs import get_smoke
     from repro_torch.models.recsys import autoint, embedding

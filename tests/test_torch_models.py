@@ -28,7 +28,6 @@ from repro.models import transformer as ref_tf  # noqa: E402
 from repro.serve.serve_loop import LMServer as RefLMServer  # noqa: E402
 from repro.serve.serve_loop import ServeConfig as RefServeConfig  # noqa: E402
 from repro_torch.configs import get_config, get_smoke  # noqa: E402
-from repro_torch.configs.base import LMConfig, MLAConfig, MoEConfig  # noqa: E402
 from repro_torch.convert import lm_params_from_numpy  # noqa: E402
 from repro_torch.kernels import launch_counts  # noqa: E402
 from repro_torch.models import attention, layers  # noqa: E402
@@ -65,55 +64,32 @@ def _tokens(cfg, shape, seed):
 # --------------------------------------------------------------------------
 # Configs
 # --------------------------------------------------------------------------
-def _port_lm_config(ref_cfg) -> LMConfig:
-    d = dataclasses.asdict(ref_cfg)
-    d["mla"] = MLAConfig(**d["mla"]) if d["mla"] else None
-    d["moe"] = MoEConfig(**d["moe"]) if d["moe"] else None
-    return LMConfig(**d)
+DEEPSEEK = ["deepseek_v2_lite_16b", "deepseek_v2_236b"]
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["autoint"])
+@pytest.mark.parametrize("arch", ARCHS + DEEPSEEK + ["autoint"])
 def test_configs_are_copies_of_the_reference(arch):
     for port, ref in ((get_config(arch), ref_get_config(arch)),
                       (get_smoke(arch), ref_get_smoke(arch))):
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["deepseek_v2_lite_16b", "deepseek_v2_236b"])
+@pytest.mark.parametrize("arch", ARCHS + DEEPSEEK)
 def test_param_counts_equal_the_reference(arch):
     """The port's ``n_params`` / ``n_active_params`` count as the
-    reference's, MLA and MoE branches included (those configs cross as
-    dataclasses; the port does not run them yet)."""
-    ref = ref_get_config(arch)
-    port = get_config(arch) if arch in ARCHS else _port_lm_config(ref)
+    reference's, MLA and MoE branches included (DeepSeek-V2-Lite
+    15,706,470,400 and DeepSeek-V2 235,741,312,000 in all)."""
+    ref, port = ref_get_config(arch), get_config(arch)
     assert port.n_params() == ref.n_params()
     assert port.n_active_params() == ref.n_active_params()
     assert port.hd == ref.hd
 
 
 def test_archs_the_port_does_not_run_name_their_roadmap_item():
-    with pytest.raises(KeyError, match="item 6a"):
-        get_config("deepseek_v2_lite_16b")
     with pytest.raises(KeyError, match="item 6c"):
         get_smoke("mace")
     with pytest.raises(KeyError, match="not in the port"):
         get_config("no_such_arch")
-
-
-def test_moe_and_mla_configs_are_refused():
-    for arch in ("deepseek_v2_lite_16b", "deepseek_v2_236b"):
-        cfg = _port_lm_config(ref_get_smoke(arch))
-        with pytest.raises(NotImplementedError, match="item 6a"):
-            tf.Transformer(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 6a"):
-            tf.cache_init(cfg, 1, 8, device="cpu")
-    moe_only = dataclasses.replace(get_smoke("yi_6b"), moe=MoEConfig(4, 1, 2, 32))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tf.init_params(torch.Generator().manual_seed(0), moe_only, device="cpu")
-    for fn in (attention.mla_init, attention.mla_full, attention.mla_cache_init,
-               attention.mla_prefill_cache, attention.mla_decode):
-        with pytest.raises(NotImplementedError, match="item 6a"):
-            fn(None, None)
 
 
 def test_models_need_a_card_unless_cpu_is_asked_for(monkeypatch):
