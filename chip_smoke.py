@@ -5,8 +5,9 @@
 
 1. Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
    (one ``nvcc`` per source, all in parallel), runs the first launches of
-   K2, K1 and the three-pass TF32 K6 in a child process (``chip_smoke.py
-   --probe``) under a time limit, and holds each kernel against its plain
+   K2, K1, the three-pass TF32 K6 and both tensor-core K6 routes at MLA's
+   head dims (192, 128) in a child process (``chip_smoke.py --probe``)
+   under a time limit, and holds each kernel against its plain
    PyTorch version on the card at several shapes: the counting kernels as
    exact integers (ragged sizes, phantom edges, the shapes the main path
    gives them at the paper's full Table-1 sizes; K1 — the live-grid count
@@ -14,10 +15,11 @@
    padded buffer, a batch of views, rows that break TMA's 16-byte rule,
    and FNA.5's 4,472 rows of its 8,192 bucket as the main path gives them;
    K2 also all ones past 2³¹ and a ring whose rows break TMA's rule), flash attention
-   (K6: at D = 64, 128 the wgmma kernel for bf16 and the three-pass TF32
-   kernel for f32, at other head dims the FMA kernel, also at MLA's head
-   dims 192 and 24 with V zero past its width, and timed at
-   DeepSeek-V2-Lite's prefill shape beside SDPA)
+   (K6: at (D, Dv) = (64, 64), (128, 128) and MLA's (192, 128) the wgmma
+   kernel for bf16 and the three-pass TF32 kernel for f32, at other head
+   dims the FMA kernel — also MLA's smoke (24, 16), V padded by the wrapper
+   — and timed at DeepSeek-V2-Lite's prefill shape beside the FMA kernel
+   and SDPA)
    and EmbeddingBag (K7) within the reference kernel tests'
    tolerances, at Yi-6B's and AutoInt's full widths among others. The plain
    versions' float32 products run in true float32 (PyTorch's TF32 off,
@@ -154,8 +156,8 @@
    would be 62.8 GB) through [lm]'s checks (server, flash prefill within
    1e-3 of the chunked one, forward); (b) bf16 at full width and depth,
    31.41 GB of weights drawn on the card: [lm bf16]'s checks (the server on
-   the same 8 prompts, the flash prefill launching the FMA K6 at head dim
-   192 once per layer, decode, the flash prefill no farther from f32
+   the same 8 prompts, the flash prefill launching the wgmma K6 at head
+   dims (192, 128) once per layer, decode, the flash prefill no farther from f32
    arithmetic — one f32 layer on the card at a time — than twice the
    chunked one), the share of (token, MoE layer) routed expert sets that
    differ between the flash and chunked paths, and one MLA and one MoE
@@ -223,18 +225,20 @@ K6_ROUTES = {"fma": "flash_attention", "wgmma": "flash_attention_wgmma",
              "tf32x3": "flash_attention_tf32x3"}
 # Yi-6B's attention at a long prefill: K6 is timed at this shape.
 YI_ATTN = dict(b=1, hq=32, hkv=4, s=8192, d=128)
-# DeepSeek-V2-Lite's MLA flash prefill: K6 at head dim nope + rope = 192
-# with V padded from 128, 16 heads (as many kv heads), the LM phase's 4
-# prompts of 1,024 tokens. K6's FMA route is checked and timed here, with
-# the ragged S and the smoke configs' head dim 24 (V from 16) beside it.
+# DeepSeek-V2-Lite's MLA flash prefill: K6 at head dims (nope + rope, v) =
+# (192, 128), 16 heads (as many kv heads), the LM phase's 4 prompts of
+# 1,024 tokens. Checked through the tensor-core routes, with the ragged S
+# and the smoke configs' (24, 16) (the FMA route, V padded by the wrapper)
+# beside it, and timed.
 DS_ATTN = dict(b=4, h=16, s=1024, d=192, dv=128)
 DS_ATTN_CHECKS = ((4, 16, 1024, 192, 128), (4, 16, 127, 192, 128), (2, 4, 200, 24, 16))
 # K2 against its plain version (each with and without the upper-triangular
 # skip): ragged single tiles, several output tiles and contraction slices
 K2_SHAPES = ((64, 64, 64), (100, 70, 130), (33, 1, 17), (512, 2048, 2048),
              (300, 513, 129), (129, 8200, 130), (200, 300, 9000))
-# The first launches of K2 and of the tf32x3 K6 run in a child process under
-# this limit: a wrong mbarrier parity hangs the card rather than failing
+# The first launches of K2, K1 and the tensor-core K6 routes run in a child
+# process under this limit: a wrong mbarrier parity hangs the card rather
+# than failing
 PROBE_TIMEOUT_S = 180
 # [profile] profiles a run again while its device rows disagree with the
 # port's launches or lack its copies, this many times in all, then raises
@@ -779,12 +783,13 @@ def check_attention(gen) -> dict:
         """flash_attention, checking that it launched its route once."""
         before = launch_counts()
         out = ops.flash_attention(q, k, v, causal=causal)
-        want_route = ops.kernel_route(q.dtype, q.shape[-1])
+        want_route = ops.kernel_route(q.dtype, q.shape[-1], v.shape[-1])
         after = launch_counts()
         for route, name in K6_ROUTES.items():
             if after[name] - before[name] != (route == want_route):
-                raise AssertionError(f"flash_attention {q.dtype} D={q.shape[-1]}: launched "
-                                     f"{name} {after[name] - before[name]} times")
+                raise AssertionError(f"flash_attention {q.dtype} D={q.shape[-1]} "
+                                     f"Dv={v.shape[-1]}: launched {name} "
+                                     f"{after[name] - before[name]} times")
         return out
 
     def fma(q, k, v):
@@ -911,65 +916,93 @@ def check_attention(gen) -> dict:
                f"max abs err {pre['max_abs_err']:.3e}" if route == "tf32x3" else ""))
         del q, k, v
         torch.cuda.empty_cache()
-    rows["flash_attention"]["at_deepseek_shape"] = check_attention_mla(gen, run)
+    mla = check_attention_mla(gen, run)
+    for dtype, one in mla.items():
+        rows[K6_ROUTES[one["route"]]]["at_deepseek_shape"] = one
+    rows["flash_attention"]["at_deepseek_shape"] = {
+        dtype: dict(ms=one["fma_ms"], bound_ms=one["fma_bound_ms"])
+        for dtype, one in mla.items()}
     return rows
 
 
 def check_attention_mla(gen, run) -> dict:
-    """K6's FMA route at MLA's head dims (``DS_ATTN_CHECKS``): causal, f32
-    and bf16, V zero past dv as ``mla_full`` pads it, within the reference
-    kernel test's 2e-5 (f32) and 3e-2 (bf16) of its plain version, each
-    call one FMA launch (``run``). Then timed at DeepSeek-V2-Lite's prefill
-    shape (``DS_ATTN``) in both dtypes beside its plain version and SDPA on
-    the same inputs, with its bounds on the FMA pipes (the route's own) and
-    on the bf16 tensor cores. Returns those times by dtype."""
+    """K6 at MLA's head dims (``DS_ATTN_CHECKS``, (D, Dv) with v unpadded):
+    causal, f32 and bf16, within the reference kernel test's 2e-5 (f32) and
+    3e-2 (bf16) of its plain version, each call one launch of the route
+    ``ops.kernel_route`` names (``run``): the tensor-core routes at
+    (192, 128), the FMA route (v padded by the wrapper) at (24, 16). Then
+    timed at DeepSeek-V2-Lite's prefill shape (``DS_ATTN``) in both dtypes:
+    the route's kernel, the FMA kernel on the same inputs with v padded to
+    D (the route's "before": the path that pads v), SDPA (on v as it is,
+    and padded), the plain version. Bounds: the work the function needs,
+    2·B·H·(D + Dv)·S(S+1)/2 FLOPs, on the route's own units; and the count
+    with v padded, 4·B·H·D·S(S+1)/2. Returns the rows by dtype."""
     import torch
+    import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     def qkv(b, h, s, d, dv, dtype):
-        q, k, v = (torch.randn(b, h, s, d, generator=gen).to(dtype).to(DEVICE)
-                   for _ in range(3))
-        v[..., dv:] = 0
-        return q, k, v
+        return tuple(torch.randn(b, h, s, w, generator=gen).to(dtype).to(DEVICE)
+                     for w in (d, d, dv))
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
 
     for dtype in (torch.float32, torch.bfloat16):
         tol = 2e-5 if dtype == torch.float32 else 3e-2
-        worst = 0.0
+        worst = {}
         for b, h, s, d, dv in DS_ATTN_CHECKS:
+            route = ops.kernel_route(dtype, d, dv)
             q, k, v = qkv(b, h, s, d, dv, dtype)
             got = run(q, k, v)
             err, ok = close(got, attention_ref(q, k, v), tol)
-            if not ok or got[..., dv:].any():
-                raise AssertionError(f"flash_attention (FMA) {dtype} B={b} H={h} S={s} D={d}: "
-                                     f"max abs err {err}, not within rtol = atol = {tol} (or "
-                                     "nonzero past dv)")
-            worst = max(worst, err)
+            if not ok or got.shape != (b, h, s, dv):
+                raise AssertionError(f"flash_attention ({route}) {dtype} B={b} H={h} S={s} "
+                                     f"D={d} Dv={dv}: max abs err {err}, not within rtol = "
+                                     f"atol = {tol} (or shape {tuple(got.shape)})")
+            worst[route] = max(worst.get(route, 0.0), err)
             del q, k, v, got
-        log(f"  flash_attention      MLA head dims {[c[3] for c in DS_ATTN_CHECKS]} (S "
-            f"{[c[2] for c in DS_ATTN_CHECKS]}), {dtype}, causal: the FMA kernel within "
-            f"rtol = atol = {tol:g}, max abs err {worst:.3e}")
+        log(f"  flash_attention      MLA head dims (D, Dv) "
+            f"{[(c[3], c[4]) for c in DS_ATTN_CHECKS]} (S {[c[2] for c in DS_ATTN_CHECKS]}), "
+            f"{dtype}, causal, v unpadded: within rtol = atol = {tol:g}, max abs err "
+            + ", ".join(f"{r} {e:.3e}" for r, e in worst.items()))
     b, h, s, d, dv = (DS_ATTN[x] for x in ("b", "h", "s", "d", "dv"))
-    flops = 4 * b * h * d * s * (s + 1) / 2
+    flops = 2 * b * h * (d + dv) * s * (s + 1) / 2
+    padded = 4 * b * h * d * s * (s + 1) / 2
+    peaks = {"tf32x3": PEAK_TF32_FLOPS / TF32X3_PASSES, "wgmma": PEAK_BF16_FLOPS}
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
+        route = ops.kernel_route(dtype, d, dv)
         q, k, v = qkv(b, h, s, d, dv, dtype)
-        nbytes = 4 * q.numel() * q.element_size()
+        v_pad = F.pad(v, (0, d - dv))
+        err, ok = close(run(q, k, v), attention_ref(q, k, v), 2e-5 if route == "tf32x3"
+                        else 3e-2)
+        nbytes = (2 * q.numel() + k.numel() + 2 * v.numel()) * q.element_size()
         row = out[str(dtype).removeprefix("torch.")] = dict(
-            shape=[b, h, h, s, d], gflop=flops / 1e9,
-            ms=time_ms(lambda: run(q, k, v), reps=10),
+            shape=[b, h, h, s, d, dv], route=route, max_abs_err=err, gflop=flops / 1e9,
+            padded_gflop=padded / 1e9,
+            ms=time_ms(lambda: ops.flash_attention(q, k, v), reps=50),
+            fma_ms=time_ms(lambda: ops._launch_fma(q, k, v_pad, True), reps=10),
             plain_ms=time_ms(lambda: attention_ref(q, k, v), reps=3),
-            library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=True), reps=10),
-            fma_bound_ms=flops / PEAK_F32_FLOPS * 1e3,
-            bf16_tc_bound_ms=flops / PEAK_BF16_FLOPS * 1e3,
+            library_ms=time_ms(lambda: sdpa(q, k, v), reps=20),
+            library_padded_ms=time_ms(lambda: sdpa(q, k, v_pad), reps=20),
+            bound_ms=flops / peaks[route] * 1e3, padded_bound_ms=padded / peaks[route] * 1e3,
+            fma_bound_ms=padded / PEAK_F32_FLOPS * 1e3,
             bytes_bound_ms=nbytes / PEAK_BYTES * 1e3)
-        log(f"  flash_attention      {dtype} at DeepSeek-V2-Lite's prefill shape "
-            f"{tuple(q.shape)} ({flops / 1e9:.2f} GFLOP): FMA kernel {row['ms']:.4f} ms, SDPA "
-            f"{row['library_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms; bound "
-            f"{row['fma_bound_ms']:.4f} ms on the FMA pipes, {row['bf16_tc_bound_ms']:.4f} ms "
-            f"on the bf16 tensor cores, {row['bytes_bound_ms']:.4f} ms by bytes")
-        del q, k, v
+        log(f"  flash_attention      {dtype} at DeepSeek-V2-Lite's prefill shape q "
+            f"{tuple(q.shape)} v {tuple(v.shape)} ({flops / 1e9:.2f} GFLOP; padded "
+            f"{padded / 1e9:.2f}): {route} {row['ms']:.4f} ms (max abs err {err:.3e}), FMA "
+            f"kernel on v padded {row['fma_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms (v "
+            f"padded {row['library_padded_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms; "
+            f"bound {row['bound_ms']:.4f} ms on the {route} route's units (padded count "
+            f"{row['padded_bound_ms']:.4f} ms), FMA pipes {row['fma_bound_ms']:.4f} ms, "
+            f"{row['bytes_bound_ms']:.4f} ms by bytes")
+        if not ok:
+            raise AssertionError(f"flash_attention ({route}) at DeepSeek-V2-Lite's prefill "
+                                 f"shape, {dtype}: max abs err {err}")
+        del q, k, v, v_pad
         torch.cuda.empty_cache()
     return out
 
@@ -2520,10 +2553,11 @@ def logits_agree(label: str, got, want, rel: float = 1e-3) -> float:
     return diff / top
 
 
-def k6_head_dim(cfg) -> int:
-    """The head dim the LM's flash prefill hands K6: MLA's nope + rope
-    (V padded to it), else the config's head dim."""
-    return cfg.mla.nope_head_dim + cfg.mla.rope_head_dim if cfg.mla else cfg.hd
+def k6_head_dims(cfg) -> tuple[int, int]:
+    """The head dims (D, Dv) the LM's flash prefill hands K6: MLA's
+    (nope + rope, v), else the config's head dim twice."""
+    m = cfg.mla
+    return (m.nope_head_dim + m.rope_head_dim, m.v_head_dim) if m else (cfg.hd, cfg.hd)
 
 
 def smoke_on_card(arch: str, decode_steps: int = 8) -> None:
@@ -2619,7 +2653,7 @@ def lm_phase(arch: str = "yi_6b", dtype: str = "float32", n_prompts: int = 8,
     # cache in the weights' dtype); the server's own prefill (chunked
     # attention) recomputed for its logits and timed: that is the served
     # path's time to first token
-    route = K6_ROUTES[kernel_route(wdtype, k6_head_dim(cfg))]
+    route = K6_ROUTES[kernel_route(wdtype, *k6_head_dims(cfg))]
     k6 = launch_counts()
     agree, flash_ms, ttft_ms, decode_ms, ratios, kept = 0, [], [], [], [], []
     batch0 = None
@@ -2668,7 +2702,7 @@ def lm_phase(arch: str = "yi_6b", dtype: str = "float32", n_prompts: int = 8,
     k6 = after[route] - k6[route]
     log(f"  greedy tokens equal between the server and the flash path: {agree} of "
         f"{n_prompts * new_tokens}")
-    log(f"  K6 launches: {k6} of {route} (head dim {k6_head_dim(cfg)}) = {cfg.n_layers} layers "
+    log(f"  K6 launches: {k6} of {route} (head dims {k6_head_dims(cfg)}) = {cfg.n_layers} layers "
         f"x {n_batches} flash prefills (none of the other routes)")
     for i, (c, f, d) in enumerate(zip(ttft_ms, flash_ms, decode_ms)):
         log(f"  batch {i}: time to first token {c:.3f} ms (the server's prefill, chunked "
@@ -2814,7 +2848,7 @@ def deepseek_phase(arch: str = "deepseek_v2_lite_16b") -> dict:
     """[lm deepseek], as the module docstring says: (a) both DeepSeek smoke
     configs on the card against the CPU port; (c) f32 at full width and
     ``DS_REDUCED_LAYERS`` layers through ``lm_phase``; (b) bf16 at full
-    width and depth through ``lm_phase`` (server, flash prefill on the FMA
+    width and depth through ``lm_phase`` (server, flash prefill on the wgmma
     K6 once per layer, decode, the flash prefill held to f32 arithmetic,
     routing flips), then one MLA and one MoE layer against f32 arithmetic
     from the same bf16 inputs (:func:`deepseek_layers`). Returns (b)'s
@@ -2844,7 +2878,7 @@ def deepseek_layers(model, cfg, tokens) -> dict:
     """One MLA and one MoE layer of the bf16 model at full width, each
     against its plain version in f32 arithmetic on the same weights from
     the same bf16 inputs (layer 1 of batch 0, after the dense layer 0):
-    MLA with the flash path (the FMA K6 at head dim 192) against f32
+    MLA with the flash path (the wgmma K6 at head dims (192, 128)) against f32
     chunked attention, the MoE with its routing equal as integers (both
     route ``x.float() @ router`` from the same values), each within
     ``LOGITS_REL["bfloat16"]`` of the largest |value|."""
@@ -2877,7 +2911,7 @@ def deepseek_layers(model, cfg, tokens) -> dict:
     out["moe"] = float((y.float() - y32).abs().max() / y32.abs().max())
     out["moe_aux"] = [float(aux), float(aux32)]
     log(f"  layer 1 at full width, {tuple(xn.shape)} bf16 against f32 arithmetic from the same "
-        f"inputs: MLA (flash, FMA K6) max |diff| / max |value| {out['mla']:.3e}; MoE (routing "
+        f"inputs: MLA (flash, wgmma K6) max |diff| / max |value| {out['mla']:.3e}; MoE (routing "
         f"equal) {out['moe']:.3e}, aux {out['moe_aux'][0]:.6f} vs {out['moe_aux'][1]:.6f} (<= "
         f"{LOGITS_REL['bfloat16']:g})")
     if not max(out["mla"], out["moe"]) <= LOGITS_REL["bfloat16"]:
@@ -3213,6 +3247,44 @@ def probe_k6_tf32x3() -> int:
     return 0
 
 
+def probe_k6_mla() -> int:
+    """``chip_smoke.py --probe``, fourth part: the first launches of both
+    tensor-core K6 routes at MLA's head dims (D 192, Dv 128), bf16 on the
+    wgmma kernel and f32 on the tf32x3 kernel, at small and ragged shapes,
+    causal and full, then at DeepSeek-V2-Lite's prefill shape, against the
+    plain version within 3e-2 (bf16) and 2e-5 (f32)."""
+    import torch
+
+    from repro_torch.kernels import _build, launch_counts
+    from repro_torch.kernels.flash_attention.ops import flash_attention, kernel_route
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    name = "flash_attention_sm90"
+    for line in _build.build_all([name], verbose=True)[name].splitlines():
+        if any(w in line.lower() for w in ("registers", "spill", "error", "warning")):
+            print(f"probe build: {line.strip()}", flush=True)
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    for dtype, tol in ((torch.bfloat16, 3e-2), (torch.float32, 2e-5)):
+        for (b, hq, hkv, s) in ((1, 2, 2, 1), (2, 4, 2, 63), (1, 4, 4, 127), (2, 4, 1, 200),
+                                (4, 16, 16, 1024)):
+            q, k = (torch.randn(b, h, s, 192, generator=gen).to(dtype).to(DEVICE)
+                    for h in (hq, hkv))
+            v = torch.randn(b, hkv, s, 128, generator=gen).to(dtype).to(DEVICE)
+            for causal in (True, False):
+                got = flash_attention(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                err, ok = close(got, attention_ref(q, k, v, causal=causal), tol)
+                print(f"probe flash_attention {kernel_route(dtype, 192, 128)} "
+                      f"{(b, hq, hkv, s, 192, 128)} causal={causal}: max abs err {err:.3e} "
+                      f"{'match' if ok else 'MISMATCH'}", flush=True)
+                if not ok or got.shape != (b, hq, s, 128):
+                    return 1
+    counts = launch_counts()
+    print(f"probe launches: {counts['flash_attention_wgmma']} wgmma, "
+          f"{counts['flash_attention_tf32x3']} tf32x3", flush=True)
+    return 0
+
+
 def main() -> int:
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
@@ -3237,7 +3309,7 @@ def main() -> int:
                              "need true float32")
 
     if sys.argv[1:] == ["--probe"]:
-        return probe_k2() or probe_k1() or probe_k6_tf32x3()
+        return probe_k2() or probe_k1() or probe_k6_tf32x3() or probe_k6_mla()
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t_all = time.perf_counter()
@@ -3251,7 +3323,8 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     t0 = time.perf_counter()
-    log(f"[probe] the first launches of K2, K1 and the tf32x3 K6 in a child process, "
+    log(f"[probe] the first launches of K2, K1, the tf32x3 K6 and both tensor-core K6 "
+        f"routes at MLA's head dims in a child process, "
         f"limited to {PROBE_TIMEOUT_S} s")
     try:
         child = subprocess.run([sys.executable, os.path.abspath(__file__), "--probe"],
@@ -3337,8 +3410,8 @@ def main() -> int:
     t0 = time.perf_counter()
     log("[lm deepseek] DeepSeek-V2-Lite (MLA, DeepSeekMoE): the smoke configs on the card "
         f"against the CPU port; f32 at full width and {DS_REDUCED_LAYERS} layers; bf16 at full "
-        "width and depth: LMServer.generate, flash prefill (the FMA K6 at head dim 192) + "
-        "decode_step, one MLA and one MoE layer against f32 arithmetic")
+        "width and depth: LMServer.generate, flash prefill (the wgmma K6 at head dims (192, "
+        "128)) + decode_step, one MLA and one MoE layer against f32 arithmetic")
     lm_ds = deepseek_phase()
     log(f"[lm deepseek] done in {time.perf_counter() - t0:.1f} s")
     torch.cuda.synchronize()

@@ -1,15 +1,20 @@
 // Causal (or full) GQA flash attention in bf16 on Hopper's tensor cores
 // (sm_90a), forward only:
 //   out[b, h, i] = Σ_j softmax_j(q[b,h,i]·k[b,h/g,j] · D^-½ | j ≤ i) v[b,h/g,j]
-// bf16 q, k, v and out, f32 logits and softmax state, D ∈ {64, 128}.
+// bf16 q, k, v and out, f32 logits and softmax state, at (D, Dv) — the head
+// dims of q and k, and of v and out — in {(64, 64), (128, 128), (192, 128)}.
+// (192, 128) is MLA's (DeepSeek-V2: nope 128 + rope 64, v 128); its scale
+// D^-½ is MLA's (nope + rope)^-½.
 //
 // Replaces the Pallas kernel `flash_attention_kernel` of
 // src/repro/kernels/flash_attention/flash_attention.py (line 62, its
 // `pallas_call` at line 82) for bf16 inputs at those head dims; the FMA
-// kernel in flash_attention.cu keeps f32 and other head dims.
+// kernel in flash_attention.cu keeps f32 and other head dims. The reference
+// pads MLA's v to D; this kernel takes Dv apart, so P·V does no work on
+// zero columns.
 //
 // What bounds it on this card: operations. A causal pass does
-// 4·B·Hq·D·S(S+1)/2 FLOPs against (|q| + |k| + |v| + |o|) bytes: at Yi-6B's
+// 2·B·Hq·(D + Dv)·S(S+1)/2 FLOPs against (|q| + |k| + |v| + |o|) bytes: at Yi-6B's
 // width (Hq 32, Hkv 4, D 128, S 8,192) that is 2.2e12 FLOPs over 0.17 GB,
 // ~13,000 operations per byte, far past the ~295 at which the 989.4 TFLOP/s
 // of the bf16 tensor cores and not the 3.35 TB/s of memory are the limit.
@@ -21,14 +26,16 @@
 // one (b, q head); grid (ceil(S/128), Hq, B), the last (longest causal) tiles
 // scheduled first.
 // - Warpgroup 0 is the producer: it gives up its registers (setmaxnreg 24)
-//   and one thread issues every TMA load. Q (128 x D) is loaded once; K and
-//   V tiles of 128 keys x D go through a 2-stage ring, each stage with its
-//   own K-full, V-full and empty `mbarrier`, so Q·Kᵀ of a tile can start
-//   before its V lands. Shared memory: (1 + 2·2) tiles of 128·D bf16 = 160 KB
-//   at D = 128 (one CTA per SM), 80 KB at D = 64.
-// - Every tile is stored as D/64 panels of 128 rows x 64 columns (128 bytes
-//   a row) with the 128-byte swizzle; the `wgmma` descriptors name the same
-//   swizzle. The tensor maps are 4-D over (D, S, H, B) built from the
+//   and one thread issues every TMA load. Q (128 x D) is loaded once; K
+//   tiles of 128 keys x D and V tiles of 128 keys x Dv go through a 2-stage
+//   ring, each stage with its own K-full, V-full and empty `mbarrier`, so
+//   Q·Kᵀ of a tile can start before its V lands. Shared memory: Q + 2 x (K +
+//   V) = 32 + 2 x 64 = 160 KB at (128, 128), 48 + 2 x (48 + 32) = 208 KB at
+//   (192, 128) (one CTA per SM either way), 80 KB at (64, 64).
+// - Every tile is stored as D/64 (V: Dv/64) panels of 128 rows x 64 columns
+//   (128 bytes a row) with the 128-byte swizzle; the `wgmma` descriptors
+//   name the same swizzle. The tensor maps are 4-D over (D or Dv, S, H, B)
+//   built from the
 //   element strides the wrapper passes, so transposed head views are read in
 //   place, and TMA fills rows past S with zeros: a ragged S needs no
 //   padding. GQA is the index map: kv head = h / (Hq / Hkv).
@@ -39,9 +46,12 @@
 //   causal columns > row set to -1e30, exp2 with the scale folded in); P
 //   rounded to bf16 pairs in registers, which the m64nNk16 accumulator
 //   layout hands over as the register A fragment of O += P·V, 8 `wgmma`
-//   m64n{D}k16 with V the MN-major (transposed) shared-memory operand. O
+//   m64n{Dv}k16 with V the MN-major (transposed) shared-memory operand. O
 //   stays in f32 registers, rescaled by α each tile; each consumer thread
 //   arrives on the stage's empty barrier once its products have completed.
+//   A consumer thread holds S (64 registers), O (Dv/2: 64 at Dv = 128) and
+//   P (32) under setmaxnreg 240. `-Xptxas -v` (nvcc 12.9, sm_90a): 168
+//   registers and no spills at each of the three (D, Dv).
 // - Epilogue: O / max(l, 1e-30) rounded to bf16 and stored through the
 //   output's strides; rows ≥ S are not stored.
 // The two consumers do not ping-pong and softmax does not overlap the next
@@ -208,24 +218,27 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D>
+template <int D, int DV>
 struct Layout {
-  static constexpr int PANELS = D / PANEL;
-  static constexpr uint32_t TILE = BN * D * 2;  // bytes of a Q, K or V tile
+  static constexpr int PANELS = D / PANEL, V_PANELS = DV / PANEL;
+  static constexpr uint32_t TILE = BN * D * 2;     // bytes of a Q or K tile (BM == BN)
+  static constexpr uint32_t V_TILE = BN * DV * 2;  // bytes of a V tile
+  static constexpr uint32_t STAGE = TILE + V_TILE;
   // Q, then per stage K and V, then 7 mbarriers; 1 KB of slack to align
   // the base to the 128-byte swizzle's 1,024-byte period
-  static constexpr int SMEM = (1 + 2 * STAGES) * TILE + 8 * (1 + 3 * STAGES) + 1024;
+  static constexpr int SMEM = TILE + STAGES * STAGE + 8 * (1 + 3 * STAGES) + 1024;
+  static_assert(SMEM <= 232448, "past the 227 KB a CTA may have");
 };
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, const Params p) {
-  using L = Layout<D>;
+  using L = Layout<D, DV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t q_s = base;  // stage s: K at base + TILE (1 + 2s), V one TILE later
-  const uint32_t bars = base + (1 + 2 * STAGES) * L::TILE;
+  const uint32_t q_s = base;  // stage s: K at base + TILE + s·STAGE, V one TILE later
+  const uint32_t bars = base + L::TILE + STAGES * L::STAGE;
   const uint32_t q_full = bars;
   const uint32_t k_full = bars + 8, v_full = k_full + 8 * STAGES, empty = v_full + 8 * STAGES;
 
@@ -257,14 +270,14 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       for (int t = 0; t < n_kv; ++t) {
         const int s = t % STAGES;
         if (t >= STAGES) mbar_wait(empty + 8 * s, ((t / STAGES) - 1) & 1);
-        const uint32_t ks = base + (1 + 2 * s) * L::TILE, vs = ks + L::TILE;
+        const uint32_t ks = base + L::TILE + s * L::STAGE, vs = ks + L::TILE;
         mbar_expect_tx(k_full + 8 * s, L::TILE);
 #pragma unroll
         for (int c = 0; c < L::PANELS; ++c)
           tma_load(ks + c * PANEL_BYTES, &tk, k_full + 8 * s, c * PANEL, t * BN, kvh, b);
-        mbar_expect_tx(v_full + 8 * s, L::TILE);
+        mbar_expect_tx(v_full + 8 * s, L::V_TILE);
 #pragma unroll
-        for (int c = 0; c < L::PANELS; ++c)
+        for (int c = 0; c < L::V_PANELS; ++c)
           tma_load(vs + c * PANEL_BYTES, &tv, v_full + 8 * s, c * PANEL, t * BN, kvh, b);
       }
     }
@@ -278,16 +291,16 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     // Q's 64 rows of this warpgroup: 64 rows x 128 bytes into each panel
     const uint64_t q_desc = smem_desc(q_s + 64 * cw * 128, 16, 1024);
 
-    float o[D / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;  // l: this lane's share
 
     mbar_wait(q_full, 0);
     for (int t = 0; t < n_kv; ++t) {
       const int s = t % STAGES;
       const uint32_t parity = (t / STAGES) & 1;
-      const uint32_t ks = base + (1 + 2 * s) * L::TILE, vs = ks + L::TILE;
+      const uint32_t ks = base + L::TILE + s * L::STAGE, vs = ks + L::TILE;
       const uint64_t k_desc = smem_desc(ks, 16, 1024);
       // V as the MN-major B operand: 8-key groups 1,024 bytes apart (SBO),
       // 64-column panels PANEL_BYTES apart (LBO)
@@ -357,7 +370,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       l_a = alpha_a * l_a + sum_a;
       l_b = alpha_b * l_b + sum_b;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         o[4 * j] *= alpha_a;
         o[4 * j + 1] *= alpha_a;
         o[4 * j + 2] *= alpha_b;
@@ -369,7 +382,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) {
-        if constexpr (D == 128)
+        if constexpr (DV == 128)
           wgmma_rs_n128(o, pa[kk], v_desc + ((kk * 2048) >> 4));
         else
           wgmma_rs_n64(o, pa[kk], v_desc + ((kk * 2048) >> 4));
@@ -390,13 +403,13 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     __nv_bfloat16* op = static_cast<__nv_bfloat16*>(p.out) + b * p.ob + h * p.oh;
     if (row_a < p.s_len) {
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < DV / 8; ++j)
         *reinterpret_cast<uint32_t*>(op + row_a * p.os + 8 * j + col_off) =
             pack_bf16(o[4 * j] / den_a, o[4 * j + 1] / den_a);
     }
     if (row_b < p.s_len) {
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < DV / 8; ++j)
         *reinterpret_cast<uint32_t*>(op + row_b * p.os + 8 * j + col_off) =
             pack_bf16(o[4 * j + 2] / den_b, o[4 * j + 3] / den_b);
     }
@@ -439,15 +452,15 @@ int make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int d, int s_le
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
 }
 
-template <int D>
+template <int D, int DV>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
            const Params& p, int hq, int batch, cudaStream_t stream) {
-  const int bytes = Layout<D>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(fa_wgmma_kernel<D>,
+  const int bytes = Layout<D, DV>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(fa_wgmma_kernel<D, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(p.n_q_tiles, hq, batch);
-  fa_wgmma_kernel<D><<<grid, THREADS, bytes, stream>>>(tq, tk, tv, p);
+  fa_wgmma_kernel<D, DV><<<grid, THREADS, bytes, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
 
@@ -455,30 +468,32 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
 
 extern "C" {
 
-// out = attention(q, k, v) in bf16; q, out: (B, Hq, S, D), k, v: (B, Hkv, S,
-// D), each addressed through element strides over (b, h, s) with a
-// contiguous last dimension. q, k and v need 16-byte aligned bases and
-// strides that are multiples of 8 elements (TMA's rule); D ∈ {64, 128},
-// Hq % Hkv == 0, S >= 1.
+// out = attention(q, k, v) in bf16; q: (B, Hq, S, D), k: (B, Hkv, S, D),
+// v: (B, Hkv, S, Dv), out: (B, Hq, S, Dv), each addressed through element
+// strides over (b, h, s) with a contiguous last dimension. q, k and v need
+// 16-byte aligned bases and strides that are multiples of 8 elements (TMA's
+// rule); (D, Dv) ∈ {(64, 64), (128, 128), (192, 128)}, Hq % Hkv == 0, S >= 1.
 int fa_forward_wgmma(const void* q, const void* k, const void* v, void* out, int batch, int hq,
-                     int hkv, int s_len, int d, long long qb, long long qh, long long qs,
+                     int hkv, int s_len, int d, int dv, long long qb, long long qh, long long qs,
                      long long kb, long long kh, long long ks, long long vb, long long vh,
                      long long vs, long long ob, long long oh, long long os, int causal,
                      float scale, void* stream) {
-  if (batch <= 0 || hq <= 0 || hkv <= 0 || hq % hkv || s_len <= 0 || (d != 64 && d != 128))
+  const bool dims = (d == 64 && dv == 64) || (d == 128 && dv == 128) || (d == 192 && dv == 128);
+  if (batch <= 0 || hq <= 0 || hkv <= 0 || hq % hkv || s_len <= 0 || !dims)
     return (int)cudaErrorInvalidValue;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return ERR_NO_ENCODER;
   CUtensorMap tq, tk, tv;
   int rc = make_map(enc, &tq, q, d, s_len, hq, batch, qb, qh, qs);
   if (rc == 0) rc = make_map(enc, &tk, k, d, s_len, hkv, batch, kb, kh, ks);
-  if (rc == 0) rc = make_map(enc, &tv, v, d, s_len, hkv, batch, vb, vh, vs);
+  if (rc == 0) rc = make_map(enc, &tv, v, dv, s_len, hkv, batch, vb, vh, vs);
   if (rc != 0) return rc;
   const Params p{out, s_len, (s_len + BM - 1) / BM, hq / hkv, causal, scale * LOG2E,
                  ob, oh, os};
   const cudaStream_t st = (cudaStream_t)stream;
-  return d == 128 ? launch<128>(tq, tk, tv, p, hq, batch, st)
-                  : launch<64>(tq, tk, tv, p, hq, batch, st);
+  if (d == 192) return launch<192, 128>(tq, tk, tv, p, hq, batch, st);
+  return d == 128 ? launch<128, 128>(tq, tk, tv, p, hq, batch, st)
+                  : launch<64, 64>(tq, tk, tv, p, hq, batch, st);
 }
 
 const char* fa_wgmma_error_string(int err) {

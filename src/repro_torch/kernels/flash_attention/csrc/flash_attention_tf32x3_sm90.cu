@@ -1,16 +1,20 @@
 // Causal (or full) GQA flash attention in f32 on Hopper's TF32 tensor cores
 // (sm_90a), forward only, as three-pass TF32:
 //   out[b, h, i] = Σ_j softmax_j(q[b,h,i]·k[b,h/g,j] · D^-½ | j ≤ i) v[b,h/g,j]
-// f32 q, k, v and out, f32 logits and softmax state, D ∈ {64, 128}.
+// f32 q, k, v and out, f32 logits and softmax state, at (D, Dv) — the head
+// dims of q and k, and of v and out — in {(64, 64), (128, 128), (192, 128)}.
+// (192, 128) is MLA's (DeepSeek-V2: nope 128 + rope 64, v 128); its scale
+// D^-½ is MLA's (nope + rope)^-½.
 //
 // Replaces the Pallas kernel `flash_attention_kernel` of
 // src/repro/kernels/flash_attention/flash_attention.py (line 62, its
 // `pallas_call` at line 82) for f32 inputs at those head dims; bf16 there
 // goes to flash_attention_sm90.cu, every other head dim to the FMA kernel of
-// flash_attention.cu.
+// flash_attention.cu. The reference pads MLA's v to D; this kernel takes Dv
+// apart, so P·V does no work on zero columns.
 //
 // What bounds it on this card: operations. A causal pass does
-// 4·B·Hq·D·S(S+1)/2 FLOPs against (|q| + |k| + |v| + |o|) bytes: at Yi-6B's
+// 2·B·Hq·(D + Dv)·S(S+1)/2 FLOPs against (|q| + |k| + |v| + |o|) bytes: at Yi-6B's
 // width (Hq 32, Hkv 4, D 128, S 8,192) 5.5e11 FLOPs over 0.34 GB. On the
 // f32 FMA pipes (66.9 TFLOP/s) that is 8.2 ms at best. One TF32 product
 // keeps 11 significant bits of each operand and misses the reference kernel
@@ -23,7 +27,7 @@
 // 3.33 ms there, 2.5x below what the FMA pipes could ever reach.
 //
 // Design. Two kernels, launched together by fa_forward_tf32x3:
-// - prep: writes K_lo (B, Hkv, S, D), and Vᵀ and Vᵀ_lo (B, Hkv, D, S8),
+// - prep: writes K_lo (B, Hkv, S, D), and Vᵀ and Vᵀ_lo (B, Hkv, Dv, S8),
 //   S8 = S rounded up to 8, keys ≥ S zero. A TF32 `wgmma` reads shared
 //   memory only K-major, so P·V needs V with keys contiguous. Each 8-key
 //   group of Vᵀ is written in key_order (ops.pv_key_order): the
@@ -34,8 +38,11 @@
 //   rows of one (b, q head); grid (ceil(S/128), Hq, B), the last (longest
 //   causal) tiles first. Warpgroup 0 is the producer (setmaxnreg 24; one
 //   thread issues every TMA load): Q (128 x D) once, and per 32-key tile
-//   K, K_lo, Vᵀ and Vᵀ_lo through a ring of STAGES stages, each with a
-//   K-full, a V-full and an empty `mbarrier`. Every tile is stored as
+//   K and K_lo through a ring of K_STAGES stages and Vᵀ and Vᵀ_lo through
+//   a ring of V_STAGES, each stage with a full and an empty `mbarrier`: a
+//   K stage is handed back once Q·Kᵀ has read it, before the tile's
+//   softmax and P·V, so the next K tiles load under them. Every tile is
+//   stored as
 //   128-byte panels of 32 f32 columns with the 128-byte swizzle that the
 //   `wgmma` descriptors name. The tensor maps are 4-D over (D, S, H, B)
 //   built from the wrapper's element strides, so q's and k's head views
@@ -49,16 +56,32 @@
 //   operand); the online softmax on the f32 accumulator (row max over the
 //   quad, columns ≥ S and causal columns > row set to -1e30, exp2 with the
 //   scale folded in); P split into hi and lo in registers; O += P·V as 4
-//   steps of three `wgmma` m64n{D}k8 (P·Vᵀ, P_lo·Vᵀ, P·Vᵀ_lo). O stays in
+//   steps of three `wgmma` m64n{Dv}k8 (P·Vᵀ, P_lo·Vᵀ, P·Vᵀ_lo). O stays in
 //   f32 registers, rescaled by α each tile; each consumer thread arrives
-//   on the stage's empty barrier once its products have completed.
+//   on a stage's empty barrier once the products that read it have
+//   completed.
 // - Epilogue: O / max(l, 1e-30) stored as f32 through the output's
 //   strides; rows ≥ S are not stored.
-// Budget at D = 128: Q 64 KB + 2 stages x (4 x 16 KB) = 192 KB of shared
-// memory; a consumer thread holds O (64 registers), S (16), Q_lo (64) and
-// P's hi and lo fragments (32). At D = 64 four stages fit (160 KB). The
-// consumers do not ping-pong and softmax does not overlap the next product:
-// later work, as for bf16 (ROADMAP.md).
+// Budget (227 KB = 232,448 bytes of shared memory a CTA, 240 registers a
+// consumer thread):
+// - (128, 128): Q 64 KB + 2 K stages x (K 16 + K_lo 16 KB) + 2 V stages x
+//   (Vᵀ 16 + Vᵀ_lo 16 KB) = 192 KB; a consumer thread holds O (64
+//   registers), S (16), Q_lo (64) and P's hi and lo fragments (32).
+// - (64, 64): four stages of each ring fit (160 KB).
+// - (192, 128): Q 96 KB; a K stage is 48 KB and a V stage 32 KB, so two of
+//   each (96 + 160 = 256 KB) do not fit. Two K stages and one V stage do:
+//   96 + 96 + 32 = 224 KB (229,376 bytes, + 56 of barriers + 1,024 of
+//   alignment = 230,456). The one V stage still overlaps: Vᵀ of tile t
+//   loads while Q·Kᵀ and the softmax of tile t run, K of tile t + 1 while
+//   all of tile t runs. A consumer thread holds Q_lo (96), O (64), S (16)
+//   and P (32): 208 registers. The rejected layouts: 64 query rows a CTA
+//   with one consumer warpgroup (48 + 2 x 80 = 208 KB) leaves no second
+//   warpgroup to fill the tensor cores while one runs its softmax; one stage
+//   of both rings at 128 rows (176 KB) overlaps no load with a product.
+// `-Xptxas -v` (nvcc 12.9, sm_90a): 168 registers and no spills at each of
+// the three (D, Dv); the prep kernel 36.
+// The consumers do not ping-pong and softmax does not overlap the next
+// product: later work, as for bf16 (ROADMAP.md).
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -232,37 +255,42 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
 
 #undef ACC8
 
-template <int D>
+template <int D, int DV>
 struct Layout {
-  static constexpr int STAGES = D == 128 ? 2 : 4;
+  static constexpr int K_STAGES = D == 64 ? 4 : 2;                // K, K_lo
+  static constexpr int V_STAGES = D == 64 ? 4 : D == 128 ? 2 : 1;  // Vᵀ, Vᵀ_lo
   static constexpr uint32_t Q_PANEL = BM * 128;  // bytes of a Q panel (128 rows)
   static constexpr uint32_t K_PANEL = BN * 128;  // bytes of a K panel (32 keys)
   static constexpr uint32_t Q_BYTES = BM * D * 4;
   static constexpr uint32_t KT = BN * D * 4;     // K or K_lo tile: D/32 panels
-  static constexpr uint32_t VT = D * BN * 4;     // Vᵀ or Vᵀ_lo tile: one D-row panel
-  static constexpr uint32_t STAGE = 2 * KT + 2 * VT;
-  // Q, the stages (K, K_lo, Vᵀ, Vᵀ_lo), 1 + 3·STAGES mbarriers; 1 KB of slack
-  // to align the base to the 128-byte swizzle's 1,024-byte period
-  static constexpr int SMEM = Q_BYTES + STAGES * STAGE + 8 * (1 + 3 * STAGES) + 1024;
+  static constexpr uint32_t VT = DV * BN * 4;    // Vᵀ or Vᵀ_lo tile: one Dv-row panel
+  static constexpr uint32_t K_RING = K_STAGES * 2 * KT, V_RING = V_STAGES * 2 * VT;
+  static constexpr int BARS = 1 + 2 * K_STAGES + 2 * V_STAGES;  // Q; full, empty a stage
+  // Q, the K ring, the V ring, the mbarriers; 1 KB of slack to align the
+  // base to the 128-byte swizzle's 1,024-byte period
+  static constexpr int SMEM = Q_BYTES + K_RING + V_RING + 8 * BARS + 1024;
+  static_assert(SMEM <= 232448, "past the 227 KB a CTA may have");
 };
 
-// K_lo = K - tf32(K); Vᵀ and Vᵀ_lo as (B, Hkv, D, S8), each 8-key group in
-// key_order, keys ≥ S zero. Block (key group, b·Hkv + h), a thread a column.
+// K_lo = K - tf32(K); Vᵀ and Vᵀ_lo as (B, Hkv, Dv, S8), each 8-key group in
+// key_order, keys ≥ S zero. Block (key group, b·Hkv + h), a thread a column
+// of K (D >= Dv threads; those below Dv also take a column of V).
 __global__ void fa_tf32x3_prep(const float* __restrict__ k, const float* __restrict__ v,
                                float* __restrict__ k_lo, float* __restrict__ vt,
-                               float* __restrict__ vt_lo, int s_len, int s8, int d, int hkv,
-                               long long kb, long long kh, long long ks, long long vb,
+                               float* __restrict__ vt_lo, int s_len, int s8, int d, int dv,
+                               int hkv, long long kb, long long kh, long long ks, long long vb,
                                long long vh, long long vs) {
   const int g = blockIdx.x, bh = blockIdx.y, c = threadIdx.x;
   const int b = bh / hkv, h = bh % hkv;
   const float* kp = k + b * kb + h * kh + c;
   const float* vp = v + b * vb + h * vh + c;
   float* klo = k_lo + static_cast<long long>(bh) * s_len * d + c;
+  const bool in_v = c < dv;
   float hi[8], lo[8];
 #pragma unroll
   for (int p = 0; p < 8; ++p) {
     const int key = 8 * g + key_order(p);
-    const float x = key < s_len ? vp[key * vs] : 0.f;
+    const float x = in_v && key < s_len ? vp[key * vs] : 0.f;
     hi[p] = tf32_hi(x);
     lo[p] = x - hi[p];
     const int row = 8 * g + p;
@@ -271,7 +299,8 @@ __global__ void fa_tf32x3_prep(const float* __restrict__ k, const float* __restr
       klo[static_cast<long long>(row) * d] = y - tf32_hi(y);
     }
   }
-  const long long at = (static_cast<long long>(bh) * d + c) * s8 + 8 * g;
+  if (!in_v) return;
+  const long long at = (static_cast<long long>(bh) * dv + c) * s8 + 8 * g;
   float4* th = reinterpret_cast<float4*>(vt + at);
   float4* tl = reinterpret_cast<float4*>(vt_lo + at);
   th[0] = make_float4(hi[0], hi[1], hi[2], hi[3]);
@@ -280,20 +309,23 @@ __global__ void fa_tf32x3_prep(const float* __restrict__ k, const float* __restr
   tl[1] = make_float4(lo[4], lo[5], lo[6], lo[7]);
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 fa_tf32x3_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tklo,
                  const __grid_constant__ CUtensorMap tvt,
                  const __grid_constant__ CUtensorMap tvtlo, const Params p) {
-  using L = Layout<D>;
-  constexpr int STAGES = L::STAGES;
+  using L = Layout<D, DV>;
+  constexpr int KS = L::K_STAGES, VS = L::V_STAGES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t q_s = base;  // stage s: K, K_lo, Vᵀ, Vᵀ_lo from q_s + Q_BYTES + s·STAGE
-  const uint32_t bars = base + L::Q_BYTES + STAGES * L::STAGE;
+  // K stage s: K, K_lo from k_ring + 2s·KT; V stage s: Vᵀ, Vᵀ_lo from
+  // v_ring + 2s·VT
+  const uint32_t q_s = base, k_ring = base + L::Q_BYTES, v_ring = k_ring + L::K_RING;
+  const uint32_t bars = v_ring + L::V_RING;
   const uint32_t q_full = bars;
-  const uint32_t k_full = bars + 8, v_full = k_full + 8 * STAGES, empty = v_full + 8 * STAGES;
+  const uint32_t k_full = bars + 8, k_empty = k_full + 8 * KS;
+  const uint32_t v_full = k_empty + 8 * KS, v_empty = v_full + 8 * VS;
 
   const int q_tile = p.n_q_tiles - 1 - static_cast<int>(blockIdx.x);  // longest rows first
   const int q0 = q_tile * BM;
@@ -303,10 +335,13 @@ fa_tf32x3_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < KS; ++s) {
       mbar_init(k_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 2 * 128);  // every consumer thread
+    }
+    for (int s = 0; s < VS; ++s) {
       mbar_init(v_full + 8 * s, 1);
-      mbar_init(empty + 8 * s, 2 * 128);  // every consumer thread
+      mbar_init(v_empty + 8 * s, 2 * 128);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -321,9 +356,9 @@ fa_tf32x3_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       for (int c = 0; c < D / PANEL; ++c)
         tma_load(q_s + c * L::Q_PANEL, &tq, q_full, c * PANEL, q0, h, b);
       for (int t = 0; t < n_kv; ++t) {
-        const int s = t % STAGES;
-        if (t >= STAGES) mbar_wait(empty + 8 * s, ((t / STAGES) - 1) & 1);
-        const uint32_t ks = q_s + L::Q_BYTES + s * L::STAGE, vs = ks + 2 * L::KT;
+        const int s = t % KS;
+        if (t >= KS) mbar_wait(k_empty + 8 * s, ((t / KS) - 1) & 1);
+        const uint32_t ks = k_ring + s * 2 * L::KT;
         mbar_expect_tx(k_full + 8 * s, 2 * L::KT);
 #pragma unroll
         for (int c = 0; c < D / PANEL; ++c) {
@@ -331,9 +366,12 @@ fa_tf32x3_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
           tma_load(ks + L::KT + c * L::K_PANEL, &tklo, k_full + 8 * s, c * PANEL, t * BN, kvh,
                    b);
         }
-        mbar_expect_tx(v_full + 8 * s, 2 * L::VT);
-        tma_load(vs, &tvt, v_full + 8 * s, t * BN, 0, kvh, b);
-        tma_load(vs + L::VT, &tvtlo, v_full + 8 * s, t * BN, 0, kvh, b);
+        const int u = t % VS;
+        if (t >= VS) mbar_wait(v_empty + 8 * u, ((t / VS) - 1) & 1);
+        const uint32_t vs = v_ring + u * 2 * L::VT;
+        mbar_expect_tx(v_full + 8 * u, 2 * L::VT);
+        tma_load(vs, &tvt, v_full + 8 * u, t * BN, 0, kvh, b);
+        tma_load(vs + L::VT, &tvtlo, v_full + 8 * u, t * BN, 0, kvh, b);
       }
     }
   } else {
@@ -363,23 +401,22 @@ fa_tf32x3_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       }
     }
 
-    float o[D / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;  // l: this lane's share
 
     mbar_wait(q_full, 0);
     for (int t = 0; t < n_kv; ++t) {
-      const int s = t % STAGES;
-      const uint32_t parity = (t / STAGES) & 1;
-      const uint32_t ks = q_s + L::Q_BYTES + s * L::STAGE, vs = ks + 2 * L::KT;
+      const int s = t % KS, u = t % VS;
+      const uint32_t ks = k_ring + s * 2 * L::KT, vs = v_ring + u * 2 * L::VT;
       const uint64_t k_desc = smem_desc(ks, 16, 1024), klo_desc = smem_desc(ks + L::KT, 16, 1024);
       const uint64_t vt_desc = smem_desc(vs, 16, 1024), vtlo_desc = smem_desc(vs + L::VT, 16, 1024);
 
       // S = Q·Kᵀ + Q·K_loᵀ + Q_lo·Kᵀ: D/8 steps of 8 columns, 32 bytes apart
       // in a panel row
       float sc[16];
-      mbar_wait(k_full + 8 * s, parity);
+      mbar_wait(k_full + 8 * s, (t / KS) & 1);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 8; ++kk) {
@@ -392,6 +429,7 @@ fa_tf32x3_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(sc);
+      mbar_arrive(k_empty + 8 * s);  // Q·Kᵀ has read this K stage
 
       // scale into log2 units; mask columns ≥ S and (causal) columns > row.
       // sc[4j + e]: row (e < 2 ? row_a : row_b), column 8j + col_off + (e & 1)
@@ -448,7 +486,7 @@ fa_tf32x3_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       l_a = alpha_a * l_a + sum_a;
       l_b = alpha_b * l_b + sum_b;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         o[4 * j] *= alpha_a;
         o[4 * j + 1] *= alpha_a;
         o[4 * j + 2] *= alpha_b;
@@ -456,13 +494,13 @@ fa_tf32x3_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       }
 
       // O += P·Vᵀ + P_lo·Vᵀ + P·Vᵀ_lo: 4 steps of 8 keys, 32 bytes apart in
-      // each D-row of the panel
-      mbar_wait(v_full + 8 * s, parity);
+      // each Dv-row of the panel
+      mbar_wait(v_full + 8 * u, (t / VS) & 1);
       wgmma_fence();
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const uint32_t vo = (j * 32) >> 4;
-        if constexpr (D == 128) {
+        if constexpr (DV == 128) {
           wgmma_rs_n128(o, ph[j], vt_desc + vo);
           wgmma_rs_n128(o, pl[j], vt_desc + vo);
           wgmma_rs_n128(o, ph[j], vtlo_desc + vo);
@@ -475,7 +513,7 @@ fa_tf32x3_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(o);
-      mbar_arrive(empty + 8 * s);
+      mbar_arrive(v_empty + 8 * u);
     }
 
     // epilogue: the quad's shares of l, then O / l as f32 pairs
@@ -488,13 +526,13 @@ fa_tf32x3_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     float* op = p.out + b * p.ob + h * p.oh;
     if (row_a < p.s_len) {
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < DV / 8; ++j)
         *reinterpret_cast<float2*>(op + row_a * p.os + 8 * j + col_off) =
             make_float2(o[4 * j] / den_a, o[4 * j + 1] / den_a);
     }
     if (row_b < p.s_len) {
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < DV / 8; ++j)
         *reinterpret_cast<float2*>(op + row_b * p.os + 8 * j + col_off) =
             make_float2(o[4 * j + 2] / den_b, o[4 * j + 3] / den_b);
     }
@@ -539,15 +577,15 @@ int make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int inner, int 
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
 }
 
-template <int D>
+template <int D, int DV>
 int launch(const CUtensorMap (&maps)[5], const Params& p, int hq, int batch,
            cudaStream_t stream) {
-  const int bytes = Layout<D>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(fa_tf32x3_kernel<D>,
+  const int bytes = Layout<D, DV>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(fa_tf32x3_kernel<D, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(p.n_q_tiles, hq, batch);
-  fa_tf32x3_kernel<D><<<grid, THREADS, bytes, stream>>>(maps[0], maps[1], maps[2], maps[3],
+  fa_tf32x3_kernel<D, DV><<<grid, THREADS, bytes, stream>>>(maps[0], maps[1], maps[2], maps[3],
                                                         maps[4], p);
   return (int)cudaGetLastError();
 }
@@ -556,42 +594,46 @@ int launch(const CUtensorMap (&maps)[5], const Params& p, int hq, int batch,
 
 extern "C" {
 
-// out = attention(q, k, v) in f32; q, out: (B, Hq, S, D), k, v: (B, Hkv,
-// S, D), each addressed through element strides over (b, h, s) with a
-// contiguous last dimension. q and k need 16-byte aligned bases and strides
-// that are multiples of 4 elements (TMA's rule); v is read by the prep
-// kernel through any strides. Scratch, written here: k_lo (B, Hkv, S, D)
-// contiguous, and vt, vt_lo (B, Hkv, D, S8) contiguous, S8 = S rounded up
-// to 8. D ∈ {64, 128}, Hq % Hkv == 0, S >= 1.
+// out = attention(q, k, v) in f32; q: (B, Hq, S, D), k: (B, Hkv, S, D), v:
+// (B, Hkv, S, Dv), out: (B, Hq, S, Dv), each addressed through element
+// strides over (b, h, s) with a contiguous last dimension. q and k need
+// 16-byte aligned bases and strides that are multiples of 4 elements (TMA's
+// rule); v is read by the prep kernel through any strides. Scratch, written
+// here: k_lo (B, Hkv, S, D) contiguous, and vt, vt_lo (B, Hkv, Dv, S8)
+// contiguous, S8 = S rounded up to 8. (D, Dv) ∈ {(64, 64), (128, 128),
+// (192, 128)}, Hq % Hkv == 0, S >= 1.
 int fa_forward_tf32x3(const void* q, const void* k, const void* v, void* out, void* k_lo,
                       void* vt, void* vt_lo, int batch, int hq, int hkv, int s_len, int d,
-                      long long qb, long long qh, long long qs, long long kb, long long kh,
+                      int dv, long long qb, long long qh, long long qs, long long kb, long long kh,
                       long long ks, long long vb, long long vh, long long vs, long long ob,
                       long long oh, long long os, int causal, float scale, void* stream) {
-  if (batch <= 0 || hq <= 0 || hkv <= 0 || hq % hkv || s_len <= 0 || (d != 64 && d != 128))
+  const bool dims = (d == 64 && dv == 64) || (d == 128 && dv == 128) || (d == 192 && dv == 128);
+  if (batch <= 0 || hq <= 0 || hkv <= 0 || hq % hkv || s_len <= 0 || !dims)
     return (int)cudaErrorInvalidValue;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return ERR_NO_ENCODER;
   const int s8 = (s_len + 7) & ~7;
-  const long long kl = (long long)s_len * d, vl = (long long)d * s8;
+  const long long kl = (long long)s_len * d, vl = (long long)dv * s8;
   CUtensorMap maps[5];
   int rc = make_map(enc, &maps[0], q, d, s_len, hq, batch, qs, qh, qb, BM);
   if (rc == 0) rc = make_map(enc, &maps[1], k, d, s_len, hkv, batch, ks, kh, kb, BN);
   if (rc == 0) rc = make_map(enc, &maps[2], k_lo, d, s_len, hkv, batch, d, kl, hkv * kl, BN);
-  if (rc == 0) rc = make_map(enc, &maps[3], vt, s8, d, hkv, batch, s8, vl, hkv * vl, d);
-  if (rc == 0) rc = make_map(enc, &maps[4], vt_lo, s8, d, hkv, batch, s8, vl, hkv * vl, d);
+  if (rc == 0) rc = make_map(enc, &maps[3], vt, s8, dv, hkv, batch, s8, vl, hkv * vl, dv);
+  if (rc == 0) rc = make_map(enc, &maps[4], vt_lo, s8, dv, hkv, batch, s8, vl, hkv * vl, dv);
   if (rc != 0) return rc;
   const cudaStream_t st = (cudaStream_t)stream;
   fa_tf32x3_prep<<<dim3(s8 / 8, batch * hkv), d, 0, st>>>(
       static_cast<const float*>(k), static_cast<const float*>(v), static_cast<float*>(k_lo),
-      static_cast<float*>(vt), static_cast<float*>(vt_lo), s_len, s8, d, hkv, kb, kh, ks, vb,
-      vh, vs);
+      static_cast<float*>(vt), static_cast<float*>(vt_lo), s_len, s8, d, dv, hkv, kb, kh, ks,
+      vb, vh, vs);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const Params p{static_cast<const float*>(q), static_cast<float*>(out), s_len,
                  (s_len + BM - 1) / BM, hq / hkv, causal, scale * LOG2E, qb, qh, qs, ob, oh,
                  os};
-  return d == 128 ? launch<128>(maps, p, hq, batch, st) : launch<64>(maps, p, hq, batch, st);
+  if (d == 192) return launch<192, 128>(maps, p, hq, batch, st);
+  return d == 128 ? launch<128, 128>(maps, p, hq, batch, st)
+                  : launch<64, 64>(maps, p, hq, batch, st);
 }
 
 const char* fa_tf32x3_error_string(int err) {

@@ -11,8 +11,11 @@ import torch
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, scale: float | None = None) -> torch.Tensor:
-    """q: (B, Hq, S, D); k, v: (B, Hkv, S, D); Hq % Hkv == 0. Returns
-    (B, Hq, S, D) in q's dtype. Query head h reads kv head h // (Hq // Hkv)."""
+    """q: (B, Hq, S, D); k: (B, Hkv, S, D); v: (B, Hkv, S, Dv), any Dv (MLA's
+    128 beside D = 192: the same function as v zero-padded to D with the
+    output sliced back to Dv); Hq % Hkv == 0. Returns (B, Hq, S, Dv) in q's
+    dtype, the scale D^-½ unless given. Query head h reads kv head
+    h // (Hq // Hkv)."""
     s, d = q.shape[2], q.shape[3]
     group = q.shape[1] // k.shape[1]
     if scale is None:

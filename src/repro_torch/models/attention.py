@@ -11,13 +11,13 @@ The cache is written in place: the returned cache is the one passed in.
 MLA decodes **absorbed** in latent space (DeepSeek-V2 §2.1.3): the cache
 holds only the latent ``c`` (rank r) and the shared rotary key ``kr``
 (rope_head_dim) per position; W_uk is folded into the query and W_uv into
-the output. Its flash prefill runs K6 at head dim nope + rope (192 at
-V2-Lite) with V padded up to it, as the reference does.
+the output. Its flash prefill runs K6 at head dims (nope + rope, v) —
+(192, 128) at V2-Lite — with V unpadded, where the reference pads V to
+nope + rope.
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import LMConfig
@@ -184,9 +184,12 @@ def _mla_latent(p: MLA, cfg: LMConfig, x: torch.Tensor, cos, sin):
 def mla_full(p: MLA, cfg: LMConfig, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, *,
              use_flash: bool = False, chunk_q: int = 1024) -> torch.Tensor:
     """Causal MLA over x (B, S, D) → (B, S, D), keys and values expanded
-    from the latent. ``use_flash`` runs K6 at head dim dn + dr with V
-    padded to it (its scale (dn+dr)^-½ is MLA's) and slices the output
-    back to dv; else :func:`chunked_attention` with Dv = dv."""
+    from the latent. ``use_flash`` runs K6 at head dims (dn + dr, dv), its
+    scale (dn + dr)^-½ MLA's; else :func:`chunked_attention` with Dv = dv.
+    Port-only difference: the reference pads V to dn + dr for its kernel and
+    slices the output back to dv; K6 here takes Dv apart (on the card's
+    tensor-core routes at (192, 128), so P·V skips the zero columns), the
+    same function."""
     m, h = cfg.mla, cfg.n_heads
     dn, dr, dv = m.nope_head_dim, m.rope_head_dim, m.v_head_dim
     b, s, _ = x.shape
@@ -199,7 +202,7 @@ def mla_full(p: MLA, cfg: LMConfig, x: torch.Tensor, cos: torch.Tensor, sin: tor
     if use_flash:
         from repro_torch.kernels.flash_attention.ops import flash_attention
 
-        o = flash_attention(q, k, F.pad(v, (0, dn + dr - dv)), causal=True)[..., :dv]
+        o = flash_attention(q, k, v, causal=True)
     else:
         o = chunked_attention(q, k, v, causal=True, chunk_q=chunk_q, scale=(dn + dr) ** -0.5)
     return o.transpose(1, 2).reshape(b, s, h * dv) @ p.wo

@@ -42,7 +42,11 @@ from repro_torch.kernels.bitset_count.ref import (  # noqa: E402
 )
 from repro_torch.kernels.embedding_bag.ops import embedding_bag  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E402
-from repro_torch.kernels.flash_attention.ops import flash_attention, kernel_route  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    _tma_strides,
+    flash_attention,
+    kernel_route,
+)
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.triangle_count.ops import (  # noqa: E402
     masked_matmul_sum,
@@ -758,6 +762,14 @@ def _assert_one_launch(before: dict, route: str, n: int = 1) -> None:
         assert now[name] - before[name] == (n if r == route else 0), (name, route)
 
 
+# The tensor-core routes' cases: (Hq, Hkv, D, Dv, S) at D = Dv = 64 and 128
+# across ragged and whole tiles, and at MLA's (192, 128)
+_TC_CASES = [(hq, hkv, d, d, s) for hq, hkv in ((4, 4), (8, 2), (32, 4)) for d in (64, 128)
+             for s in (1, 63, 127, 128, 129, 200, 1000, 4097)]
+_TC_CASES += [(hq, hkv, 192, 128, s) for hq, hkv in ((4, 4), (16, 16), (8, 2))
+              for s in (127, 200, 1024)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hq,hkv,d", [(4, 4, 16), (8, 2, 64), (32, 4, 128), (4, 1, 200)])
 @pytest.mark.parametrize("s", [1, 127, 200])
@@ -780,14 +792,13 @@ def test_flash_attention_kernel_equals_plain(cuda, dtype, hq, hkv, d, s, causal)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (32, 4)])
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("s", [1, 63, 127, 128, 129, 200, 1000, 4097])
+@pytest.mark.parametrize("hq,hkv,d,dv,s", _TC_CASES)
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_attention_wgmma_equals_plain(cuda, hq, hkv, d, s, causal):
+def test_flash_attention_wgmma_equals_plain(cuda, hq, hkv, d, dv, s, causal):
     """The bf16 tensor-core kernel (TMA ring, wgmma) against the plain
     version at rtol = atol = 3e-2, the reference kernel test's bf16
-    tolerance, across ragged and whole 128-key tiles. At S = 4097 also the
+    tolerance, across ragged and whole 128-key tiles, at (D, Dv) = (64,
+    64), (128, 128) and MLA's (192, 128) with v unpadded. At S = 4097 also the
     Yi-width limit of chip_smoke.py, elementwise: 1e-4 + 2^-7 |want| +
     2^-8 attention_ref(q, k, |v|) — the second term one bf16 rounding of the
     output, the third the first-order bound of storing each unnormalised
@@ -796,11 +807,11 @@ def test_flash_attention_wgmma_equals_plain(cuda, hq, hkv, d, s, causal):
     b = 2 if s < 4097 else 1
     q = torch.randn(b, hq, s, d, generator=g, device=cuda).bfloat16()
     k = torch.randn(b, hkv, s, d, generator=g, device=cuda).bfloat16()
-    v = torch.randn(b, hkv, s, d, generator=g, device=cuda).bfloat16()
+    v = torch.randn(b, hkv, s, dv, generator=g, device=cuda).bfloat16()
     before = launch_counts()
     got = flash_attention(q, k, v, causal=causal)
     _assert_one_launch(before, "wgmma")
-    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert got.dtype == torch.bfloat16 and got.shape == (b, hq, s, dv)
     want = attention_ref(q, k, v, causal=causal).float()
     torch.testing.assert_close(got.float(), want, rtol=3e-2, atol=3e-2)
     if s == 4097:
@@ -840,13 +851,13 @@ def test_flash_attention_wgmma_copies_what_tma_cannot_read(cuda):
                                rtol=3e-2, atol=3e-2)
 
 
-@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (32, 4)])
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("s", [1, 63, 127, 128, 129, 200, 1000, 4097])
+@pytest.mark.parametrize("hq,hkv,d,dv,s", _TC_CASES)
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_attention_tf32x3_equals_plain(cuda, hq, hkv, d, s, causal):
-    """The f32 tensor-core kernel (three TF32 passes, TMA ring, wgmma)
-    against the plain version across ragged and whole 32-key tiles: the
+def test_flash_attention_tf32x3_equals_plain(cuda, hq, hkv, d, dv, s, causal):
+    """The f32 tensor-core kernel (three TF32 passes, TMA rings, wgmma)
+    against the plain version across ragged and whole 32-key tiles, at
+    (D, Dv) = (64, 64), (128, 128) and MLA's (192, 128) with v unpadded
+    (one V stage there): the
     reference kernel test's 2e-5 up to S = 1000, and chip_smoke.py's
     F32_LONG_TOL (1e-4) at S = 4097, where the online softmax has run over
     129 key tiles."""
@@ -854,12 +865,12 @@ def test_flash_attention_tf32x3_equals_plain(cuda, hq, hkv, d, s, causal):
     b = 2 if s < 4097 else 1
     q = torch.randn(b, hq, s, d, generator=g, device=cuda)
     k = torch.randn(b, hkv, s, d, generator=g, device=cuda)
-    v = torch.randn(b, hkv, s, d, generator=g, device=cuda)
+    v = torch.randn(b, hkv, s, dv, generator=g, device=cuda)
     before = launch_counts()
     got = flash_attention(q, k, v, causal=causal)
     _assert_one_launch(before, "tf32x3")
-    assert got.dtype == torch.float32 and got.shape == q.shape
-    tol = 2e-5 if s <= 1000 else 1e-4
+    assert got.dtype == torch.float32 and got.shape == (b, hq, s, dv)
+    tol = 2e-5 if s <= 1024 else 1e-4
     torch.testing.assert_close(got, attention_ref(q, k, v, causal=causal), rtol=tol, atol=tol)
 
 
@@ -895,6 +906,50 @@ def test_flash_attention_tf32x3_copies_what_tma_cannot_read(cuda):
     got = flash_attention(q, k, v, causal=False)
     _assert_one_launch(before, "tf32x3")
     torch.testing.assert_close(got, attention_ref(q, k, v, causal=False), rtol=2e-5, atol=2e-5)
+
+
+def _mla_views(cuda, dtype, b=2, s=300, h=16, seed=8):
+    """q, k and v as ``attention.mla_full`` hands them to K6: q and k
+    concatenated (contiguous, D 192), v the transposed head view of the
+    (B, S, H·128) up-projection."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k = (torch.randn(b, h, s, 192, generator=g, device=cuda).to(dtype) for _ in range(2))
+    v = torch.randn(b, s, h * 128, generator=g, device=cuda).to(dtype)
+    return q, k, v.reshape(b, s, h, 128).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_reads_mla_v_view_in_place(cuda, dtype):
+    """mla_full's transposed v view (Dv 128 beside D 192) keeps TMA's
+    16-byte rule, so the wgmma route reads it in place (and the tf32x3
+    route's prep through its strides): one launch of the route, no copy."""
+    q, k, v = _mla_views(cuda, dtype)
+    assert _tma_strides(v) == v.stride()[:3] and not v.is_contiguous()
+    route = kernel_route(dtype, 192, 128)
+    before = launch_counts()
+    got = flash_attention(q, k, v)
+    _assert_one_launch(before, route)
+    assert got.shape == (2, 16, 300, 128)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), attention_ref(q, k, v).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_copies_an_mla_v_that_tma_cannot_read(cuda, dtype):
+    """A v of Dv 128 whose base is one element off 16-byte alignment, and q
+    and k likewise: the wrapper copies what TMA cannot read, at each one's
+    own head dim, and never refuses it."""
+    q, k, v = _mla_views(cuda, dtype, s=130, h=4)
+    flat = torch.zeros(1 + v.numel(), dtype=dtype, device=cuda)
+    v_off = flat[1:].view(v.shape).copy_(v)
+    q_off = torch.zeros(1 + q.numel(), dtype=dtype, device=cuda)[1:].view(q.shape).copy_(q)
+    assert _tma_strides(v_off) is None and _tma_strides(q_off) is None
+    before = launch_counts()
+    got = flash_attention(q_off, k, v_off, causal=False)
+    _assert_one_launch(before, kernel_route(dtype, 192, 128))
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), attention_ref(q, k, v, causal=False).float(),
+                               rtol=tol, atol=tol)
 
 
 def test_flash_attention_kernel_reads_head_views_in_place(cuda):
@@ -1021,11 +1076,12 @@ def test_lm_server_on_the_card(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,s,d", [(4, 16, 1024, 192), (2, 16, 127, 192), (2, 4, 37, 24)])
 def test_flash_attention_fma_at_mla_head_dims_equals_plain(cuda, dtype, b, h, s, d):
-    """K6's FMA route at MLA's head dims: DeepSeek-V2-Lite's nope + rope =
-    192 at its prefill shape (B = 4, 16 heads, 1,024 tokens) and ragged,
-    and the smoke configs' 24, with V zero past its 128 (resp. 16) columns
-    as mla_full pads it; causal, within the reference kernel test's 2e-5
-    (f32) and 3e-2 (bf16), one FMA launch each."""
+    """K6's FMA route at MLA's head dims with V padded to them, as the
+    reference's mla_full pads it: DeepSeek-V2-Lite's nope + rope = 192 at
+    its prefill shape (B = 4, 16 heads, 1,024 tokens) and ragged, and the
+    smoke configs' 24, with V zero past its 128 (resp. 16) columns; causal,
+    within the reference kernel test's 2e-5 (f32) and 3e-2 (bf16), one FMA
+    launch each."""
     g = torch.Generator(device=cuda).manual_seed(s + d)
     q, k = (torch.randn(b, h, s, d, generator=g, device=cuda).to(dtype) for _ in range(2))
     v = torch.zeros_like(k)
@@ -1062,22 +1118,32 @@ def test_moe_layer_on_the_card_matches_the_cpu_port(cuda, arch):
 
 
 @pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b", "deepseek_v2_236b"])
-def test_deepseek_flash_prefill_launches_k6_per_layer_and_matches_the_cpu_port(cuda, arch):
-    """The DeepSeek smoke configs (MLA at head dim 24, MoE) on the card:
-    the flash prefill launches the FMA K6 once per layer and agrees with
-    the CPU port, and with the chunked prefill, within 2e-4, as does a
+@pytest.mark.parametrize("full_head_dims", [False, True], ids=["smoke", "mla192"])
+def test_deepseek_flash_prefill_launches_k6_per_layer_and_matches_the_cpu_port(
+        cuda, arch, full_head_dims):
+    """The DeepSeek smoke configs (MoE; MLA at head dims (24, 16), or at the
+    full configs' (nope 128 + rope 64, v 128)) on the card: the flash
+    prefill launches K6's route for those head dims once per layer — the
+    FMA kernel at (24, 16), the tf32x3 kernel at (192, 128) — and agrees
+    with the CPU port, and with the chunked prefill, within 2e-4, as does a
     decode step."""
     from repro_torch.configs import get_smoke
     from repro_torch.models import transformer as tf
 
     cfg = get_smoke(arch)
+    if full_head_dims:
+        cfg = dataclasses.replace(cfg, mla=dataclasses.replace(
+            cfg.mla, nope_head_dim=128, rope_head_dim=64, v_head_dim=128))
+    m = cfg.mla
+    route = kernel_route(torch.float32, m.nope_head_dim + m.rope_head_dim, m.v_head_dim)
+    assert route == ("tf32x3" if full_head_dims else "fma")
     model = tf.init_params(torch.Generator(device=cuda).manual_seed(6), cfg, device=cuda)
     host = tf.Transformer(cfg, device="cpu")
     host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     toks = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab, (2, 37)))
     before = launch_counts()
     got, cache = tf.prefill(model, cfg, toks.to(cuda), 40, use_flash=True)
-    _assert_one_launch(before, "fma", cfg.n_layers)
+    _assert_one_launch(before, route, cfg.n_layers)
     want, host_cache = tf.prefill(host, cfg, toks, 40, use_flash=True)
     torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(cache["moe_stack"]["c"].cpu(), host_cache["moe_stack"]["c"],

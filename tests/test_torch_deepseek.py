@@ -126,6 +126,26 @@ def test_mla_full_matches_reference(ds, use_flash):
     _close(got, want)
 
 
+@pytest.mark.parametrize("use_flash", [False, True])
+def test_mla_full_at_deepseek_head_dims_matches_reference(use_flash):
+    """MLA at DeepSeek-V2's own head dims (nope 128 + rope 64, v 128) on the
+    V2-Lite smoke config's width: the port's flash path hands K6 (192, 128)
+    with v unpadded, the reference pads v to 192 and slices."""
+    def widen(c):
+        return dataclasses.replace(c, mla=dataclasses.replace(
+            c.mla, nope_head_dim=128, rope_head_dim=64, v_head_dim=128))
+
+    cfg, pcfg = widen(ref_get_smoke(ARCHS[0])), widen(get_smoke(ARCHS[0]))
+    p_ref = ref_attn.mla_init(jax.random.PRNGKey(3), cfg, jnp.float32)
+    p = attention.MLA(pcfg, device="cpu")
+    p.load_state_dict({k: _t(v) for k, v in p_ref.items()})
+    x = np.random.default_rng(5).standard_normal((2, 21, cfg.d_model)).astype(np.float32)
+    cos, sin = _rope(cfg, np.arange(21))
+    want = _ref_mla_full(p_ref, cfg, jnp.asarray(x), cos, sin, use_flash=use_flash, chunk_q=8)
+    got = attention.mla_full(p, pcfg, _t(x), _t(cos), _t(sin), use_flash=use_flash, chunk_q=8)
+    _close(got, want)
+
+
 def test_mla_cache_fill_and_decode_match_reference(ds):
     """The latent cache filled in place, then three absorbed decode steps
     (an int position, then 0-d tensors), each writing its position of the

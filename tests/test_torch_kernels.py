@@ -464,6 +464,55 @@ def test_flash_attention_route_is_chosen_by_dtype_and_head_dim(dtype, d, route):
     assert kernel_route(dtype, d) == route
 
 
+@pytest.mark.parametrize("dtype,d,dv,route", [
+    (torch.bfloat16, 192, 128, "wgmma"), (torch.float32, 192, 128, "tf32x3"),
+    (torch.bfloat16, 192, 192, "fma"), (torch.float32, 192, 192, "fma"),
+    (torch.bfloat16, 24, 16, "fma"), (torch.float32, 24, 16, "fma"),
+    (torch.bfloat16, 200, 200, "fma"), (torch.float32, 200, 200, "fma"),
+    (torch.bfloat16, 128, 64, "fma"), (torch.float32, 64, 64, "tf32x3")])
+def test_flash_attention_route_at_mla_head_dims(dtype, d, dv, route):
+    """MLA's (D, Dv) = (nope + rope, v) = (192, 128) takes the tensor-core
+    routes; MLA's v padded to 192 and the smoke configs' (24, 16) the FMA
+    kernel. Nothing but (dtype, D, Dv) decides."""
+    assert kernel_route(dtype, d, dv) == route
+
+
+def _mla_qkv(b, h, s, d, dv, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((b, h, s, w)).astype(np.float32) for w in (d, d, dv))
+
+
+def _ref_flash_padded(q, k, v, *, causal=True):
+    """The reference's kernel as its ``mla_full`` calls it: v zero-padded to
+    D, the output sliced back to Dv (Pallas in interpret mode)."""
+    d, dv = q.shape[-1], v.shape[-1]
+    v_pad = np.pad(v, ((0, 0), (0, 0), (0, 0), (0, d - dv)))
+    return np.asarray(ref_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v_pad),
+                                causal=causal, interpret=True))[..., :dv]
+
+
+@pytest.mark.parametrize("hq,hkv,s", [(2, 2, 128), (4, 1, 256)])
+def test_flash_attention_takes_v_narrower_than_q_and_k(hq, hkv, s):
+    """Dk 192, Dv 128 (DeepSeek-V2's MLA) unpadded: equal to the reference's
+    padded Pallas call, sliced to Dv, within its kernel test's 2e-5."""
+    q, k, v = _mla_qkv(1, hq, s, 192, 128, s + hq)
+    k, v = k[:, :hkv], v[:, :hkv]
+    got = flash_attention(*(torch.from_numpy(np.ascontiguousarray(x)) for x in (q, k, v)))
+    assert got.shape == (1, hq, s, 128) and got.dtype == torch.float32
+    _close(got, _ref_flash_padded(q, k, v), 2e-5)
+
+
+@pytest.mark.parametrize("bad", ["dv>d", "s", "b", "h"])
+def test_flash_attention_rejects_a_v_it_cannot_take(bad):
+    """v wider than q and k, or of another length, batch or head count,
+    raises ValueError: only its head dim may differ, and only downwards."""
+    q = k = torch.zeros(2, 4, 8, 24)
+    v = {"dv>d": torch.zeros(2, 4, 8, 32), "s": torch.zeros(2, 4, 9, 16),
+         "b": torch.zeros(1, 4, 8, 16), "h": torch.zeros(2, 2, 8, 16)}[bad]
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v)
+
+
 # The three-pass TF32 kernel's arithmetic, emulated from the pure functions
 # it shares with ops.py: every product a tensor-core product of TF32
 # operands (exact in f32: 11 x 11 significant bits), summed in f32.
@@ -561,6 +610,30 @@ def test_tf32x3_emulation_takes_full_attention_at_a_ragged_length(s):
     got = _tf32x3_emulation(*(torch.from_numpy(x) for x in (q, k, v)), causal=False)
     _close(got, ref_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False),
            2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_tf32x3_emulation_at_mla_head_dims_matches_reference_kernel(causal):
+    """The three-pass kernel's arithmetic at Dk 192, Dv 128 (Vᵀ at Dv from
+    vt_operand) against the reference's padded Pallas call sliced to Dv."""
+    q, k, v = _mla_qkv(1, 2, 128, 192, 128, 11 + causal)
+    got = _tf32x3_emulation(*(torch.from_numpy(x) for x in (q, k, v)), causal=causal)
+    assert got.shape == (1, 2, 128, 128)
+    _close(got, _ref_flash_padded(q, k, v, causal=causal), 2e-5)
+
+
+@pytest.mark.parametrize("s", [5, 128])
+def test_vt_operand_at_mla_v_head_dim(s):
+    """Vᵀ at Dv = 128 beside Dk = 192: (B, Hkv, Dv, S8), the keys of each
+    8-key group in pv_key_order, zero past S."""
+    v = torch.from_numpy(np.random.default_rng(s).standard_normal((1, 2, s, 128)).astype(
+        np.float32))
+    vt = vt_operand(v)
+    s8 = -(-s // 8) * 8
+    assert vt.shape == (1, 2, 128, s8) and vt.is_contiguous()
+    keys = [8 * (p // 8) + pv_key_order()[p % 8] for p in range(s8)]
+    for pos, key in enumerate(keys):
+        assert torch.equal(vt[..., pos], v[:, :, key] if key < s else torch.zeros(1, 2, 128))
 
 
 @pytest.mark.parametrize("s", [128, 200])
