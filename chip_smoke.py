@@ -175,12 +175,39 @@
    above 0, CUDA kernel rows at least the port's launches in the run, a
    host-to-device copy row for each count); an inconsistent one is profiled
    again with four times the markers, and the third raises.
+13. [train] Training (``train/``, ``launch/train.py``): (a) the yi_6b,
+   deepseek_v2_lite_16b and autoint smoke configs, 3 train steps on the card
+   and on the CPU port from the same weights, losses and every parameter
+   and moment leaf within 1e-4 (relative, a leaf by its norm); (b) Yi-6B at
+   full width cut to ``TRAIN_YI_LAYERS`` layers in f32 (reduced: all 32
+   with gradients and moments would need 97.0 GB), 10 steps of 4 × 1,024
+   tokens from ``LMTokenPipeline`` with remat and a 512-token chunked
+   cross-entropy: every loss finite, the last below the first, and on
+   step 0 remat + chunked cross-entropy equal to the plain loss within
+   1e-5 and its gradient norm within 1e-4; step wall, tokens/s and peak
+   memory printed; (c) DeepSeek-V2-Lite at full width, its dense layer and
+   one MoE layer of 64 experts, 3 steps: aux above 0 and a nonzero router
+   gradient; (d) AutoInt at its full 3.9M-row table, 20 steps of 16,384-row
+   ``RecsysPipeline`` batches, the first batch's loss lower after them;
+   (e) ``train_lm`` on the yi_6b smoke config, 8 steps against 4, a
+   restore and 4 (rtol 1e-4), its card-written checkpoint restored on the
+   CPU bit for bit.
+14. [ring attention] ``ring_attention`` at ``RING_ATTN`` (Yi-6B's attention
+   width, S 16,384, f32, causal), on the stage chain and on
+   ``make_ring_mesh(n, devices=[cuda:0] * n)`` for n = 2, 4, 8, each
+   within rtol 2e-4, atol 2e-5 of ``chunked_attention`` on the card, TF32
+   off; the walls printed beside the tf32x3 K6's on the same inputs.
 
 Phases 2 to 11 are the main path: every kernel's launch count is set to 0
-before them and must be above 0 after them. Any mismatch or exception exits
-non-zero. The last three lines are the ``kernels`` JSON line, the card's
-name and power limit, and ``{"ok": true, "device": {...}}``. Imports nothing
-of JAX and nothing of the reference package ``repro``.
+before them and must be above 0 after them. Phases 13 and 14 are this
+slice's paths, each driven with the counts set to 0 just before it and
+read just after: neither reaches a hand-written kernel (the reference
+trains through chunked attention and the plain lookup; K6 and K7 have no
+backward), so their counts must stay 0. Any mismatch or exception exits
+non-zero. ``python3 chip_smoke.py --train`` runs phases 13 and 14 alone.
+The last three lines are the ``kernels`` JSON line, the card's name and
+power limit, and ``{"ok": true, "device": {...}}``. Imports nothing of JAX
+and nothing of the reference package ``repro``.
 """
 from __future__ import annotations
 
@@ -304,6 +331,29 @@ MESH_WIDTHS = (2, 4, 8)
 # YT: SNAP com-Youtube's size (n nodes, m edge draws), the edges drawn by a
 # Chung-Lu power law (the reference's tests/test_hybrid_stream.py generator)
 YT = dict(n=1_134_890, m=2_987_624, alpha=0.85, seed=0)
+# [train] (b): Yi-6B trains at full width cut to this depth, f32: 1.91 B
+# parameters, 30.5 GB with gradients and AdamW moments (all 32 layers would
+# need 97.0 GB, past the card's 80 GB); batches of TRAIN_BATCH rows of
+# TRAIN_SEQ tokens from LMTokenPipeline, every block rematerialised and the
+# cross-entropy TRAIN_CE_CHUNK tokens at a time
+TRAIN_YI_LAYERS = 8
+TRAIN_BATCH = 4
+TRAIN_SEQ = 1024
+TRAIN_CE_CHUNK = 512
+TRAIN_STEPS = 10
+# [train] (c): DeepSeek-V2-Lite at full width cut to its dense first layer
+# and one MoE layer of 64 experts (1.09 B parameters, 17.4 GB with moments)
+TRAIN_DS_LAYERS = 2
+TRAIN_DS_STEPS = 3
+# [train] (d): AutoInt at its full 3.9M-row table, RecsysPipeline batches
+TRAIN_RECSYS_ROWS = 16_384
+TRAIN_RECSYS_STEPS = 20
+# [train] (a): the smoke configs' card-vs-CPU gate, relative: losses, and
+# each parameter leaf by its norm (|| card - cpu || <= 1e-4 || cpu ||)
+TRAIN_REL = 1e-4
+# [ring attention]: Yi-6B's attention width at a long sequence, f32, causal
+RING_ATTN = dict(b=1, h=32, s=16_384, d=128)
+RING_WIDTHS = (2, 4, 8)
 # Issue rates outside the tensor cores, per SM per clock, for compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
 # throughput): 32-bit integer add and bitwise logic 64, population count 16.
@@ -2957,24 +3007,27 @@ def recsys_phase(arch: str = "autoint", rows: int = 16_384, n_cand: int = 100_00
     bags = torch.from_numpy(bags.astype(np.int32)).to(DEVICE)
     torch.cuda.synchronize()
     out = {}
-    for name, run, shape in (
-            ("ctr_logits", lambda: autoint.ctr_logits(model, cfg, ids), (rows,)),
-            ("retrieval_scores", lambda: autoint.retrieval_scores(model, cfg, ids, cands),
-             (rows, n_cand)),
-            ("lookup_multihot", lambda: embedding.lookup_multihot(model.table, cfg, bags,
-                                                                  use_kernel=True),
-             (rows, cfg.n_sparse, cfg.embed_dim))):
-        t0 = time.perf_counter()
-        y = run()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        if tuple(y.shape) != shape or not torch.isfinite(y).all():
-            raise AssertionError(f"{name}: shape {tuple(y.shape)} (want {shape}) or not finite")
-        log(f"  {name:16s} {tuple(y.shape)} finite, {wall:.3f} ms (host wall, synchronized)")
-        out[name] = (y, wall)
-    k7 = launch_counts()["embedding_bag"]
-    plain = embedding.lookup_multihot(model.table, cfg, bags, use_kernel=False)
-    k7 = launch_counts()["embedding_bag"] - k7
+    with torch.no_grad():  # serving: no graph, whatever the weights' flags
+        for name, run, shape in (
+                ("ctr_logits", lambda: autoint.ctr_logits(model, cfg, ids), (rows,)),
+                ("retrieval_scores", lambda: autoint.retrieval_scores(model, cfg, ids, cands),
+                 (rows, n_cand)),
+                ("lookup_multihot", lambda: embedding.lookup_multihot(model.table, cfg, bags,
+                                                                      use_kernel=True),
+                 (rows, cfg.n_sparse, cfg.embed_dim))):
+            t0 = time.perf_counter()
+            y = run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            if tuple(y.shape) != shape or not torch.isfinite(y).all():
+                raise AssertionError(f"{name}: shape {tuple(y.shape)} (want {shape}) or not "
+                                     "finite")
+            log(f"  {name:16s} {tuple(y.shape)} finite, {wall:.3f} ms (host wall, "
+                "synchronized)")
+            out[name] = (y, wall)
+        k7 = launch_counts()["embedding_bag"]
+        plain = embedding.lookup_multihot(model.table, cfg, bags, use_kernel=False)
+        k7 = launch_counts()["embedding_bag"] - k7
     err, ok = close(out["lookup_multihot"][0], plain, 1e-6)
     log(f"  lookup_multihot use_kernel=True vs False: max abs err {err:.3e} (within rtol = "
         f"atol = 1e-6: {ok}); the plain path launched K7 {k7} times")
@@ -2982,6 +3035,314 @@ def recsys_phase(arch: str = "autoint", rows: int = 16_384, n_cand: int = 100_00
         raise AssertionError(f"lookup_multihot: max abs err {err}, not within rtol = atol = "
                              "1e-6, or the plain path launched K7")
     return {name: wall for name, (_, wall) in out.items()}
+
+
+# --------------------------------------------------------------------------
+# Phases 13 and 14: training and ring attention (their own launch window)
+# --------------------------------------------------------------------------
+def leaf_rel(got: dict, want: dict) -> float:
+    """The largest over the named tensors of || got - want || / || want ||."""
+    import torch
+
+    worst = 0.0
+    for name, w in want.items():
+        g = got[name].detach().cpu().float()
+        w = w.detach().cpu().float()
+        worst = max(worst, float(torch.linalg.vector_norm(g - w)
+                                 / torch.clamp(torch.linalg.vector_norm(w), min=1e-30)))
+    return worst
+
+
+def train_card_vs_cpu(label: str, m_dev, m_cpu, step_dev, step_cpu, batches) -> dict:
+    """The same train step on the card and on the CPU port from the same
+    weights, one batch a step: the losses and every parameter and moment
+    leaf within ``TRAIN_REL`` (relative)."""
+    from repro_torch.train import optimizer as opt
+
+    s_dev, s_cpu = opt.init_state(m_dev), opt.init_state(m_cpu)
+    losses = []
+    for batch in batches:
+        m_dev, s_dev, a = step_dev(m_dev, s_dev, batch)
+        m_cpu, s_cpu, b = step_cpu(m_cpu, s_cpu, batch)
+        losses.append((float(a["loss"]), float(b["loss"])))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in losses)
+    p_rel = leaf_rel(dict(m_dev.named_parameters()), dict(m_cpu.named_parameters()))
+    m_rel = max(leaf_rel(s_dev[k], s_cpu[k]) for k in ("m", "v"))
+    log(f"  {label}: {len(losses)} steps, losses card {[a for a, _ in losses]} / CPU "
+        f"{[b for _, b in losses]}; worst loss rel {loss_rel:.3e}, parameter leaf rel "
+        f"{p_rel:.3e}, moment leaf rel {m_rel:.3e} (<= {TRAIN_REL:g})")
+    if not (loss_rel <= TRAIN_REL and p_rel <= TRAIN_REL and m_rel <= TRAIN_REL):
+        raise AssertionError(f"{label}: the card and the CPU port part: loss {loss_rel}, "
+                             f"parameters {p_rel}, moments {m_rel} > {TRAIN_REL}")
+    return {"losses": losses, "loss_rel": loss_rel, "param_rel": p_rel, "moment_rel": m_rel}
+
+
+def train_smoke_configs() -> dict:
+    """[train] (a): yi_6b's and deepseek_v2_lite_16b's smoke configs (3
+    steps of ``make_lm_train_step``, remat and chunked cross-entropy on)
+    and AutoInt's (3 steps of ``make_recsys_train_step``) on the card
+    against the CPU port from the same weights."""
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import LMTokenPipeline, RecsysPipeline
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.recsys import autoint
+    from repro_torch.train import steps
+
+    out = {}
+    for arch in ("yi_6b", "deepseek_v2_lite_16b"):
+        small = get_smoke(arch)
+        m_dev = tf.init_params(torch.Generator(device=DEVICE).manual_seed(5), small,
+                               device=DEVICE)
+        m_cpu = tf.Transformer(small, device="cpu")
+        m_cpu.load_state_dict({k: v.cpu() for k, v in m_dev.state_dict().items()})
+        pipe = LMTokenPipeline(small, 2, 33, seed=7)
+        step = steps.make_lm_train_step(small, chunk_q=16, remat=True, ce_chunk=8)
+        out[arch] = train_card_vs_cpu(f"{small.name} train steps, card vs CPU port", m_dev,
+                                      m_cpu, step, step, [pipe.batch_at(i) for i in range(3)])
+    small = get_smoke("autoint")
+    m_dev = autoint.init_params(torch.Generator(device=DEVICE).manual_seed(6), small,
+                                device=DEVICE)
+    m_cpu = autoint.AutoInt(small, device="cpu")
+    m_cpu.load_state_dict({k: v.cpu() for k, v in m_dev.state_dict().items()})
+    step = steps.make_recsys_train_step(small)
+    pipe = RecsysPipeline(small, 64, seed=8)
+    out["autoint"] = train_card_vs_cpu(f"{small.name} train steps, card vs CPU port", m_dev,
+                                       m_cpu, step, step, [pipe.batch_at(i) for i in range(3)])
+    return out
+
+
+def timed_steps(label: str, step, model, state, batches, sync) -> tuple[list, list]:
+    """Run ``step`` over ``batches``; (losses, synchronised walls in ms).
+    Every loss must be finite."""
+    losses, walls = [], []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        model, state, m = step(model, state, batch)
+        losses.append(float(m["loss"]))  # reads the loss: a synchronisation
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if not math.isfinite(losses[-1]):
+            raise AssertionError(f"{label}: step {i} loss {losses[-1]} is not finite")
+    log(f"  {label}: losses {losses}")
+    log(f"  {label}: step walls (ms) {walls}")
+    return losses, walls
+
+
+def train_phase() -> dict:
+    """[train], as the module docstring says: (a) the smoke configs against
+    the CPU port, (b) Yi-6B at full width, (c) DeepSeek-V2-Lite's MoE, (d)
+    AutoInt at its full table, (e) ``train_lm``'s restart and a card-written
+    checkpoint restored on the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import LMTokenPipeline, RecsysPipeline
+    from repro_torch.launch.train import train_lm, train_state_tree
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.recsys import autoint
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.utils import tree_leaves
+
+    sync = torch.cuda.synchronize if DEVICE == "cuda" else (lambda: None)
+    out = {"a": train_smoke_configs()}
+
+    # (b) Yi-6B at full width, TRAIN_YI_LAYERS layers, f32
+    cfg = dataclasses.replace(get_config("yi_6b"), n_layers=TRAIN_YI_LAYERS)
+    model = tf.init_params(torch.Generator(device=DEVICE).manual_seed(10), cfg, device=DEVICE)
+    n_params = sum(p.numel() for p in model.parameters())
+    pipe = LMTokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batch0 = pipe.batch_at(0)
+    params = list(model.requires_grad_(True).parameters())
+
+    def loss_and_norm(**kw):
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            loss = tf.loss_fn(model, cfg, batch0, **kw)
+            grads = torch.autograd.grad(loss, params)
+        norm = float(opt.global_norm(grads))
+        del grads
+        return float(loss.detach()), norm, (time.perf_counter() - t0) * 1e3
+
+    torch.cuda.reset_peak_memory_stats()
+    l_r, n_r, w_r = loss_and_norm(remat=True, ce_chunk=TRAIN_CE_CHUNK)
+    l_f, n_f, w_f = loss_and_norm(remat=False)
+    peak_full = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  {cfg.name} x{TRAIN_YI_LAYERS} layers ({n_params:,} parameters) step 0: remat + "
+        f"chunked CE loss {l_r!r}, grad norm {n_r!r} ({w_r:.1f} ms); no remat, full CE loss "
+        f"{l_f!r}, grad norm {n_f!r} ({w_f:.1f} ms); peak {peak_full:.2f} GB")
+    if not (abs(l_r - l_f) <= 1e-5 * abs(l_f) and abs(n_r - n_f) <= 1e-4 * n_f):
+        raise AssertionError(f"{cfg.name}: remat + chunked CE (loss {l_r}, norm {n_r}) and the "
+                             f"plain loss (loss {l_f}, norm {n_f}) part")
+    state = opt.init_state(model)
+    step = steps.make_lm_train_step(cfg, remat=True, ce_chunk=TRAIN_CE_CHUNK)
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = timed_steps(f"{cfg.name} x{TRAIN_YI_LAYERS}", step, model, state,
+                                [pipe.batch_at(i) for i in range(TRAIN_STEPS)], sync)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    med = float(np.median(walls[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"  {cfg.name} x{TRAIN_YI_LAYERS}: step wall median of steps 2-{TRAIN_STEPS} "
+        f"{med:.3f} ms, {tokens / med * 1e3:.1f} tokens/s, peak allocated {peak:.2f} GB")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{cfg.name}: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    out["b"] = {"params": n_params, "losses": losses, "walls_ms": walls, "median_ms": med,
+                "tokens_per_s": tokens / med * 1e3, "peak_gb": peak,
+                "peak_step0_checks_gb": peak_full, "step0": {
+                    "remat_chunked": [l_r, n_r, w_r], "plain": [l_f, n_f, w_f]}}
+    del model, state, params, step
+    torch.cuda.empty_cache()
+
+    # (c) DeepSeek-V2-Lite at full width, its dense layer and one MoE layer
+    cfg = dataclasses.replace(get_config("deepseek_v2_lite_16b"), n_layers=TRAIN_DS_LAYERS)
+    model = tf.init_params(torch.Generator(device=DEVICE).manual_seed(11), cfg, device=DEVICE)
+    n_params = sum(p.numel() for p in model.parameters())
+    pipe = LMTokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=1)
+    batch0 = pipe.batch_at(0)
+    router = model.layers[-1].moe.router
+    with torch.no_grad():
+        _, aux = tf.hidden(model, cfg, torch.as_tensor(batch0["tokens"], device=DEVICE))
+    model.requires_grad_(True)
+    with torch.enable_grad():
+        (g_router,) = torch.autograd.grad(
+            tf.loss_fn(model, cfg, batch0, remat=True, ce_chunk=TRAIN_CE_CHUNK), [router])
+    aux, g_norm = float(aux), float(g_router.norm())
+    log(f"  {cfg.name} x{TRAIN_DS_LAYERS} layers ({n_params:,} parameters): aux {aux!r}, "
+        f"router gradient norm {g_norm!r}")
+    if not (aux > 0 and g_norm > 0):
+        raise AssertionError(f"{cfg.name}: aux {aux} or router gradient {g_norm} is 0")
+    state = opt.init_state(model)
+    step = steps.make_lm_train_step(cfg, remat=True, ce_chunk=TRAIN_CE_CHUNK)
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = timed_steps(f"{cfg.name} x{TRAIN_DS_LAYERS}", step, model, state,
+                                [pipe.batch_at(i) for i in range(TRAIN_DS_STEPS)], sync)
+    out["c"] = {"params": n_params, "aux": aux, "router_grad_norm": g_norm, "losses": losses,
+                "walls_ms": walls, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del model, state, step, router, g_router
+    torch.cuda.empty_cache()
+
+    # (d) AutoInt at its full table
+    cfg = get_config("autoint")
+    model = autoint.init_params(torch.Generator(device=DEVICE).manual_seed(12), cfg,
+                                device=DEVICE)
+    pipe = RecsysPipeline(cfg, TRAIN_RECSYS_ROWS, seed=0)
+    batches = [pipe.batch_at(i) for i in range(TRAIN_RECSYS_STEPS)]
+    with torch.no_grad():  # the first batch's loss before and after: no batch noise
+        before = float(autoint.bce_loss(model, cfg, batches[0]))
+    state = opt.init_state(model)
+    step = steps.make_recsys_train_step(cfg)
+    losses, walls = timed_steps(f"{cfg.name} ({cfg.n_sparse * cfg.vocab_per_field:,} rows)",
+                                step, model, state, batches, sync)
+    with torch.no_grad():
+        after = float(autoint.bce_loss(model, cfg, batches[0]))
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    log(f"  {cfg.name}: the first batch's loss {before!r} before the steps, {after!r} after; "
+        f"mean step loss of the first 5 steps {first!r}, of the last 5 {last!r}; step wall "
+        f"median {float(np.median(walls[1:])):.3f} ms")
+    if not after < before:
+        raise AssertionError(f"{cfg.name}: the loss did not fall ({before} -> {after})")
+    out["d"] = {"losses": losses, "first_batch_loss": [before, after], "walls_ms": walls,
+                "median_ms": float(np.median(walls[1:]))}
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    # (e) train_lm: 8 steps against 4 + restore + 4, and the card's checkpoint on the CPU
+    kw = dict(steps=8, batch=2, seq=16, log_every=100, device=DEVICE)
+    full = train_lm("yi_6b", **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_lm("yi_6b", **{**kw, "steps": 4}, ckpt_dir=tmp, ckpt_every=4)
+        resumed = train_lm("yi_6b", **kw, ckpt_dir=tmp, ckpt_every=4)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(resumed["losses"], full["losses"][4:]))
+        like = train_state_tree(resumed["model"], resumed["opt_state"], resumed["model"].cfg)
+        got = CheckpointManager(tmp).restore(8, like, device="cpu")
+        flat = list(zip(tree_leaves(got), tree_leaves(like)))
+        exact = all(a.device.type == "cpu" and a.dtype == b.dtype and torch.equal(a, b)
+                    for a, b in flat)
+    log(f"  train_lm yi_6b smoke: losses 4-7 resumed {resumed['losses']} / uninterrupted "
+        f"{full['losses'][4:]} (rel {rel:.3e} <= 1e-4); the card's step-8 checkpoint "
+        f"restored on the CPU, {len(flat)} leaves bit-identical: {exact}")
+    if not (rel <= 1e-4 and exact and len(resumed["losses"]) == 4):
+        raise AssertionError(f"train_lm: the resumed run parts ({rel}) or the checkpoint "
+                             "restored on the CPU differs")
+    out["e"] = {"loss_rel": rel, "leaves": len(flat)}
+    return out
+
+
+def ring_attention_phase() -> tuple[dict, tuple]:
+    """[ring attention]: ``ring_attention`` at ``RING_ATTN`` (f32, causal)
+    sequential and on ``make_ring_mesh(n, devices=[cuda:0] * n)`` for n in
+    ``RING_WIDTHS``, each against ``chunked_attention`` on the same inputs
+    (rtol 2e-4, atol 2e-5, the reference test's tolerance), with TF32 off.
+    Returns the walls and the inputs (for the K6 wall beside them)."""
+    import torch
+
+    from repro_torch.launch import make_ring_mesh
+    from repro_torch.models.chunked_attention import chunked_attention
+    from repro_torch.models.ring_attention import ring_attention
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("TF32 is on: ring attention is held to f32 arithmetic")
+    b, h, s, d = (RING_ATTN[k] for k in ("b", "h", "s", "d"))
+    gen = torch.Generator(device=DEVICE).manual_seed(31)
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device=DEVICE) for _ in range(3))
+    sync = torch.cuda.synchronize if DEVICE == "cuda" else (lambda: None)
+
+    def wall(fn):
+        fn()  # warm-up (the stages' streams, the allocator's pools)
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    out = {}
+    with torch.no_grad():
+        want, out["chunked_ms"] = wall(lambda: chunked_attention(q, k, v, causal=True,
+                                                                 chunk_q=1024))
+        log(f"  chunked_attention (B {b}, H {h}, S {s}, D {d}, f32, causal): "
+            f"{out['chunked_ms']:.3f} ms")
+        for n in RING_WIDTHS:
+            for label, mesh in (("sequential", None),
+                                ("mesh", make_ring_mesh(n, devices=[DEVICE] * n))):
+                got, ms = wall(lambda: ring_attention(q, k, v, n_stages=n, mesh=mesh))
+                diff = (got - want).abs()
+                err = float(diff.max())
+                ok = bool((diff <= 2e-5 + 2e-4 * want.abs()).all()) and \
+                    bool(torch.isfinite(got).all())
+                log(f"  ring_attention {label:10s} {n} stages: {ms:.3f} ms, max abs err "
+                    f"{err:.3e} against chunked_attention (rtol 2e-4, atol 2e-5: {ok})")
+                if not ok:
+                    raise AssertionError(f"ring attention {label} at {n} stages: max abs "
+                                         f"err {err}")
+                out[f"{label}_{n}"] = {"ms": ms, "max_abs_err": err}
+                del got, diff
+    return out, (q, k, v)
+
+
+def ring_attention_beside_k6(out: dict, qkv) -> None:
+    """The tf32x3 K6 on [ring attention]'s inputs, its wall printed beside
+    the rings' (no claim: a comparison launch, outside the launch window)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention, kernel_route
+
+    q, k, v = qkv
+    with torch.no_grad():
+        route = kernel_route(q.dtype, q.shape[-1]) if DEVICE == "cuda" else "plain"
+        got = flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    out["k6"] = {"route": route, "ms": ms}
+    log(f"  K6 ({route}) on the same inputs: {ms:.3f} ms, finite: "
+        f"{bool(torch.isfinite(got).all())} (printed beside the rings, no claim)")
 
 
 # --------------------------------------------------------------------------
@@ -3285,6 +3646,47 @@ def probe_k6_mla() -> int:
     return 0
 
 
+def slice_phases() -> tuple[dict, dict]:
+    """[train] and [ring attention], each driven with the launch counts set
+    to 0 just before it and read just after: neither path reaches a
+    hand-written kernel (the reference trains through chunked attention
+    and the plain lookup, and its ring attention is two einsums), so every
+    count must stay 0. Then the tf32x3 K6 on the ring's inputs, outside
+    both windows."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.empty_cache()
+    results = []
+    for label, run in (("train", train_phase), ("ring attention", ring_attention_phase)):
+        t0 = time.perf_counter()
+        log(f"[{label}] " + {
+            "train": "the smoke configs on the card against the CPU port; Yi-6B at full "
+                     f"width, {TRAIN_YI_LAYERS} layers, f32, {TRAIN_STEPS} steps; "
+                     f"DeepSeek-V2-Lite at full width, {TRAIN_DS_LAYERS} layers (its MoE); "
+                     "AutoInt at its full table; train_lm's restart and checkpoint",
+            "ring attention": f"ring_attention at {RING_ATTN}, f32, causal, sequential and "
+                              f"on one-card meshes of {RING_WIDTHS} stages, against "
+                              "chunked_attention"}[label])
+        reset_launch_counts()
+        results.append(run())
+        torch.cuda.synchronize()
+        launched = {name: k for name, k in launch_counts().items() if k}
+        log(f"[{label}] kernel launches on this path: {launched or 'none'} (it reaches no "
+            f"hand-written kernel)")
+        if launched:
+            raise AssertionError(f"[{label}] launched {launched}: the path should reach no "
+                                 "hand-written kernel")
+        log(f"[{label}] done in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    train, (ring, qkv) = results
+    ring_attention_beside_k6(ring, qkv)
+    del qkv
+    torch.cuda.empty_cache()
+    return train, ring
+
+
 def main() -> int:
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
@@ -3310,6 +3712,13 @@ def main() -> int:
 
     if sys.argv[1:] == ["--probe"]:
         return probe_k2() or probe_k1() or probe_k6_tf32x3() or probe_k6_mla()
+    if sys.argv[1:] == ["--train"]:  # [train] and [ring attention] alone
+        log(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+        _build.build_all(["flash_attention_tf32x3_sm90"], verbose=True)
+        train, ring = slice_phases()
+        log("[train summary] " + json.dumps(train))
+        log("[ring attention summary] " + json.dumps(ring))
+        return 0
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t_all = time.perf_counter()
@@ -3433,6 +3842,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     profile_phase(graphs)
     log(f"[profile] done in {time.perf_counter() - t0:.1f} s")
+    del graphs
+    train, ring = slice_phases()
 
     out = []
     for name, k in kernels().items():
@@ -3482,6 +3893,8 @@ def main() -> int:
     log("[lm bf16 summary] " + json.dumps(lm_bf16["summary"]))
     log("[lm deepseek summary] " + json.dumps(lm_ds["summary"]))
     log("[recsys summary] " + json.dumps(recsys))
+    log("[train summary] " + json.dumps(train))
+    log("[ring attention summary] " + json.dumps(ring))
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": out}))
     print(card)

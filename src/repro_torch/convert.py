@@ -7,13 +7,20 @@ reference ``Plan`` crosses as its dict, since the port's
 (``Plan.from_dict(ref_plan.to_dict())``, and back the same way). The
 models' weights cross as the reference's parameter pytree with numpy
 leaves (``jax.tree.map(np.asarray, params)``): :func:`lm_params_from_numpy`
-and :func:`recsys_params_from_numpy`."""
+and :func:`recsys_params_from_numpy`, and back by :func:`lm_params_to_numpy`
+and :func:`recsys_params_to_numpy`, which also take a model's gradients or
+an optimizer's moments (a mapping of parameter names to tensors), so
+gradients, moments and checkpoints compare leaf by leaf. The ``*_to_tree``
+forms keep torch tensors (bf16 included) for checkpoints, and
+``*_into_`` loads a tree into an existing model or moments in place."""
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.graphs.formats import Graph
+from repro_torch.utils import tree_map
 
 
 def graph_from_arrays(n_nodes: int, edges) -> Graph:
@@ -27,26 +34,85 @@ def graph_from_arrays(n_nodes: int, edges) -> Graph:
 
 
 def _put(param: torch.Tensor, leaf, where: str, layer: int | None = None) -> None:
-    """Copy one numpy leaf (or its ``layer``-th slice) into ``param``,
-    keeping the parameter's dtype; raises on a missing or misshaped leaf."""
+    """Copy one leaf — a numpy array or a tensor — (or its ``layer``-th
+    slice) into ``param``, keeping the parameter's dtype and device; raises
+    on a missing or misshaped leaf."""
     if leaf is None:
         raise KeyError(f"the parameter tree has no leaf {where}")
-    a = np.asarray(leaf)
+    if not isinstance(leaf, torch.Tensor):
+        leaf = torch.from_numpy(np.array(leaf, dtype=np.float32))
     if layer is not None:
-        a = a[layer]
-    if tuple(a.shape) != tuple(param.shape):
-        raise ValueError(f"leaf {where}: shape {a.shape}, the port's parameter has "
+        leaf = leaf[layer]
+    if tuple(leaf.shape) != tuple(param.shape):
+        raise ValueError(f"leaf {where}: shape {tuple(leaf.shape)}, the port's parameter has "
                          f"{tuple(param.shape)}")
     with torch.no_grad():
-        param.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
+        param.copy_(leaf)
 
 
 def _get(tree: dict, *path):
     for key in path:
-        if not isinstance(tree, dict) or key not in tree:
+        if isinstance(tree, (list, tuple)) and isinstance(key, int) and key < len(tree):
+            tree = tree[key]
+        elif isinstance(tree, dict) and key in tree:
+            tree = tree[key]
+        else:
             return None
-        tree = tree[key]
     return tree
+
+
+def _set(tree: dict, path: tuple, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def _named(params) -> dict:
+    """A model's parameters by name, or a mapping of such names to tensors
+    (a model's gradients, an optimizer's moments) as it is."""
+    return dict(params.named_parameters()) if isinstance(params, nn.Module) else dict(params)
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    if t is None:
+        raise ValueError("a parameter has no tensor (a gradient never computed?)")
+    return t.detach().to("cpu", copy=True)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as numpy; bf16, which numpy lacks, widened (exactly) to f32."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _lm_place(cfg, name: str) -> tuple[tuple, int | None]:
+    """A port parameter name → (its path in the reference's LM tree, its
+    index on the stack's leading layer axis, or None off the stacks)."""
+    from repro_torch.models.transformer import _n_dense
+
+    parts = name.split(".")
+    if parts[0] != "layers":
+        return tuple(parts), None
+    i, n_dense = int(parts[1]), _n_dense(cfg)
+    stack, j = ("dense", i) if i < n_dense else ("moe_stack", i - n_dense)
+    return (stack, *parts[2:]), j
+
+
+def lm_params_into_(params, tree: dict, cfg) -> None:
+    """Copy the reference's LM tree (numpy or tensor leaves, the ``dense``
+    and ``moe_stack`` stacks with their leading layer axis) into ``params``
+    — a :class:`~repro_torch.models.transformer.Transformer` or a mapping
+    of its parameter names to tensors — in place, each tensor keeping its
+    dtype and device. Raises ``KeyError`` on a missing leaf and
+    ``ValueError`` on a misshaped one or a stack of the wrong depth."""
+    from repro_torch.models.transformer import _n_dense
+
+    n_dense = _n_dense(cfg)
+    for stack, n in (("dense", n_dense), ("moe_stack", cfg.n_layers - n_dense)):
+        if (ln := _get(tree, stack, "ln1")) is not None and len(ln) != n:
+            raise ValueError(f"the {stack} stack holds {len(ln)} layers, the config {n}")
+    for name, t in _named(params).items():
+        path, j = _lm_place(cfg, name)
+        _put(t, _get(tree, *path), ".".join(path), layer=j)
 
 
 def lm_params_from_numpy(tree: dict, cfg, *, device=None):
@@ -57,20 +123,53 @@ def lm_params_from_numpy(tree: dict, cfg, *, device=None):
     leaf (stacked expert weights keep their expert axis), weights keep their
     (in, out) orientation, norm scales and the router stay float32. Raises
     ``KeyError`` on a missing leaf and ``ValueError`` on a misshaped one."""
-    from repro_torch.models.transformer import Transformer, _n_dense
+    from repro_torch.models.transformer import Transformer
 
     model = Transformer(cfg, device=device)
-    n_dense = _n_dense(cfg)
-    for stack, n in (("dense", n_dense), ("moe_stack", cfg.n_layers - n_dense)):
-        if (ln := _get(tree, stack, "ln1")) is not None and len(ln) != n:
-            raise ValueError(f"the {stack} stack holds {len(ln)} layers, the config {n}")
-    for name in ("embed", "final_norm", "unembed"):
-        _put(getattr(model, name), _get(tree, name), name)
-    for i, blk in enumerate(model.layers):
-        stack, j = ("dense", i) if i < n_dense else ("moe_stack", i - n_dense)
-        for name, param in blk.named_parameters():
-            _put(param, _get(tree, stack, *name.split(".")), f"{stack}.{name}", layer=j)
+    lm_params_into_(model, tree, cfg)
     return model
+
+
+def lm_params_to_tree(params, cfg) -> dict:
+    """The inverse of :func:`lm_params_into_`: ``params`` (a
+    :class:`~repro_torch.models.transformer.Transformer`, or a mapping of its
+    parameter names to tensors — its gradients, an optimizer's moments) as
+    the reference's LM tree of host tensors, each layer's leaves stacked on
+    the ``dense`` or ``moe_stack`` layer axis, dtypes kept."""
+    tree, stacks = {}, {}
+    for name, t in _named(params).items():
+        path, j = _lm_place(cfg, name)
+        if j is None:
+            _set(tree, path, _host(t))
+        else:
+            stacks.setdefault(path, {})[j] = t
+    for path, layers in stacks.items():
+        _set(tree, path, torch.stack([_host(layers[j]) for j in range(len(layers))]))
+    return tree
+
+
+def lm_params_to_numpy(params, cfg) -> dict:
+    """:func:`lm_params_to_tree` with numpy leaves: the reference's LM
+    pytree (``jax.tree.map(np.asarray, params)``'s layout). bf16 leaves are
+    widened to float32, exactly."""
+    return tree_map(_numpy, lm_params_to_tree(params, cfg))
+
+
+def _recsys_path(name: str) -> tuple:
+    parts = name.split(".")
+    return ("attn", int(parts[1]), parts[2]) if parts[0] == "attn" else tuple(parts)
+
+
+def recsys_params_into_(params, tree: dict, cfg) -> None:
+    """Copy the reference's AutoInt tree (``table``, the ``attn`` list,
+    ``head`` and ``cand_proj``) into ``params`` (an
+    :class:`~repro_torch.models.recsys.autoint.AutoInt` or a mapping of its
+    parameter names to tensors), in place. Raises as :func:`lm_params_into_`."""
+    if len(tree.get("attn", ())) != cfg.n_attn_layers:
+        raise ValueError(f"the tree holds {len(tree.get('attn', ()))} attention layers, "
+                         f"the config {cfg.n_attn_layers}")
+    for name, t in _named(params).items():
+        _put(t, _get(tree, *_recsys_path(name)), name)
 
 
 def recsys_params_from_numpy(tree: dict, cfg, *, device=None):
@@ -80,14 +179,24 @@ def recsys_params_from_numpy(tree: dict, cfg, *, device=None):
     from repro_torch.models.recsys.autoint import AutoInt
 
     model = AutoInt(cfg, device=device)
-    if len(tree.get("attn", ())) != cfg.n_attn_layers:
-        raise ValueError(f"the tree holds {len(tree.get('attn', ()))} attention layers, "
-                         f"the config {cfg.n_attn_layers}")
-    for name, param in model.named_parameters():
-        path = name.split(".")
-        if path[0] == "attn":
-            leaf = _get(tree["attn"][int(path[1])], path[2])
-        else:
-            leaf = _get(tree, *path)
-        _put(param, leaf, name)
+    recsys_params_into_(model, tree, cfg)
     return model
+
+
+def recsys_params_to_tree(params, cfg) -> dict:
+    """The inverse of :func:`recsys_params_into_`: ``params`` (an AutoInt,
+    or a mapping of its parameter names to tensors) as the reference's
+    AutoInt tree of host tensors, ``attn`` a list of per-layer dicts."""
+    tree = {"attn": [{} for _ in range(cfg.n_attn_layers)]}
+    for name, t in _named(params).items():
+        path = _recsys_path(name)
+        if path[0] == "attn":
+            tree["attn"][path[1]][path[2]] = _host(t)
+        else:
+            _set(tree, path, _host(t))
+    return tree
+
+
+def recsys_params_to_numpy(params, cfg) -> dict:
+    """:func:`recsys_params_to_tree` with numpy leaves (bf16 widened to f32)."""
+    return tree_map(_numpy, recsys_params_to_tree(params, cfg))

@@ -39,6 +39,8 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.utils import tree_map
+
 
 @dataclasses.dataclass(frozen=True)
 class FilterSpec:
@@ -57,20 +59,26 @@ class FilterSpec:
     finalize: Callable[[Any], Any]
 
 
+def _stage(tree, s: int):
+    """Stage s's slice of every leaf of ``tree`` (leading axis n_stages)."""
+    return tree_map(lambda x: x[s], tree)
+
+
 def run_sequential(spec: FilterSpec, resident, stream, n_stages: int):
     """Paper-faithful single-process pipeline: stages visited in chain order.
 
-    ``resident`` and ``stream`` are tensors with leading axis ``n_stages``:
-    stage s specializes on ``resident[s]`` and consumes ``stream[t]`` for
-    every t, tagged with its source stage t. Returns the sum of the stages'
-    partials (a device tensor — no host sync)."""
+    ``resident`` and ``stream`` are tensors, or trees of tensors (dicts,
+    lists, tuples), whose leaves have leading axis ``n_stages``: stage s
+    specializes on ``resident``'s slice s and consumes ``stream``'s slice t
+    for every t, tagged with its source stage t. Returns the sum of the
+    stages' partials, leaf by leaf (device tensors — no host sync)."""
     total = None
     for s in range(n_stages):
-        state = spec.init(resident[s])
+        state = spec.init(_stage(resident, s))
         for t in range(n_stages):
-            state = spec.process(state, stream[t], t)
+            state = spec.process(state, _stage(stream, t), t)
         part = spec.finalize(state)
-        total = part if total is None else total + part
+        total = part if total is None else tree_map(torch.add, total, part)
     return total
 
 
@@ -146,13 +154,15 @@ class StageStreams:
             if ev is not None:
                 torch.cuda.current_stream(dev).wait_event(ev)
 
-    def send(self, x: torch.Tensor, s: int, d: int) -> torch.Tensor:
-        """``x`` (on stage s's device) on stage d's device, issued on stage
-        s's stream: a peer copy between two cards, the same tensor when the
-        two stages share one (the blocks are read-only). The receiving stage
-        waits on an event its sender records after this."""
+    def send(self, x, s: int, d: int):
+        """``x`` (a tensor on stage s's device, or a tree of them) on stage
+        d's device, issued on stage s's stream: a peer copy between two
+        cards, the same tensor when the two stages share one (the blocks are
+        read-only). The receiving stage waits on an event its sender records
+        after this."""
+        dev = self.mesh.devices[d]
         with self.on(s), self.on(d):
-            return x.to(self.mesh.devices[d], non_blocking=True)
+            return tree_map(lambda t: t.to(dev, non_blocking=True), x)
 
 
 def ring_stream(process: Callable[[Any, Any, int], Any], carries: list, blocks: list,
@@ -203,14 +213,15 @@ _SPEC_MEMO = 64
 class DynamicPipeline:
     """Execute a :class:`FilterSpec` over a 1-D ring mesh.
 
-    resident: tensor with leading axis n_stages — stage-local state source
-              (the filter's adjacency partition); ``resident[s]`` goes to
-              stage s's device.
-    stream:   tensor with leading axis n_stages — the blocks that flow
-              through every stage (the edge stream).
+    resident: tensor, or tree of tensors, with leading axis n_stages —
+              stage-local state source (the filter's adjacency partition);
+              slice s of every leaf goes to stage s's device.
+    stream:   tensor, or tree of tensors, with leading axis n_stages — the
+              blocks that flow through every stage (the edge stream).
 
-    ``run`` returns the sum of the stages' partials on stage 0's device,
-    issued on the caller's current stream after it waited on every stage.
+    ``run`` returns the sum of the stages' partials, leaf by leaf, on stage
+    0's device, issued on the caller's current stream after it waited on
+    every stage.
     """
 
     def __init__(self, mesh, axis_name: str = "stage", streams: StageStreams | None = None):
@@ -226,8 +237,9 @@ class DynamicPipeline:
         carries, blocks = [], []
         for s in range(self.n_stages):
             with st.on(s):
-                carries.append(spec.init(resident[s].to(devs[s], non_blocking=True)))
-                blocks.append(stream[s].to(devs[s], non_blocking=True))
+                put = lambda x, dev=devs[s]: x.to(dev, non_blocking=True)  # noqa: E731
+                carries.append(spec.init(tree_map(put, _stage(resident, s))))
+                blocks.append(tree_map(put, _stage(stream, s)))
         carries = ring_stream(spec.process, carries, blocks, mesh=self.mesh, streams=st)
         partials, done = [], []
         for s in range(self.n_stages):
@@ -237,7 +249,7 @@ class DynamicPipeline:
         st.end(done)
         total = partials[0]
         for p in partials[1:]:
-            total = total + p.to(devs[0], non_blocking=True)
+            total = tree_map(lambda a, b: a + b.to(devs[0], non_blocking=True), total, p)
         return total
 
     def jit(self, spec: FilterSpec) -> Callable:

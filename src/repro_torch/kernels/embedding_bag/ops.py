@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.kernels._build import CudaKernel
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.utils import records_grad
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 BAG = CudaKernel("embedding_bag", "eb_forward", [_P, _L, _I, _P, _L, _I, _P, _I],
@@ -22,10 +23,17 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     """Sum-mode EmbeddingBag: out[n] = Σ_l table[indices[n, l]] over the ids
     in [0, V), accumulated in float32 and cast to the table's dtype; an id
     ≥ V (the reference's sentinel) or < 0 is padding. table: (V, D) float32
-    or bfloat16; indices: (N, L), int32 on the card. Returns (N, D)."""
+    or bfloat16; indices: (N, L), int32 on the card. Returns (N, D).
+    Raises ``RuntimeError`` on either device when grad mode is on and the
+    table requires grad: the kernel has no backward."""
     if table.dim() != 2 or indices.dim() != 2:
         raise ValueError(f"expected table (V, D) and indices (N, L), got "
                          f"{tuple(table.shape)} and {tuple(indices.shape)}")
+    if records_grad(table, indices):
+        raise RuntimeError(
+            "embedding_bag has no backward (neither has the reference's kernel): call it "
+            "under torch.no_grad() or on a table that does not require grad, and train "
+            "through the plain lookup")
     dev = table.device
     if dev.type == "cpu" and indices.device == dev:
         return embedding_bag_ref(table, indices)

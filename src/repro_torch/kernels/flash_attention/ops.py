@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels._build import CudaKernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.utils import records_grad
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 FLASH = CudaKernel(
@@ -140,6 +141,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bases and strides. Anything else is copied contiguous first.
     At Dv == D the output has q's layout, so transposing it back to
     (B, S, Hq·D) is free.
+
+    Raises ``RuntimeError``, on the CPU and on the card alike, when grad
+    mode is on and an input requires grad: the kernel has no backward.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3] \
             or not 1 <= v.shape[3] <= q.shape[3] or q.shape[0] != k.shape[0] \
@@ -147,6 +151,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"expected q (B, Hq, S, D), k (B, Hkv, S, D) and v (B, Hkv, S, Dv) "
                          f"with Hq % Hkv == 0 and 1 <= Dv <= D, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if records_grad(q, k, v):
+        raise RuntimeError(
+            "flash_attention has no backward (neither has the reference's kernel): call it "
+            "under torch.no_grad() or on tensors that do not require grad, and train "
+            "through chunked_attention (use_flash=False)")
     dev = q.device
     if dev.type == "cpu" and k.device == dev and v.device == dev:
         return attention_ref(q, k, v, causal=causal)

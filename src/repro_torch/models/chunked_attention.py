@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.utils import records_grad
+
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, chunk_q: int = 1024,
@@ -16,30 +18,44 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Query rows go ``chunk_q`` at a time, each chunk a full-width softmax in
     float32 over its (chunk, S) scores, so live memory is O(chunk · S) and
-    not O(S²). The last chunk is ragged (the reference pads it)."""
+    not O(S²). The last chunk is ragged (the reference pads it). Where
+    autograd records no graph the scores are scaled, masked and
+    exponentiated in place; where it does, out of place (the row max is
+    held constant, the reference's ``stop_gradient``)."""
     b, hq, s, dk = q.shape
     hkv, dv = k.shape[1], v.shape[-1]
     group = hq // hkv
     if scale is None:
         scale = dk**-0.5
     cq = min(chunk_q, s)
+    inplace = not records_grad(q, k, v)
     qg = q.reshape(b, hkv, group, s, dk)      # fold q heads onto kv heads
     kt = k.unsqueeze(2).transpose(-1, -2)     # (B, Hkv, 1, Dk, S)
     vg = v.unsqueeze(2)                       # (B, Hkv, 1, S, Dv)
     if q.dtype != torch.float32:              # logits in f32, as the reference
         kt = kt.float()
-    out = torch.empty((b, hkv, group, s, dv), dtype=q.dtype, device=q.device)
+    out = (torch.empty((b, hkv, group, s, dv), dtype=q.dtype, device=q.device) if inplace
+           else None)
+    parts = []
     for i in range(0, s, cq):
         q_i = qg[:, :, :, i:i + cq]
-        logits = torch.matmul(q_i if q_i.dtype == kt.dtype else q_i.float(), kt).mul_(scale)
+        logits = torch.matmul(q_i if q_i.dtype == kt.dtype else q_i.float(), kt)
+        logits = logits.mul_(scale) if inplace else logits * scale
         if causal:
             rows = torch.arange(i, i + q_i.shape[3], device=q.device)[:, None]
             cols = torch.arange(s, device=q.device)[None, :]
-            logits.masked_fill_(rows < cols, -1e30)
-        p = logits.sub_(logits.amax(-1, keepdim=True)).exp_()
+            logits = (logits.masked_fill_(rows < cols, -1e30) if inplace
+                      else logits.masked_fill(rows < cols, -1e30))
+        m = logits.amax(-1, keepdim=True).detach()
+        p = logits.sub_(m).exp_() if inplace else torch.exp(logits - m)
         num = torch.matmul(p.to(v.dtype), vg)
         den = p.sum(-1, keepdim=True).to(v.dtype)
-        out[:, :, :, i:i + cq] = num / den.clamp_min(1e-30)
+        if inplace:
+            out[:, :, :, i:i + cq] = num / den.clamp_min(1e-30)
+        else:
+            parts.append((num / den.clamp_min(1e-30)).to(q.dtype))
+    if not inplace:
+        out = torch.cat(parts, dim=3)
     return out.reshape(b, hq, s, dv)
 
 

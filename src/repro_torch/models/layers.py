@@ -1,17 +1,18 @@
-"""Shared neural layers: RMSNorm, rotary embeddings, the LM's MLP.
+"""Shared neural layers: RMSNorm, rotary embeddings, the LM's MLP, and
+the cross-entropy losses.
 
 Functions on tensors, as in the reference (``repro/models/layers.py``); an
 MLP's weights live in an :class:`MLP` module whose parameter names are the
 reference's leaf names, in the (in, out) orientation that ``x @ W`` uses.
-The cross-entropy losses come with training (ROADMAP.md queue A item 6d).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.utils import resolve_device
+from repro_torch.utils import records_grad, resolve_device
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -116,3 +117,44 @@ def normal_(w: torch.Tensor, generator: torch.Generator, std: float) -> torch.Te
         return w.normal_(0.0, std, generator=generator)
     tmp = torch.empty(w.shape, dtype=torch.float32, device=w.device)
     return w.copy_(tmp.normal_(0.0, std, generator=generator))
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Token-mean cross-entropy in float32. logits: (..., V); labels: (...,)
+    integer ids in [0, V)."""
+    logits = logits.float()
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return torch.mean(torch.logsumexp(logits, dim=-1) - gold)
+
+
+def _ce_chunk_sum(xc: torch.Tensor, unembed: torch.Tensor, lc: torch.Tensor) -> torch.Tensor:
+    """Σ over one chunk's tokens with a label ≥ 0 of logsumexp − gold, the
+    (B, chunk, V) logits in float32."""
+    if xc.dtype == torch.float32 and unembed.dtype == torch.float32:
+        logits = xc @ unembed
+    else:  # accumulate in f32, the reference's preferred_element_type
+        logits = xc.float() @ unembed.float()
+    gold = logits.gather(-1, lc.clamp(min=0)[..., None])[..., 0]
+    per_token = torch.logsumexp(logits, dim=-1) - gold
+    return torch.where(lc >= 0, per_token, torch.zeros_like(per_token)).sum()
+
+
+def chunked_cross_entropy(x: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor,
+                          *, chunk: int = 512) -> torch.Tensor:
+    """Token-mean cross-entropy without ever holding the (B, S, V) logits.
+
+    x: (B, S, D) final hidden states; unembed: (D, V); labels: (B, S), a
+    label of -1 being padding that adds nothing to the sum (the mean still
+    divides by B·S, as the reference's). The sequence goes ``chunk`` tokens
+    at a time (the last chunk ragged, where the reference pads it); where
+    autograd records a graph each chunk is checkpointed, so the backward
+    pass recomputes its logits and at most a (B, chunk, V) block is live."""
+    b, s, _ = x.shape
+    labels = labels.long()
+    remat = records_grad(x, unembed)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, chunk):
+        xc, lc = x[:, i:i + chunk], labels[:, i:i + chunk]
+        total = total + (checkpoint(_ce_chunk_sum, xc, unembed, lc, use_reentrant=False)
+                         if remat else _ce_chunk_sum(xc, unembed, lc))
+    return total / (b * s)

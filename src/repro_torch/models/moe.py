@@ -24,7 +24,7 @@ from torch import nn
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.models.layers import MLP, activation, mlp_apply, normal_
-from repro_torch.utils import resolve_device
+from repro_torch.utils import records_grad, resolve_device
 
 
 class MoE(nn.Module):
@@ -75,13 +75,16 @@ def route(p: MoE, cfg: LMConfig, x: torch.Tensor):
     return scores, top_w / top_w.sum(-1, keepdim=True), top_i
 
 
-@torch.no_grad()
 def moe_apply(p: MoE, cfg: LMConfig, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (T, D) flattened tokens → (y (T, D) in x's dtype, aux loss: a
-    float32 scalar E · Σ_e density_e · prob_e)."""
+    float32 scalar E · Σ_e density_e · prob_e). Differentiable where grad
+    mode is on and x or a weight requires grad (the densities are counts,
+    constant as in the reference); otherwise each expert's output is
+    written straight into its rows of the sorted output."""
     t, d = x.shape
     e, k = cfg.moe.n_routed, cfg.moe.top_k
     act = activation(cfg.act)
+    grad = records_grad(x, *p.parameters())
     scores, top_w, top_i = route(p, cfg, x)
 
     # sort-based dispatch: slot s is token s // k's copy for its (s % k)-th expert
@@ -92,18 +95,25 @@ def moe_apply(p: MoE, cfg: LMConfig, x: torch.Tensor) -> tuple[torch.Tensor, tor
     # its input's min and max to the host, two more syncs
     counts = torch.zeros(e, dtype=torch.long, device=x.device).scatter_add_(
         0, flat_e, torch.ones_like(flat_e))
-    y_sorted = torch.empty_like(xs)
-    start = 0
+    y_sorted = None if grad else torch.empty_like(xs)
+    parts, start = [], 0
     for i, n in enumerate(counts.tolist()):  # the one host sync of the layer
         if n:
             rows = xs[start:start + n]
             h = act(rows @ p.w_gate[i]) * (rows @ p.w_up[i])
-            torch.matmul(h.to(xs.dtype), p.w_down[i], out=y_sorted[start:start + n])
+            if grad:  # autograd refuses out=
+                parts.append(torch.matmul(h.to(xs.dtype), p.w_down[i]))
+            else:
+                torch.matmul(h.to(xs.dtype), p.w_down[i], out=y_sorted[start:start + n])
             start += n
 
     # unsort, then the weighted combine over the k copies in y's dtype
-    y_slots = torch.empty_like(y_sorted)
-    y_slots[order] = y_sorted
+    if grad:
+        y_sorted = torch.cat(parts)
+        y_slots = torch.empty_like(y_sorted).index_copy(0, order, y_sorted)
+    else:
+        y_slots = torch.empty_like(y_sorted)
+        y_slots[order] = y_sorted
     y = (y_slots.reshape(t, k, d) * top_w[..., None].to(y_slots.dtype)).sum(1)
     if p.shared is not None:
         y = y + mlp_apply(p.shared, x, cfg.act)

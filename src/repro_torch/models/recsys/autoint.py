@@ -1,8 +1,9 @@
 """AutoInt [arXiv:1810.11921]: field embeddings → multi-head self-attention
 interaction layers (residual) → MLP head → CTR logit; and the retrieval
-score of queries against N candidates as one batched product. The
-reference is ``repro/models/recsys/autoint.py``; ``bce_loss`` comes with
-training (ROADMAP.md queue A item 6d)."""
+score of queries against N candidates as one batched product, and the
+training loss ``bce_loss``. The reference is ``repro/models/recsys/
+autoint.py``. The functions follow the caller's grad mode (the weights are
+created with ``requires_grad=False``; a train step turns it on)."""
 from __future__ import annotations
 
 import torch
@@ -74,7 +75,6 @@ def _interact(layers: nn.ModuleList, e: torch.Tensor, n_heads: int, d_attn: int)
     return e
 
 
-@torch.no_grad()
 def user_repr(model: AutoInt, cfg: RecsysConfig, sparse_ids: torch.Tensor) -> torch.Tensor:
     """(B, n_sparse) ids → flattened interaction representation (B, d_flat)."""
     e = lookup(model.table, cfg, sparse_ids)
@@ -82,12 +82,21 @@ def user_repr(model: AutoInt, cfg: RecsysConfig, sparse_ids: torch.Tensor) -> to
     return z.reshape(z.shape[0], -1)
 
 
-@torch.no_grad()
 def ctr_logits(model: AutoInt, cfg: RecsysConfig, sparse_ids: torch.Tensor) -> torch.Tensor:
     return mlp_apply(model.head, user_repr(model, cfg, sparse_ids), act=F.relu)[:, 0]
 
 
-@torch.no_grad()
+def bce_loss(model: AutoInt, cfg: RecsysConfig, batch: dict) -> torch.Tensor:
+    """Mean binary cross-entropy with logits of ``batch`` (``"sparse_ids"``
+    (B, n_sparse), ``"labels"`` (B,) in {0, 1}; tensors or numpy arrays),
+    in the reference's stable form max(z, 0) − z·y + log1p(e^−|z|)."""
+    dev = model.table.device
+    logits = ctr_logits(model, cfg, torch.as_tensor(batch["sparse_ids"], device=dev)).float()
+    y = torch.as_tensor(batch["labels"], device=dev).float()
+    return torch.mean(torch.clamp(logits, min=0) - logits * y
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
 def retrieval_scores(model: AutoInt, cfg: RecsysConfig, sparse_ids: torch.Tensor,
                      candidates: torch.Tensor) -> torch.Tensor:
     """Score queries against (N_cand, embed_dim) candidates: one

@@ -2,7 +2,10 @@
 :class:`nn.Module` holding the layers in a ``ModuleList``, and beside it the
 reference's entry points (``repro/models/transformer.py``) as functions
 that take the model: ``init_params``, ``hidden``, ``forward``,
-``cache_init``, ``prefill``, ``decode_step``.
+``loss_fn``, ``cache_init``, ``prefill``, ``decode_step``. ``hidden``,
+``forward`` and ``loss_fn`` follow the caller's grad mode (the weights are
+created with ``requires_grad=False``; a train step turns it on for the
+model it trains); the serving entry points run without grad.
 
 Where the reference scans a stacked layer axis, the port loops over its
 layers: an MoE model's first ``n_dense_layers`` blocks hold an MLP and the
@@ -13,19 +16,30 @@ S_max, hd), "v": ...}}``; MLA's ``{"c": (L, B, S_max, r), "kr": (L, B,
 S_max, dr)}``, and an MoE model's ``"moe_stack"`` beside ``"dense"``) and
 is written in place: ``prefill`` fills a fresh one, ``decode_step`` writes
 one position of the cache it is given and returns that same cache. The
-expert-parallel MoE comes with the mesh (ROADMAP.md queue A item 6e), the
-training losses with training (item 6d).
+expert-parallel MoE comes with the ``("data", "model")`` mesh (ROADMAP.md
+queue A item 6e).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import MLP, mlp_apply, normal_, rms_norm, rotary_cos_sin
+from repro_torch.models.layers import (
+    MLP,
+    chunked_cross_entropy,
+    cross_entropy,
+    mlp_apply,
+    normal_,
+    rms_norm,
+    rotary_cos_sin,
+)
 from repro_torch.models.moe import MoE, moe_apply
 from repro_torch.utils import resolve_device
+
+AUX_COEF = 0.001  # the MoE load-balance loss's weight in loss_fn
 
 
 def _is_mla(cfg: LMConfig) -> bool:
@@ -132,28 +146,57 @@ def _positions(start, n: int, device) -> torch.Tensor:
     return torch.arange(start, start + n, device=device)
 
 
-@torch.no_grad()
 def hidden(model: Transformer, cfg: LMConfig, tokens: torch.Tensor, *,
-           use_flash: bool = False, chunk_q: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
+           use_flash: bool = False, chunk_q: int = 1024,
+           remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) → (final-norm hidden (B, S, D), the MoE layers'
-    summed aux loss, a float32 scalar: 0 for a dense model)."""
+    summed aux loss, a float32 scalar: 0 for a dense model).
+
+    Follows the caller's grad mode. ``remat=True`` checkpoints each block
+    (``torch.utils.checkpoint``, non-reentrant): the backward pass
+    recomputes a block's activations from its input, as the reference's
+    ``jax.checkpoint`` on the block."""
     x = model.embed[tokens.long()]
     cos, sin = rotary_cos_sin(_positions(0, tokens.shape[1], x.device), _rope_dim(cfg),
                               cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in model.layers:
-        x, a = _block(cfg, blk, x, cos, sin, use_flash=use_flash, chunk_q=chunk_q)
+        if remat and torch.is_grad_enabled():
+            x, a = checkpoint(_block, cfg, blk, x, cos, sin, use_flash=use_flash,
+                              chunk_q=chunk_q, use_reentrant=False)
+        else:
+            x, a = _block(cfg, blk, x, cos, sin, use_flash=use_flash, chunk_q=chunk_q)
         if a is not None:
             aux = aux + a
     return rms_norm(x, model.final_norm.to(x.dtype), cfg.norm_eps), aux
 
 
-@torch.no_grad()
 def forward(model: Transformer, cfg: LMConfig, tokens: torch.Tensor, *,
-            use_flash: bool = False, chunk_q: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
+            use_flash: bool = False, chunk_q: int = 1024,
+            remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) → (logits (B, S, V) in float32, aux loss)."""
-    x, aux = hidden(model, cfg, tokens, use_flash=use_flash, chunk_q=chunk_q)
+    x, aux = hidden(model, cfg, tokens, use_flash=use_flash, chunk_q=chunk_q, remat=remat)
     return (x @ model.unembed).float(), aux
+
+
+def loss_fn(model: Transformer, cfg: LMConfig, batch: dict, *, use_flash: bool = False,
+            chunk_q: int = 1024, remat: bool = False,
+            ce_chunk: int | None = None) -> torch.Tensor:
+    """Token-mean next-token cross-entropy of ``batch`` (``"tokens"`` and
+    ``"labels"``, (B, S) each, tensors or numpy arrays) plus ``AUX_COEF``
+    times the MoE aux loss, a float32 scalar on the model's device.
+    ``ce_chunk=None`` computes the full (B, S, V) logits; an int uses
+    :func:`~repro_torch.models.layers.chunked_cross_entropy`, which never
+    holds more than a (B, ce_chunk, V) block of them."""
+    dev = model.device
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    labels = torch.as_tensor(batch["labels"], device=dev)
+    if ce_chunk:
+        x, aux = hidden(model, cfg, tokens, use_flash=use_flash, chunk_q=chunk_q, remat=remat)
+        return chunked_cross_entropy(x, model.unembed, labels, chunk=ce_chunk) + AUX_COEF * aux
+    logits, aux = forward(model, cfg, tokens, use_flash=use_flash, chunk_q=chunk_q,
+                          remat=remat)
+    return cross_entropy(logits, labels) + AUX_COEF * aux
 
 
 def cache_init(cfg: LMConfig, batch: int, s_max: int, dtype=torch.float32, *,

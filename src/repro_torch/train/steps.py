@@ -1,0 +1,129 @@
+"""Train and serve step builders per architecture family, the port of
+``repro/train/steps.py``.
+
+Each builder closes over the static config and returns
+``step(model, opt_state, batch) -> (model, opt_state, metrics)`` (train) or
+the serving equivalent. A train step turns ``requires_grad`` on for the
+model it trains, takes the loss's gradient with ``torch.autograd.grad``
+(a parameter the loss does not reach gets zeros, as ``jax.grad`` gives)
+and applies :func:`~repro_torch.train.optimizer.update` in place: the
+returned model and state are the ones passed in. ``metrics["loss"]`` stays
+a 0-d tensor on the model's device, so a step never waits for the card.
+Batches may be numpy arrays (``data.pipeline``'s) or tensors.
+
+The reference's ``mesh``, ``seq_parallel`` and ``grad_specs`` shard a step
+over a ``("data", "model")`` mesh (ROADMAP.md queue A item 6e); the GNN
+losses come with the GNNs (item 6c). Both raise here.
+"""
+from __future__ import annotations
+
+from functools import partial
+from typing import Callable
+
+import torch
+
+from repro_torch.configs.base import LMConfig, RecsysConfig
+from repro_torch.models import transformer as tf
+from repro_torch.models.recsys import autoint
+from repro_torch.train import optimizer as opt
+
+
+def _no_mesh(what: str, **kwargs) -> None:
+    given = [k for k, v in kwargs.items() if v not in (None, False)]
+    if given:
+        raise NotImplementedError(
+            f"{what}: {', '.join(given)} shard the step over a ('data', 'model') mesh, which "
+            "is not in the port yet: ROADMAP.md queue A item 6e ports it; the step runs on "
+            "one device")
+
+
+def _train_step(loss: Callable, opt_cfg: opt.AdamWConfig) -> Callable:
+    def step(model, opt_state, batch):
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.requires_grad_(True)
+        with torch.enable_grad():
+            l = loss(model, batch=batch)
+            grads = torch.autograd.grad(l, list(params.values()), allow_unused=True,
+                                        materialize_grads=True)
+        opt.update(params, dict(zip(params, grads)), opt_state, opt_cfg)
+        return model, opt_state, {"loss": l.detach()}
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# LM
+# ---------------------------------------------------------------------------
+def make_lm_train_step(cfg: LMConfig, opt_cfg: opt.AdamWConfig | None = None,
+                       *, chunk_q: int = 1024, remat: bool = True,
+                       ce_chunk: int | None = None, mesh=None,
+                       seq_parallel: bool = False, grad_specs=None) -> Callable:
+    """One AdamW step on ``tf.loss_fn`` (chunked attention; ``remat``
+    checkpoints each block; ``ce_chunk`` the chunked cross-entropy)."""
+    _no_mesh("make_lm_train_step", mesh=mesh, seq_parallel=seq_parallel,
+             grad_specs=grad_specs)
+    loss = partial(tf.loss_fn, cfg=cfg, chunk_q=chunk_q, remat=remat, ce_chunk=ce_chunk)
+    return _train_step(loss, opt_cfg or opt.AdamWConfig())
+
+
+def make_lm_prefill(cfg: LMConfig, s_max: int, *, chunk_q: int = 1024, mesh=None,
+                    seq_parallel: bool = False, cache_dtype=None) -> Callable:
+    _no_mesh("make_lm_prefill", mesh=mesh, seq_parallel=seq_parallel)
+    cache_dtype = cache_dtype or torch.float32
+
+    def step(model, tokens):
+        return tf.prefill(model, cfg, torch.as_tensor(tokens, device=model.device), s_max,
+                          chunk_q=chunk_q, cache_dtype=cache_dtype)
+
+    return step
+
+
+def make_lm_serve_step(cfg: LMConfig) -> Callable:
+    def step(model, cache, token, cur_len):
+        return tf.decode_step(model, cfg, cache, torch.as_tensor(token, device=model.device),
+                              cur_len)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# GNN
+# ---------------------------------------------------------------------------
+def gnn_loss(*args, **kwargs):
+    raise NotImplementedError(
+        "the GNN losses need the GNN models, which are not in the port yet: ROADMAP.md "
+        "queue A item 6c ports them")
+
+
+def make_gnn_train_step(*args, **kwargs):
+    return gnn_loss(*args, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Recsys
+# ---------------------------------------------------------------------------
+def make_recsys_train_step(cfg: RecsysConfig,
+                           opt_cfg: opt.AdamWConfig | None = None) -> Callable:
+    """One AdamW step (no weight decay by default) on ``autoint.bce_loss``."""
+    return _train_step(partial(autoint.bce_loss, cfg=cfg),
+                       opt_cfg or opt.AdamWConfig(weight_decay=0.0))
+
+
+def make_recsys_serve_step(cfg: RecsysConfig) -> Callable:
+    @torch.no_grad()
+    def step(model, sparse_ids):
+        ids = torch.as_tensor(sparse_ids, device=model.table.device)
+        return torch.sigmoid(autoint.ctr_logits(model, cfg, ids))
+
+    return step
+
+
+def make_recsys_retrieval_step(cfg: RecsysConfig) -> Callable:
+    @torch.no_grad()
+    def step(model, sparse_ids, candidates):
+        dev = model.table.device
+        return autoint.retrieval_scores(model, cfg, torch.as_tensor(sparse_ids, device=dev),
+                                        torch.as_tensor(candidates, device=dev))
+
+    return step

@@ -1,8 +1,10 @@
-"""Small shared utilities: the count dtype, device resolution and the
-serving tier's exception-propagating thread."""
+"""Small shared utilities: the count dtype, device resolution, the
+serving tier's exception-propagating thread, and a map over trees of
+tensors (nested dicts, lists and tuples: the reference's pytrees)."""
 from __future__ import annotations
 
 import threading
+from typing import Any, Callable
 
 import torch
 
@@ -45,3 +47,33 @@ class PropagatingThread(threading.Thread):
         exc, self._exc = getattr(self, "_exc", None), None
         if exc is not None:
             raise exc
+
+
+def records_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a graph through an op on ``tensors``: grad
+    mode is on and one of them requires grad. Where it does not, a function
+    may work in place (autograd's version check refuses in-place writes to
+    tensors a graph saved, and ``out=`` outright)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` applied leaf by leaf to ``tree`` and the trees in ``rest``,
+    which share its structure. Dicts, lists and tuples are nodes (a dict's
+    keys are taken from ``tree``); anything else — a tensor, an array, a
+    number, None — is a leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+        if isinstance(tree, list):
+            return out
+        return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(out)
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves of ``tree`` in :func:`tree_map`'s order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out

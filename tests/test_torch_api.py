@@ -218,6 +218,10 @@ def test_import_repro_torch_pulls_in_neither_jax_nor_repro():
         "import repro_torch.models.transformer, repro_torch.models.recsys.embedding\n"
         "import repro_torch.models.recsys.autoint, repro_torch.models.gnn.common\n"
         "import repro_torch.kernels.flash_attention, repro_torch.kernels.embedding_bag\n"
+        "import repro_torch.models.ring_attention, repro_torch.launch.train\n"
+        "import repro_torch.train.optimizer, repro_torch.train.compression\n"
+        "import repro_torch.train.checkpoint, repro_torch.train.steps\n"
+        "import repro_torch.data.pipeline\n"
         "from repro_torch.api import SessionCheckpoint, StreamSession, TriangleCounter\n"
         "from repro_torch.kernels.bitset_count import bitset_pair_count\n"
         "import numpy as np, tempfile, os\n"

@@ -1250,3 +1250,100 @@ def test_the_routers_verdicts_are_card_workers_own_under_the_reserve(cuda, tmp_p
         assert all(r.plan.n_stages == 1 for r in results)
         assert {r.stats["worker"] for r in results} == {0, 1}
         assert router.charged_bytes() == [0, 0]
+
+
+# --------------------------------------------------------------------------
+# Training and ring attention on the card
+# --------------------------------------------------------------------------
+def test_k6_and_k7_refuse_inputs_that_require_grad_on_the_card(cuda):
+    """The kernels have no backward: on the card they raise rather than hand
+    back an output with no graph."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((1, 4, 128, 128), generator=gen, device=cuda) for _ in range(3))
+    before = launch_counts()
+    for x in (q, k, v):
+        x.requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            flash_attention(q, k, v)
+        x.requires_grad_(False)
+    table = torch.randn((100, 16), device=cuda, requires_grad=True)
+    ids = torch.zeros((8, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        embedding_bag(table, ids)
+    assert launch_counts() == before  # nothing launched
+    with torch.no_grad():
+        q.requires_grad_(True)
+        assert flash_attention(q, k, v).shape == q.shape
+        assert embedding_bag(table, ids).shape == (8, 16)
+
+
+def _leaf_rel(got: dict, want: dict) -> float:
+    return max(float(torch.linalg.vector_norm(got[n].detach().cpu() - w.detach())
+                     / torch.linalg.vector_norm(w.detach())) for n, w in want.items())
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "deepseek_v2_lite_16b", "autoint"])
+def test_train_steps_on_the_card_match_the_cpu_port(cuda, arch):
+    """Three steps from the same weights: losses and every parameter leaf
+    within 1e-4 relative (a leaf by its norm)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import LMTokenPipeline, RecsysPipeline
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.recsys import autoint
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps
+
+    cfg = get_smoke(arch)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    if arch == "autoint":
+        m_dev = autoint.init_params(gen, cfg, device=cuda)
+        m_cpu = autoint.AutoInt(cfg, device="cpu")
+        step = steps.make_recsys_train_step(cfg)
+        pipe = RecsysPipeline(cfg, 64, seed=1)
+    else:
+        m_dev = tf.init_params(gen, cfg, device=cuda)
+        m_cpu = tf.Transformer(cfg, device="cpu")
+        step = steps.make_lm_train_step(cfg, chunk_q=8, remat=True, ce_chunk=8)
+        pipe = LMTokenPipeline(cfg, 2, 21, seed=1)
+    m_cpu.load_state_dict({k: v.cpu() for k, v in m_dev.state_dict().items()})
+    s_dev, s_cpu = opt.init_state(m_dev), opt.init_state(m_cpu)
+    assert s_dev["step"].device.type == "cuda"
+    for i in range(3):
+        m_dev, s_dev, a = step(m_dev, s_dev, pipe.batch_at(i))
+        m_cpu, s_cpu, b = step(m_cpu, s_cpu, pipe.batch_at(i))
+        assert a["loss"].device.type == "cuda"
+        assert abs(a["loss"].item() - b["loss"].item()) <= 1e-4 * abs(b["loss"].item())
+    assert _leaf_rel(dict(m_dev.named_parameters()), dict(m_cpu.named_parameters())) <= 1e-4
+
+
+def test_train_lm_resumes_on_the_card_and_its_checkpoint_restores_on_the_cpu(cuda, tmp_path):
+    from repro_torch.launch.train import train_lm, train_state_tree
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.utils import tree_leaves
+
+    kw = dict(steps=6, batch=2, seq=16, log_every=100, device="cuda")
+    full = train_lm("yi_6b", **kw)
+    train_lm("yi_6b", **{**kw, "steps": 3}, ckpt_dir=str(tmp_path), ckpt_every=3)
+    resumed = train_lm("yi_6b", **kw, ckpt_dir=str(tmp_path), ckpt_every=3)
+    np.testing.assert_allclose(resumed["losses"], full["losses"][3:], rtol=1e-4)
+    like = train_state_tree(resumed["model"], resumed["opt_state"], resumed["model"].cfg)
+    got = CheckpointManager(str(tmp_path)).restore(6, like, device="cpu")
+    for a, b in zip(tree_leaves(got), tree_leaves(like)):
+        assert a.device.type == "cpu" and a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_stages", [2, 4, 8])
+def test_ring_attention_on_a_one_card_mesh_matches_chunked_attention(cuda, n_stages):
+    from repro_torch.launch import make_ring_mesh
+    from repro_torch.models.chunked_attention import chunked_attention
+    from repro_torch.models.ring_attention import ring_attention
+
+    gen = torch.Generator(device=cuda).manual_seed(n_stages)
+    q, k, v = (torch.randn((2, 4, 512, 64), generator=gen, device=cuda) for _ in range(3))
+    mesh = make_ring_mesh(n_stages, devices=[cuda] * n_stages)
+    with torch.no_grad():
+        want = chunked_attention(q, k, v, causal=True, chunk_q=128)
+        for m in (None, mesh):
+            for _ in range(3):  # back to back, no synchronisation between the runs
+                got = ring_attention(q, k, v, n_stages=n_stages, mesh=m)
+            torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
