@@ -45,10 +45,12 @@ def train_lm(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 64,
              device=None) -> dict:
     """Train ``arch`` for ``steps`` steps (from the latest checkpoint in
     ``ckpt_dir`` when ``restore``), saving every ``ckpt_every`` steps and
-    at the end. Returns ``{"losses": [float per step run], "model",
-    "opt_state", "final_loss"}``. Weights are drawn from ``seed`` on
-    ``device`` (default cuda); the step is the reference's
-    (``chunk_q=min(seq, 512)``, no remat, full cross-entropy)."""
+    at the end. Returns the reference's ``{"losses": [float per step run],
+    "params", "final_loss"}``, ``"params"`` the reference's LM tree
+    (``convert.lm_params_to_tree``: one host copy, taken at the end), and
+    beside them the trained ``"model"`` and its ``"opt_state"``. Weights
+    are drawn from ``seed`` on ``device`` (default cuda); the step is the
+    reference's (``chunk_q=min(seq, 512)``, no remat, full cross-entropy)."""
     dev = resolve_device(device)
     cfg = get_config(arch) if full else get_smoke(arch)
     pipe = LMTokenPipeline(cfg, batch, seq, seed=seed)
@@ -79,8 +81,8 @@ def train_lm(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 64,
             mgr.save(step + 1, train_state_tree(model, opt_state, cfg))
     if mgr:
         mgr.save(steps, train_state_tree(model, opt_state, cfg), blocking=True)
-    return {"losses": losses, "model": model, "opt_state": opt_state,
-            "final_loss": losses[-1] if losses else None}
+    return {"losses": losses, "params": lm_params_to_tree(model, cfg), "model": model,
+            "opt_state": opt_state, "final_loss": losses[-1] if losses else None}
 
 
 def main(argv=None) -> None:

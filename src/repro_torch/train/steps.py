@@ -4,7 +4,9 @@
 Each builder closes over the static config and returns
 ``step(model, opt_state, batch) -> (model, opt_state, metrics)`` (train) or
 the serving equivalent. A train step turns ``requires_grad`` on for the
-model it trains, takes the loss's gradient with ``torch.autograd.grad``
+model it trains while it takes the loss's gradient with
+``torch.autograd.grad``, and leaves each flag as it found it (also when
+the loss raises)
 (a parameter the loss does not reach gets zeros, as ``jax.grad`` gives)
 and applies :func:`~repro_torch.train.optimizer.update` in place: the
 returned model and state are the ones passed in. ``metrics["loss"]`` stays
@@ -40,12 +42,17 @@ def _no_mesh(what: str, **kwargs) -> None:
 def _train_step(loss: Callable, opt_cfg: opt.AdamWConfig) -> Callable:
     def step(model, opt_state, batch):
         params = dict(model.named_parameters())
-        for p in params.values():
-            p.requires_grad_(True)
-        with torch.enable_grad():
-            l = loss(model, batch=batch)
-            grads = torch.autograd.grad(l, list(params.values()), allow_unused=True,
-                                        materialize_grads=True)
+        flags = {name: p.requires_grad for name, p in params.items()}
+        try:
+            for p in params.values():
+                p.requires_grad_(True)
+            with torch.enable_grad():
+                l = loss(model, batch=batch)
+                grads = torch.autograd.grad(l, list(params.values()), allow_unused=True,
+                                            materialize_grads=True)
+        finally:  # serving after a step (K6, K7) needs the weights as they were
+            for name, p in params.items():
+                p.requires_grad_(flags[name])
         opt.update(params, dict(zip(params, grads)), opt_state, opt_cfg)
         return model, opt_state, {"loss": l.detach()}
 

@@ -53,11 +53,12 @@ from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E40
 from repro_torch.launch.train import train_lm  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
-from repro_torch.models.recsys import autoint  # noqa: E402
+from repro_torch.models.recsys import autoint, embedding  # noqa: E402
 from repro_torch.train import compression as comp  # noqa: E402
 from repro_torch.train import optimizer as opt  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
 from repro_torch.train.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.utils import tree_leaves, tree_map  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ["yi_6b", "granite_8b", "nemotron_4_15b", "deepseek_v2_lite_16b", "deepseek_v2_236b"]
@@ -566,7 +567,7 @@ def test_three_lm_train_steps_match_reference(arch):
         out_model, state, m = step(model, state, batch)
         assert out_model is model and m["loss"].dim() == 0 and not m["loss"].requires_grad
         np.testing.assert_allclose(m["loss"].item(), float(ref_m["loss"]), rtol=LOSS_RTOL)
-    assert all(p.requires_grad for p in model.parameters())
+    assert not any(p.requires_grad for p in model.parameters())  # as it found them (C1)
     _trees_close(lm_params_to_numpy(model, pcfg), _np_tree(params), STEP_LEAF_TOL)
     _trees_close(lm_params_to_numpy(state["m"], pcfg), _np_tree(ref_state["m"]), STEP_LEAF_TOL)
 
@@ -596,6 +597,52 @@ def test_three_recsys_train_steps_and_the_serve_steps_match_reference(rec):
         ref_retrieval(params, ids, cand), rtol=1e-4, atol=1e-5)
 
 
+def _raise(*args, **kwargs):
+    raise RuntimeError("a loss that fails")
+
+
+def test_a_train_step_leaves_requires_grad_as_it_found_it(rec, monkeypatch):
+    """C1 (ROADMAP.md §C): after one LM and one recsys train step every
+    weight's ``requires_grad`` is what it was before (a mixed set of flags
+    included), also when the loss raises; then the flash forward (K6's
+    plain version here) and K7's lookup run, and equal a fresh model's
+    loaded with the trained weights."""
+    cfg, params, pcfg = _lm_case("yi_6b")
+    model = lm_params_from_numpy(_np_tree(params), pcfg, device="cpu")
+    model.embed.requires_grad_(True)
+    before = {n: p.requires_grad for n, p in model.named_parameters()}
+    state = opt.init_state(model)
+    steps.make_lm_train_step(pcfg, chunk_q=8)(model, state, _lm_batch(cfg, 4))
+    assert {n: p.requires_grad for n, p in model.named_parameters()} == before
+    model.embed.requires_grad_(False)
+    tokens = torch.from_numpy(_lm_batch(cfg, 5)["tokens"])
+    got, _ = tf.forward(model, pcfg, tokens, use_flash=True, chunk_q=8)
+    fresh = lm_params_from_numpy(lm_params_to_numpy(model, pcfg), pcfg, device="cpu")
+    want, _ = tf.forward(fresh, pcfg, tokens, use_flash=True, chunk_q=8)
+    assert not got.requires_grad and torch.equal(got, want)
+
+    rcfg, rparams, rpcfg = rec
+    rmodel = recsys_params_from_numpy(_np_tree(rparams), rpcfg, device="cpu")
+    rstate = opt.init_state(rmodel)
+    batch = pipeline.RecsysPipeline(rpcfg, 8, seed=2).batch_at(0)
+    steps.make_recsys_train_step(rpcfg)(rmodel, rstate, batch)
+    assert not any(p.requires_grad for p in rmodel.parameters())
+    bags = torch.from_numpy(np.random.default_rng(6).integers(
+        0, rpcfg.vocab_per_field + 3, (4, rpcfg.n_sparse, 3)))
+    got = embedding.lookup_multihot(rmodel.table, rpcfg, bags, use_kernel=True)
+    rfresh = recsys_params_from_numpy(recsys_params_to_numpy(rmodel, rpcfg), rpcfg,
+                                      device="cpu")
+    assert torch.equal(got, embedding.lookup_multihot(rfresh.table, rpcfg, bags,
+                                                      use_kernel=True))
+    assert not autoint.ctr_logits(rmodel, rpcfg, torch.from_numpy(
+        batch["sparse_ids"])).requires_grad
+
+    monkeypatch.setattr(autoint, "bce_loss", _raise)
+    with pytest.raises(RuntimeError, match="a loss that fails"):
+        steps.make_recsys_train_step(rpcfg)(rmodel, rstate, batch)
+    assert not any(p.requires_grad for p in rmodel.parameters())
+
+
 def test_lm_prefill_and_serve_steps_match_reference():
     cfg, params, pcfg = _lm_case("yi_6b")
     model = lm_params_from_numpy(_np_tree(params), pcfg, device="cpu")
@@ -617,9 +664,6 @@ def test_mesh_arguments_and_gnn_steps_raise_naming_their_items():
             steps.make_lm_train_step(cfg, **kw)
     with pytest.raises(NotImplementedError, match="item 6e"):
         steps.make_lm_prefill(cfg, 8, mesh=object())
-    for fn in (steps.gnn_loss, steps.make_gnn_train_step):
-        with pytest.raises(NotImplementedError, match="item 6c"):
-            fn(None, None)
 
 
 def _drop_step(directory, step):
@@ -664,6 +708,27 @@ def test_train_lm_cli_runs_on_the_cpu(tmp_path):
     assert r.returncode == 0, r.stdout + r.stderr
     assert "final loss:" in r.stdout
     assert CheckpointManager(str(tmp_path)).all_steps() == [1]
+
+
+def test_train_lm_returns_the_reference_keys():
+    """C2 (ROADMAP.md §C): ``train_lm`` returns the reference's keys, with
+    ``"params"`` the reference's LM tree (leaf paths as the reference's) of
+    the trained model, a host copy, beside the port's ``"model"`` and
+    ``"opt_state"``. (The two packages draw other initial weights.)"""
+    kw = dict(steps=2, batch=2, seq=8, log_every=100)
+    got = train_lm("yi_6b", **kw, device="cpu")
+    want = ref_train_lm("yi_6b", **kw)
+    assert set(got) == set(want) | {"model", "opt_state"}
+    leaves = tree_leaves(got["params"])
+    assert all(t.device.type == "cpu" for t in leaves)
+    tree = tree_map(lambda t: t.numpy(), got["params"])
+    assert ([p for p, _ in jax.tree_util.tree_flatten_with_path(tree)[0]]
+            == [p for p, _ in jax.tree_util.tree_flatten_with_path(want["params"])[0]])
+    _trees_close(tree, lm_params_to_numpy(got["model"], get_smoke("yi_6b")), 0.0)
+    embed = got["params"]["embed"].clone()
+    with torch.no_grad():
+        got["model"].embed.add_(1.0)  # "params" is a copy: it stays as it was
+    assert torch.equal(got["params"]["embed"], embed)
 
 
 def test_train_lm_needs_a_card_unless_cpu_is_asked_for(monkeypatch):
