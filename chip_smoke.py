@@ -191,20 +191,48 @@
    ``RecsysPipeline`` batches, the first batch's loss lower after them;
    (e) ``train_lm`` on the yi_6b smoke config, 8 steps against 4, a
    restore and 4 (rtol 1e-4), its card-written checkpoint restored on the
-   CPU bit for bit.
+   CPU bit for bit; (f) outside the launch window, after one train step of
+   the yi_6b and autoint smoke configs no weight requires grad, and the
+   flash forward (K6) and K7's lookup run and equal a fresh model's loaded
+   with the trained weights.
 14. [ring attention] ``ring_attention`` at ``RING_ATTN`` (Yi-6B's attention
    width, S 16,384, f32, causal), on the stage chain and on
    ``make_ring_mesh(n, devices=[cuda:0] * n)`` for n = 2, 4, 8, each
    within rtol 2e-4, atol 2e-5 of ``chunked_attention`` on the card, TF32
    off; the walls printed beside the tf32x3 K6's on the same inputs.
 
+15. [gnn] The GNNs (``models/gnn``, ``graphs/sampler.py``, the GNN train
+   step): (a) the smoke configs of GIN (node, graph and sampled batches),
+   GraphCast, DimeNet and MACE on the card and on the CPU port from the
+   same weights (through ``convert``): the loss, every gradient leaf, and
+   the parameters and moments after one ``make_gnn_train_step`` step within
+   1e-4 (relative, a leaf by its norm); (b) GIN at its full config (5
+   layers, d 64) at ``full_graph_sm`` (2,708 nodes, 5,278 drawn pairs both
+   ways, 1,433 features), 10 steps, and at ``molecule`` as graph
+   classification (128 graphs of 30 atoms, 64 edges each), 10 steps: every
+   loss finite, the median step wall and peak memory printed; (c) GIN on
+   ``minibatch_lg`` (232,965 nodes, 114,615,892 Chung-Lu edges drawn on
+   the card into a host CSR, 602 features) through ``NeighborSampler`` at
+   fanout (15, 10), 1,024 seeds a batch: the host sampler's wall apart
+   from the card's step wall; (d) GraphCast at its full config (16 layers,
+   d 512, 227 vars) on ``full_graph_sm``'s graph: forward, ``mse_loss``, 3
+   steps; (e) DimeNet (6 blocks, d 128) and MACE (2 layers, d 128, l_max 2)
+   at ``molecule`` (phantom-padded edges, graph ids, DimeNet's triplets):
+   energies, ``mse_loss``, 3 steps each, and MACE's site energies (each
+   atom its own graph) invariant on the card under a rotation plus
+   translation (2e-3 of the molecule's largest site energy + 2e-4) and a
+   node permutation (1e-4 of it); (f) GIN at ``ogb_products`` (2,449,029
+   nodes, 61,859,140 Chung-Lu edges, 100 features): a forward and 2 steps,
+   with their peaks.
+
 Phases 2 to 11 are the main path: every kernel's launch count is set to 0
-before them and must be above 0 after them. Phases 13 and 14 are this
-slice's paths, each driven with the counts set to 0 just before it and
-read just after: neither reaches a hand-written kernel (the reference
-trains through chunked attention and the plain lookup; K6 and K7 have no
-backward), so their counts must stay 0. Any mismatch or exception exits
-non-zero. ``python3 chip_smoke.py --train`` runs phases 13 and 14 alone.
+before them and must be above 0 after them. Phases 13 to 15 are later
+slices' paths, each driven with the counts set to 0 just before it and
+read just after: none reaches a hand-written kernel (the reference trains
+through chunked attention and the plain lookup, K6 and K7 have no
+backward, and the reference's GNNs reach no Pallas kernel), so their
+counts must stay 0. Any mismatch or exception exits non-zero.
+``python3 chip_smoke.py --train`` runs phases 13 to 15 alone.
 The last three lines are the ``kernels`` JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Imports nothing of JAX
 and nothing of the reference package ``repro``.
@@ -354,6 +382,30 @@ TRAIN_REL = 1e-4
 # [ring attention]: Yi-6B's attention width at a long sequence, f32, causal
 RING_ATTN = dict(b=1, h=32, s=16_384, d=128)
 RING_WIDTHS = (2, 4, 8)
+# [gnn]: the four GNN families at their published configs, on graphs of
+# configs/shapes.py's GNN_SHAPES sizes drawn from GNN_SEED (nothing is
+# downloaded). GIN takes GNN_GIN_STEPS steps, GraphCast, DimeNet and MACE
+# GNN_GNN_STEPS; minibatch_lg draws GNN_MB_BATCHES sampled batches, a step
+# each. minibatch_lg's d_feat is 0 in the shape: its n and m are Reddit's,
+# so its features are Reddit's 602 wide; its CSR (and ogb_products' edges)
+# are Chung-Lu draws with weights i^-GNN_ALPHA. GIN on molecule reads a
+# one-hot of the GNN_SPECIES species DimeNet and MACE embed; a molecule's
+# edges are its GNN_MOL_PAIRS nearest atom pairs both ways (the shape's 64),
+# the batch's edges padded by GNN_MOL_PAD phantom edges.
+GNN_SEED = 0
+GNN_GIN_STEPS = 10
+GNN_GNN_STEPS = 3
+GNN_MB_BATCHES = 3
+GNN_MB_FEAT = 602
+GNN_ALPHA = 0.5
+GNN_SPECIES = 16
+GNN_MOL_PAIRS = 32
+GNN_MOL_PAD = 128
+# [gnn] (a): the smoke configs' card-vs-CPU gate, as [train] (a)'s
+GNN_REL = 1e-4
+# [gnn] (e): MACE's invariances on the card, the reference test's bounds
+GNN_ROTATION = dict(rtol=2e-3, atol=2e-4)
+GNN_PERMUTATION_RTOL = 1e-4
 # Issue rates outside the tensor cores, per SM per clock, for compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
 # throughput): 32-bit integer add and bitwise logic 64, population count 16.
@@ -3324,6 +3376,54 @@ def ring_attention_phase() -> tuple[dict, tuple]:
     return out, (q, k, v)
 
 
+def serve_after_train() -> dict:
+    """After one train step the flash forward (K6) and K7's lookup run on
+    the card and equal a fresh model's loaded with the trained weights;
+    every weight's ``requires_grad`` is as the step found it (ROADMAP.md
+    C1). Outside the launch windows: these are serving launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import LMTokenPipeline, RecsysPipeline
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.recsys import autoint, embedding
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps
+
+    cfg = get_smoke("yi_6b")
+    model = tf.init_params(torch.Generator(device=DEVICE).manual_seed(13), cfg, device=DEVICE)
+    batch = LMTokenPipeline(cfg, 2, 32, seed=13).batch_at(0)
+    steps.make_lm_train_step(cfg, chunk_q=16)(model, opt.init_state(model), batch)
+    lm_flags = any(p.requires_grad for p in model.parameters())
+    tokens = torch.as_tensor(batch["tokens"], device=DEVICE)
+    fresh = tf.Transformer(cfg, device=DEVICE)
+    fresh.load_state_dict(model.state_dict())
+    got, _ = tf.forward(model, cfg, tokens, use_flash=True, chunk_q=16)
+    want, _ = tf.forward(fresh, cfg, tokens, use_flash=True, chunk_q=16)
+    lm_equal = torch.equal(got, want) and not got.requires_grad
+
+    rcfg = get_smoke("autoint")
+    rmodel = autoint.init_params(torch.Generator(device=DEVICE).manual_seed(14), rcfg,
+                                 device=DEVICE)
+    steps.make_recsys_train_step(rcfg)(rmodel, opt.init_state(rmodel),
+                                       RecsysPipeline(rcfg, 64, seed=14).batch_at(0))
+    rec_flags = any(p.requires_grad for p in rmodel.parameters())
+    bags = torch.as_tensor(np.random.default_rng(14).integers(
+        0, rcfg.vocab_per_field + 3, (64, rcfg.n_sparse, 4)), device=DEVICE)
+    rfresh = autoint.AutoInt(rcfg, device=DEVICE)
+    rfresh.load_state_dict(rmodel.state_dict())
+    got = embedding.lookup_multihot(rmodel.table, rcfg, bags, use_kernel=True)
+    rec_equal = torch.equal(got, embedding.lookup_multihot(rfresh.table, rcfg, bags,
+                                                           use_kernel=True))
+    log(f"  after a train step (C1): weights requiring grad: LM {lm_flags}, AutoInt "
+        f"{rec_flags}; the flash forward equals a fresh model's: {lm_equal}; K7's lookup "
+        f"equals a fresh model's: {rec_equal}")
+    if lm_flags or rec_flags or not (lm_equal and rec_equal):
+        raise AssertionError("serving after a train step fails or differs (C1)")
+    return {"lm_equal": lm_equal, "recsys_equal": rec_equal}
+
+
 def ring_attention_beside_k6(out: dict, qkv) -> None:
     """The tf32x3 K6 on [ring attention]'s inputs, its wall printed beside
     the rings' (no claim: a comparison launch, outside the launch window)."""
@@ -3343,6 +3443,415 @@ def ring_attention_beside_k6(out: dict, qkv) -> None:
     out["k6"] = {"route": route, "ms": ms}
     log(f"  K6 ({route}) on the same inputs: {ms:.3f} ms, finite: "
         f"{bool(torch.isfinite(got).all())} (printed beside the rings, no claim)")
+
+
+# --------------------------------------------------------------------------
+# Phase 15: the GNNs (their own launch window)
+# --------------------------------------------------------------------------
+def gnn_shapes() -> dict:
+    """configs/shapes.py's GNN_SHAPES by name."""
+    from repro_torch.configs.shapes import GNN_SHAPES
+
+    return {s.name: s for s in GNN_SHAPES}
+
+
+def gnn_pairs(n: int, pairs: int, rng):
+    """``pairs`` uniform node pairs u != v, both ways: (2 · pairs, 2) int32."""
+    import numpy as np
+
+    from repro_torch.models.gnn.common import bidirect
+
+    u = rng.integers(0, n, pairs)
+    v = (u + rng.integers(1, n, pairs)) % n
+    return bidirect(np.stack([u, v], 1).astype(np.int32))
+
+
+def gnn_molecules(shape, rng) -> dict:
+    """A batch of ``shape.batch_graphs`` molecules of ``shape.n_nodes`` atoms:
+    positions N(0, 1.5²) per axis, species in [0, GNN_SPECIES), each
+    molecule's ``shape.n_edges // 2`` nearest atom pairs both ways, the
+    batch's edges padded with GNN_MOL_PAD phantom edges, graph ids, and
+    DimeNet's triplets from ``build_triplets`` over the real edges."""
+    import numpy as np
+
+    from repro_torch.models.gnn.common import pad_edges
+    from repro_torch.models.gnn.dimenet import build_triplets
+
+    n_at, n_mol, pairs = shape.n_nodes, shape.batch_graphs, shape.n_edges // 2
+    pos = (rng.standard_normal((n_mol, n_at, 3)) * 1.5).astype(np.float32)
+    iu, ju = np.triu_indices(n_at, 1)
+    near = np.argsort(np.linalg.norm(pos[:, iu] - pos[:, ju], axis=-1), axis=1,
+                      kind="stable")[:, :pairs]
+    off = (np.arange(n_mol) * n_at)[:, None]
+    src, dst = iu[near] + off, ju[near] + off
+    edges = np.concatenate([np.stack([src, dst], -1), np.stack([dst, src], -1)],
+                           axis=1).reshape(-1, 2).astype(np.int32)
+    n = n_mol * n_at
+    z = rng.integers(0, GNN_SPECIES, n).astype(np.int32)
+    return {"z": z, "pos": pos.reshape(n, 3), "real_edges": edges,
+            "edges": pad_edges(edges, len(edges) + GNN_MOL_PAD, n),
+            "triplets": build_triplets(edges, n), "n_graphs": n_mol,
+            "graph_ids": np.repeat(np.arange(n_mol), n_at).astype(np.int32),
+            "target": rng.standard_normal(n_mol).astype(np.float32)}
+
+
+def gnn_chung_lu(n: int, m: int, gen):
+    """``m`` directed edges (src, dst) on the card, each endpoint drawn with
+    weight i^-GNN_ALPHA over n nodes (two int64 (m,) tensors)."""
+    import torch
+
+    w = torch.arange(1, n + 1, dtype=torch.float64, device=DEVICE) ** -GNN_ALPHA
+    cdf = torch.cumsum(w, 0) / w.sum()
+    return [torch.searchsorted(cdf, torch.rand(m, dtype=torch.float64, generator=gen,
+                                               device=DEVICE)).clamp_(max=n - 1)
+            for _ in range(2)]
+
+
+def gnn_csr(n: int, m: int, gen):
+    """A host CSR (indptr int64 (n + 1,), indices int32 (m,)) of ``m``
+    Chung-Lu edges, drawn and sorted on the card."""
+    import torch
+
+    src, dst = gnn_chung_lu(n, m, gen)
+    src, order = torch.sort(src)
+    indices = dst[order].to(torch.int32).cpu().numpy()
+    del dst, order
+    indptr = torch.zeros(n + 1, dtype=torch.int64, device=DEVICE)
+    indptr[1:] = torch.cumsum(torch.bincount(src, minlength=n), 0)
+    return indptr.cpu().numpy(), indices
+
+
+def gnn_block_dicts(mb) -> list:
+    """A ``MiniBatch``'s blocks as ``forward_sampled`` takes them, innermost
+    hop first (host numpy; ``gnn_loss`` moves them to the model's device)."""
+    return [{"src_idx": blk.src_nodes, "dst_index": blk.dst_index, "mask": blk.mask,
+             "n_dst": len(blk.nodes)} for blk in reversed(mb.blocks)]
+
+
+def gnn_smoke_cases(rng) -> list:
+    """[gnn] (a)'s cases: (label, arch, init keyword, batch) at the smoke
+    configs, small graphs from ``rng``."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.shapes import GraphShape
+    from repro_torch.graphs import generators, to_csr
+    from repro_torch.graphs.sampler import NeighborSampler
+    from repro_torch.models.gnn.common import pad_edges
+
+    n_classes = get_smoke("gin_tu").n_classes
+    edges = pad_edges(gnn_pairs(40, 60, rng), 127, 40)
+    mols = gnn_molecules(GraphShape("molecule-smoke", 8, 16, batch_graphs=4), rng)
+    g = generators.powerlaw(200, m_per_node=5, seed=GNN_SEED)
+    mb = NeighborSampler(*to_csr(g), [5, 3, 2], seed=GNN_SEED).sample(np.arange(16))
+    return [
+        ("gin nodes", "gin_tu", {"d_in": 8},
+         {"x": rng.standard_normal((40, 8)).astype(np.float32), "edges": edges,
+          "labels": rng.integers(0, n_classes, 40)}),
+        ("gin graphs", "gin_tu", {"d_in": GNN_SPECIES},
+         {"x": np.eye(GNN_SPECIES, dtype=np.float32)[mols["z"]], "edges": mols["edges"],
+          "graph_ids": mols["graph_ids"], "n_graphs": mols["n_graphs"],
+          "labels": rng.integers(0, n_classes, mols["n_graphs"])}),
+        ("gin sampled", "gin_tu", {"d_in": 8},
+         {"x": rng.standard_normal((g.n_nodes, 8)).astype(np.float32),
+          "blocks": gnn_block_dicts(mb), "labels": rng.integers(0, n_classes, 16)}),
+        ("graphcast", "graphcast", {},
+         {"x": rng.standard_normal((40, 11)).astype(np.float32), "edges": edges,
+          "target": rng.standard_normal((40, 11)).astype(np.float32)}),
+        ("dimenet", "dimenet", {}, {k: mols[k] for k in (
+            "z", "pos", "edges", "triplets", "graph_ids", "n_graphs", "target")}),
+        ("mace", "mace", {}, {k: mols[k] for k in (
+            "z", "pos", "edges", "graph_ids", "n_graphs", "target")}),
+    ]
+
+
+def gnn_init(arch: str, cfg, gen, **kw):
+    from repro_torch.models.gnn import dimenet, gin, graphcast, mace
+
+    return {"gin_tu": gin, "graphcast": graphcast, "dimenet": dimenet,
+            "mace": mace}[arch].init_params(gen, cfg, **kw, device=DEVICE)
+
+
+def gnn_loss_and_grads(model, cfg, batch) -> tuple[float, dict]:
+    import torch
+
+    from repro_torch.train.steps import gnn_loss
+
+    named = dict(model.named_parameters())
+    model.requires_grad_(True)
+    try:
+        loss = gnn_loss(model, cfg, batch)
+        grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True,
+                                    materialize_grads=True)
+    finally:
+        model.requires_grad_(False)
+    return float(loss.detach()), dict(zip(named, grads))
+
+
+def gnn_card_vs_cpu() -> dict:
+    """[gnn] (a): each smoke case on the card and on the CPU port from the
+    same weights (the card's, through ``convert``): the loss, every gradient
+    leaf, and the parameters and moments after one ``make_gnn_train_step``
+    step within GNN_REL (relative, a leaf by its norm)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.convert import gnn_params_from_numpy, gnn_params_to_numpy
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.steps import make_gnn_train_step
+
+    out = {}
+    for label, arch, kw, batch in gnn_smoke_cases(np.random.default_rng(GNN_SEED)):
+        cfg = get_smoke(arch)
+        m_dev = gnn_init(arch, cfg, torch.Generator(device=DEVICE).manual_seed(GNN_SEED), **kw)
+        m_cpu = gnn_params_from_numpy(gnn_params_to_numpy(m_dev, cfg), cfg, device="cpu")
+        (l_dev, g_dev), (l_cpu, g_cpu) = (gnn_loss_and_grads(m, cfg, batch)
+                                          for m in (m_dev, m_cpu))
+        loss_rel, grad_rel = abs(l_dev - l_cpu) / abs(l_cpu), leaf_rel(g_dev, g_cpu)
+        step = make_gnn_train_step(cfg)
+        s_dev, s_cpu = opt.init_state(m_dev), opt.init_state(m_cpu)
+        step(m_dev, s_dev, batch)
+        step(m_cpu, s_cpu, batch)
+        p_rel = leaf_rel(dict(m_dev.named_parameters()), dict(m_cpu.named_parameters()))
+        m_rel = max(leaf_rel(s_dev[k], s_cpu[k]) for k in ("m", "v"))
+        log(f"  {cfg.name} {label}: loss card {l_dev!r} / CPU {l_cpu!r} (rel {loss_rel:.3e}); "
+            f"gradient leaf rel {grad_rel:.3e}; after one step parameter leaf rel "
+            f"{p_rel:.3e}, moment leaf rel {m_rel:.3e} (<= {GNN_REL:g})")
+        if not max(loss_rel, grad_rel, p_rel, m_rel) <= GNN_REL:
+            raise AssertionError(f"[gnn] {label}: the card and the CPU port part: loss "
+                                 f"{loss_rel}, gradients {grad_rel}, parameters {p_rel}, "
+                                 f"moments {m_rel} > {GNN_REL}")
+        out[label] = {"loss_rel": loss_rel, "grad_rel": grad_rel, "param_rel": p_rel,
+                      "moment_rel": m_rel}
+    return out
+
+
+def gnn_steps(label: str, cfg, model, batch, n_steps: int, sync) -> dict:
+    """``n_steps`` of ``make_gnn_train_step`` on one batch: every loss finite;
+    the losses, walls, their median past the first, and the peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.steps import make_gnn_train_step
+
+    held = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = timed_steps(label, make_gnn_train_step(cfg), model,
+                                opt.init_state(model), [batch] * n_steps, sync)
+    out = {"losses": losses, "walls_ms": walls, "median_ms": float(np.median(walls[1:])),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "held_gb": held}
+    log(f"  {label}: step wall median of steps 2-{n_steps} {out['median_ms']:.3f} ms, peak "
+        f"allocated {out['peak_gb']:.2f} GB ({held:.2f} GB held before the steps: the model, "
+        "the batch, and what earlier phases keep)")
+    return out
+
+
+def gnn_energies(fwd, model, cfg, mol: dict, **over) -> "torch.Tensor":
+    import torch
+
+    b = {**mol, **over}
+    args = [torch.as_tensor(b[k], device=DEVICE) for k in ("z", "pos", "edges")]
+    if "triplets" in b:
+        args.append(torch.as_tensor(b["triplets"], device=DEVICE))
+    with torch.no_grad():
+        return fwd(model, cfg, *args, graph_ids=torch.as_tensor(b["graph_ids"], device=DEVICE),
+                   n_graphs=b["n_graphs"])
+
+
+def gnn_phase() -> dict:
+    """[gnn], as the module docstring says: (a) the smoke configs on the card
+    against the CPU port; (b) GIN at full_graph_sm and molecule; (c) GIN's
+    sampled mini-batches at minibatch_lg; (d) GraphCast; (e) DimeNet and
+    MACE at molecule, MACE's invariances; (f) GIN at ogb_products."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.graphs.sampler import NeighborSampler
+    from repro_torch.models.gnn import dimenet, gin, graphcast, mace
+    from repro_torch.models.gnn.common import pad_edges
+    from repro_torch.train.steps import gnn_loss, make_gnn_train_step
+    from repro_torch.train import optimizer as opt
+
+    sync = torch.cuda.synchronize if DEVICE == "cuda" else (lambda: None)
+    shapes, rng = gnn_shapes(), np.random.default_rng(GNN_SEED)
+    gen = torch.Generator(device=DEVICE).manual_seed(GNN_SEED)
+    out = {"a": gnn_card_vs_cpu()}
+
+    # (b) GIN at full_graph_sm (node classification) and molecule (graphs)
+    cfg, sh = get_config("gin_tu"), shapes["full_graph_sm"]
+    edges = gnn_pairs(sh.n_nodes, sh.n_edges // 2, rng)
+    batch = {"x": torch.randn((sh.n_nodes, sh.d_feat), generator=gen, device=DEVICE),
+             "edges": torch.as_tensor(edges, device=DEVICE),
+             "labels": torch.randint(0, cfg.n_classes, (sh.n_nodes,), generator=gen,
+                                     device=DEVICE)}
+    model = gin.init_params(gen, cfg, sh.d_feat, device=DEVICE)
+    out["b"] = {"full_graph_sm": gnn_steps(
+        f"{cfg.name} at full_graph_sm ({sh.n_nodes:,} nodes, {len(edges):,} edges, "
+        f"{sh.d_feat:,} features)", cfg, model, batch, GNN_GIN_STEPS, sync)}
+    mol_shape = shapes["molecule"]
+    mols = gnn_molecules(mol_shape, rng)
+    model = gin.init_params(gen, cfg, GNN_SPECIES, device=DEVICE)
+    batch = {"x": torch.as_tensor(np.eye(GNN_SPECIES, dtype=np.float32)[mols["z"]],
+                                  device=DEVICE),
+             "edges": torch.as_tensor(mols["edges"], device=DEVICE),
+             "graph_ids": torch.as_tensor(mols["graph_ids"], device=DEVICE),
+             "n_graphs": mols["n_graphs"],
+             "labels": torch.as_tensor(rng.integers(0, cfg.n_classes, mols["n_graphs"]),
+                                       device=DEVICE)}
+    out["b"]["molecule"] = gnn_steps(
+        f"{cfg.name} at molecule ({mols['n_graphs']} graphs of {mol_shape.n_nodes} atoms, "
+        f"{len(mols['real_edges']):,} edges)", cfg, model, batch, GNN_GIN_STEPS, sync)
+    del model, batch
+
+    # (c) GIN's sampled mini-batches at minibatch_lg
+    sh = shapes["minibatch_lg"]
+    t0 = time.perf_counter()
+    indptr, indices = gnn_csr(sh.n_nodes, sh.n_edges, gen)
+    csr_ms = (time.perf_counter() - t0) * 1e3
+    sampler = NeighborSampler(indptr, indices, list(sh.fanout), seed=GNN_SEED)
+    x = torch.randn((sh.n_nodes, GNN_MB_FEAT), generator=gen, device=DEVICE)
+    model = gin.init_params(gen, cfg, GNN_MB_FEAT, device=DEVICE)
+    state, step = opt.init_state(model), make_gnn_train_step(cfg)
+    held = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    sample_ms, step_ms, losses, sizes = [], [], [], []
+    for _ in range(GNN_MB_BATCHES):
+        seeds = rng.choice(sh.n_nodes, sh.batch_nodes, replace=False)
+        t0 = time.perf_counter()
+        mb = sampler.sample(seeds)
+        sample_ms.append((time.perf_counter() - t0) * 1e3)
+        sizes.append([len(blk.nodes) for blk in mb.blocks] + [len(mb.input_nodes)])
+        batch = {"x": x, "blocks": gnn_block_dicts(mb),
+                 "labels": rng.integers(0, cfg.n_classes, sh.batch_nodes)}
+        t0 = time.perf_counter()
+        model, state, m = step(model, state, batch)
+        losses.append(float(m["loss"]))
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if not math.isfinite(losses[-1]):
+            raise AssertionError(f"[gnn] (c): a sampled step's loss {losses[-1]} is not finite")
+    out["c"] = {"csr_ms": csr_ms, "sample_ms": sample_ms, "step_ms": step_ms,
+                "losses": losses, "block_sizes": sizes,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "held_gb": held}
+    log(f"  {cfg.name} at minibatch_lg ({sh.n_nodes:,} nodes, {sh.n_edges:,} edges drawn "
+        f"on the card into a host CSR in {csr_ms:.1f} ms; {GNN_MB_FEAT} features): "
+        f"{GNN_MB_BATCHES} batches of {sh.batch_nodes:,} seeds at fanout {sh.fanout}, "
+        f"(dst nodes per hop, input nodes) {sizes}; host sampler walls (ms) {sample_ms}; "
+        f"card step walls (ms) {step_ms}; losses {losses}; peak allocated "
+        f"{out['c']['peak_gb']:.2f} GB ({held:.2f} GB held before the steps)")
+    del sampler, indptr, indices, x, model, state, batch
+    torch.cuda.empty_cache()
+
+    # (d) GraphCast on full_graph_sm's graph
+    cfg, sh = get_config("graphcast"), shapes["full_graph_sm"]
+    batch = {"x": torch.randn((sh.n_nodes, cfg.n_vars), generator=gen, device=DEVICE),
+             "edges": torch.as_tensor(edges, device=DEVICE),
+             "target": torch.randn((sh.n_nodes, cfg.n_vars), generator=gen, device=DEVICE)}
+    model = graphcast.init_params(gen, cfg, device=DEVICE)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        pred = graphcast.forward(model, cfg, batch["x"], batch["edges"])
+        sync()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        loss0 = float(gnn_loss(model, cfg, batch))
+    if pred.shape != (sh.n_nodes, cfg.n_vars) or not bool(torch.isfinite(pred).all()):
+        raise AssertionError(f"[gnn] (d): GraphCast's forward {tuple(pred.shape)} is not "
+                             "finite or misshaped")
+    log(f"  {cfg.name} ({cfg.n_layers} layers, d {cfg.d_hidden}, {cfg.n_vars} vars): forward "
+        f"{fwd_ms:.3f} ms, mse_loss {loss0!r}")
+    out["d"] = {"forward_ms": fwd_ms, "mse_loss": loss0, **gnn_steps(
+        f"{cfg.name} at full_graph_sm's graph", cfg, model, batch, GNN_GNN_STEPS, sync)}
+    del model, batch, pred
+
+    # (e) DimeNet and MACE at molecule; MACE's invariances on the card
+    out["e"] = {}
+    for arch, mod in (("dimenet", dimenet), ("mace", mace)):
+        cfg = get_config(arch)
+        model = mod.init_params(gen, cfg, GNN_SPECIES, device=DEVICE)
+        keys = ("z", "pos", "edges", "graph_ids", "n_graphs", "target") + (
+            ("triplets",) if arch == "dimenet" else ())
+        batch = {k: mols[k] for k in keys}
+        energies = gnn_energies(mod.forward_energy, model, cfg, batch)
+        with torch.no_grad():
+            loss0 = float(gnn_loss(model, cfg, batch))
+        if energies.shape != (mols["n_graphs"],) or not bool(torch.isfinite(energies).all()):
+            raise AssertionError(f"[gnn] (e): {cfg.name}'s energies are not finite or "
+                                 "misshaped")
+        log(f"  {cfg.name}: {mols['n_graphs']} energies in [{float(energies.min())!r}, "
+            f"{float(energies.max())!r}], mse_loss {loss0!r}"
+            + (f", {int((mols['triplets'][:, 0] < len(mols['real_edges'])).sum()):,} "
+               f"real triplets of {len(mols['triplets']):,}" if arch == "dimenet" else ""))
+        out["e"][arch] = {"mse_loss": loss0, **gnn_steps(
+            f"{cfg.name} at molecule", cfg, model, batch, GNN_GNN_STEPS, sync)}
+    # each atom's site energy (every atom its own graph id), held to its
+    # molecule's largest: at these random weights site energies reach ~1e10
+    # and a site or a molecule's sum can cancel to ~1e-2 (CPU rehearsal), so a
+    # bound relative to the value itself would measure float32 rounding
+    n = len(mols["z"])
+    sites = {"graph_ids": np.arange(n, dtype=np.int32), "n_graphs": n}
+    e0 = gnn_energies(mace.forward_energy, model, cfg, batch, **sites).cpu().numpy()
+    q, r = np.linalg.qr(rng.normal(size=(3, 3)))
+    q *= np.sign(np.diag(r))
+    if np.linalg.det(q) < 0:
+        q[:, 0] *= -1
+    pos_r = (mols["pos"].astype(np.float64) @ q.T + rng.normal(size=(1, 3))).astype(np.float32)
+    e_rot = gnn_energies(mace.forward_energy, model, cfg, batch, pos=pos_r,
+                         **sites).cpu().numpy()
+    perm = rng.permutation(n)
+    inv = np.argsort(perm)
+    e_perm = gnn_energies(mace.forward_energy, model, cfg, batch, z=mols["z"][perm],
+                          pos=mols["pos"][perm], **sites,
+                          edges=pad_edges(inv[mols["real_edges"]].astype(np.int32),
+                                          len(mols["edges"]), n)).cpu().numpy()[inv]
+    scale = np.abs(e0).reshape(mols["n_graphs"], -1).max(1)[mols["graph_ids"]]
+    rot_err = float(np.max(np.abs(e_rot - e0) / (GNN_ROTATION["atol"]
+                                                  + GNN_ROTATION["rtol"] * scale)))
+    perm_err = float(np.max(np.abs(e_perm - e0) / scale))
+    log(f"  {cfg.name} on the card, {n:,} site energies (|E| in [{float(np.abs(e0).min())!r}, "
+        f"{float(np.abs(e0).max())!r}]): a rotation + translation moves them by "
+        f"{float(np.max(np.abs(e_rot - e0)))!r} at most ({rot_err:.3f} of the bound, rtol "
+        f"{GNN_ROTATION['rtol']:g} of the molecule's largest, atol {GNN_ROTATION['atol']:g}); "
+        f"a node permutation by {perm_err:.3e} of the molecule's largest (<= "
+        f"{GNN_PERMUTATION_RTOL:g})")
+    if not (rot_err <= 1.0 and perm_err <= GNN_PERMUTATION_RTOL):
+        raise AssertionError(f"[gnn] (e): MACE is not invariant on the card (rotation "
+                             f"{rot_err} of its bound, permutation {perm_err})")
+    out["e"]["mace"].update(rotation_of_bound=rot_err, permutation_rel=perm_err)
+    del model, batch
+    torch.cuda.empty_cache()
+
+    # (f) GIN at ogb_products: one (E, 64) f32 message tensor is 15.8 GB;
+    # layer 0's (E, 100) gather and its masked copy 49.5 GB (PERF.md §6)
+    cfg, sh = get_config("gin_tu"), shapes["ogb_products"]
+    src, dst = gnn_chung_lu(sh.n_nodes, sh.n_edges, gen)
+    batch = {"x": torch.randn((sh.n_nodes, sh.d_feat), generator=gen, device=DEVICE),
+             "edges": torch.stack([src, dst], 1),
+             "labels": torch.randint(0, cfg.n_classes, (sh.n_nodes,), generator=gen,
+                                     device=DEVICE)}
+    del src, dst
+    model = gin.init_params(gen, cfg, sh.d_feat, device=DEVICE)
+    held = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits = gin.logits_nodes(model, cfg, batch["x"], batch["edges"])
+        sync()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+    fwd_peak = torch.cuda.max_memory_allocated() / 1e9
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("[gnn] (f): GIN's logits at ogb_products are not finite")
+    del logits
+    log(f"  {cfg.name} at ogb_products ({sh.n_nodes:,} nodes, {sh.n_edges:,} edges, "
+        f"{sh.d_feat} features): forward {fwd_ms:.3f} ms, peak allocated {fwd_peak:.2f} GB "
+        f"({held:.2f} GB held before it)")
+    out["f"] = {"forward_ms": fwd_ms, "forward_peak_gb": fwd_peak, **gnn_steps(
+        f"{cfg.name} at ogb_products", cfg, model, batch, 2, sync)}
+    del model, batch
+    torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -3646,20 +4155,22 @@ def probe_k6_mla() -> int:
     return 0
 
 
-def slice_phases() -> tuple[dict, dict]:
-    """[train] and [ring attention], each driven with the launch counts set
-    to 0 just before it and read just after: neither path reaches a
-    hand-written kernel (the reference trains through chunked attention
-    and the plain lookup, and its ring attention is two einsums), so every
-    count must stay 0. Then the tf32x3 K6 on the ring's inputs, outside
-    both windows."""
+def slice_phases() -> tuple[dict, dict, dict]:
+    """[train], [ring attention] and [gnn], each driven with the launch
+    counts set to 0 just before it and read just after: no such path
+    reaches a hand-written kernel (the reference trains through chunked
+    attention and the plain lookup, its ring attention is two einsums, and
+    its GNNs' message passing is segment sums outside any Pallas kernel),
+    so every count must stay 0. Then the tf32x3 K6 on the ring's inputs,
+    outside the windows, and serving after a train step (C1)."""
     import torch
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
     torch.cuda.empty_cache()
     results = []
-    for label, run in (("train", train_phase), ("ring attention", ring_attention_phase)):
+    for label, run in (("train", train_phase), ("ring attention", ring_attention_phase),
+                       ("gnn", gnn_phase)):
         t0 = time.perf_counter()
         log(f"[{label}] " + {
             "train": "the smoke configs on the card against the CPU port; Yi-6B at full "
@@ -3668,7 +4179,11 @@ def slice_phases() -> tuple[dict, dict]:
                      "AutoInt at its full table; train_lm's restart and checkpoint",
             "ring attention": f"ring_attention at {RING_ATTN}, f32, causal, sequential and "
                               f"on one-card meshes of {RING_WIDTHS} stages, against "
-                              "chunked_attention"}[label])
+                              "chunked_attention",
+            "gnn": "the GNN smoke configs on the card against the CPU port; GIN, GraphCast, "
+                   "DimeNet and MACE at their full configs on GNN_SHAPES' sizes (GIN at "
+                   "full_graph_sm, molecule, minibatch_lg through the sampler and "
+                   "ogb_products); MACE's invariances"}[label])
         reset_launch_counts()
         results.append(run())
         torch.cuda.synchronize()
@@ -3680,11 +4195,12 @@ def slice_phases() -> tuple[dict, dict]:
                                  "hand-written kernel")
         log(f"[{label}] done in {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
-    train, (ring, qkv) = results
+    train, (ring, qkv), gnn = results
     ring_attention_beside_k6(ring, qkv)
     del qkv
+    train["serve_after_train"] = serve_after_train()
     torch.cuda.empty_cache()
-    return train, ring
+    return train, ring, gnn
 
 
 def main() -> int:
@@ -3712,12 +4228,14 @@ def main() -> int:
 
     if sys.argv[1:] == ["--probe"]:
         return probe_k2() or probe_k1() or probe_k6_tf32x3() or probe_k6_mla()
-    if sys.argv[1:] == ["--train"]:  # [train] and [ring attention] alone
+    if sys.argv[1:] == ["--train"]:  # [train], [ring attention] and [gnn] alone
         log(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-        _build.build_all(["flash_attention_tf32x3_sm90"], verbose=True)
-        train, ring = slice_phases()
+        _build.build_all(["flash_attention_tf32x3_sm90", "flash_attention", "embedding_bag"],
+                         verbose=True)
+        train, ring, gnn = slice_phases()
         log("[train summary] " + json.dumps(train))
         log("[ring attention summary] " + json.dumps(ring))
+        log("[gnn summary] " + json.dumps(gnn))
         return 0
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -3843,7 +4361,7 @@ def main() -> int:
     profile_phase(graphs)
     log(f"[profile] done in {time.perf_counter() - t0:.1f} s")
     del graphs
-    train, ring = slice_phases()
+    train, ring, gnn = slice_phases()
 
     out = []
     for name, k in kernels().items():
@@ -3895,6 +4413,7 @@ def main() -> int:
     log("[recsys summary] " + json.dumps(recsys))
     log("[train summary] " + json.dumps(train))
     log("[ring attention summary] " + json.dumps(ring))
+    log("[gnn summary] " + json.dumps(gnn))
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": out}))
     print(card)

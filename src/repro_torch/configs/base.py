@@ -1,8 +1,7 @@
 """Config dataclasses of the architecture families the port runs: a copy of
 the reference's (``repro/configs/base.py``), so the port imports nothing of
 ``repro``. ``LMConfig.n_params`` / ``n_active_params`` count exactly as the
-reference counts. The GNN family's config comes with the GNN slice
-(ROADMAP queue A item 6c)."""
+reference counts."""
 from __future__ import annotations
 
 import dataclasses
@@ -98,6 +97,26 @@ class LMConfig:
         per_expert = self.d_model * mo.d_ff_expert * (3 if gated else 2)
         inactive = (self.n_layers - mo.n_dense_layers) * (mo.n_routed - mo.top_k) * per_expert
         return self.n_params() - inactive
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    family: Literal["gin", "dimenet", "mace", "graphcast"]
+    n_layers: int
+    d_hidden: int
+    # family extras
+    n_bilinear: int = 8
+    n_spherical: int = 7
+    n_radial: int = 6
+    l_max: int = 2
+    correlation_order: int = 3
+    n_rbf: int = 8
+    mesh_refinement: int = 6
+    n_vars: int = 227
+    aggregator: str = "sum"
+    d_feat_in: int = 0  # input feature dim (0 = from shape spec)
+    n_classes: int = 2
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,9 +6,10 @@ reference ``Plan`` crosses as its dict, since the port's
 :class:`~repro_torch.api.planner.Plan` has the same fields
 (``Plan.from_dict(ref_plan.to_dict())``, and back the same way). The
 models' weights cross as the reference's parameter pytree with numpy
-leaves (``jax.tree.map(np.asarray, params)``): :func:`lm_params_from_numpy`
-and :func:`recsys_params_from_numpy`, and back by :func:`lm_params_to_numpy`
-and :func:`recsys_params_to_numpy`, which also take a model's gradients or
+leaves (``jax.tree.map(np.asarray, params)``): :func:`lm_params_from_numpy`,
+:func:`recsys_params_from_numpy` and :func:`gnn_params_from_numpy`, and
+back by :func:`lm_params_to_numpy`, :func:`recsys_params_to_numpy` and
+:func:`gnn_params_to_numpy`, which also take a model's gradients or
 an optimizer's moments (a mapping of parameter names to tensors), so
 gradients, moments and checkpoints compare leaf by leaf. The ``*_to_tree``
 forms keep torch tensors (bf16 included) for checkpoints, and
@@ -200,3 +201,81 @@ def recsys_params_to_tree(params, cfg) -> dict:
 def recsys_params_to_numpy(params, cfg) -> dict:
     """:func:`recsys_params_to_tree` with numpy leaves (bf16 widened to f32)."""
     return tree_map(_numpy, recsys_params_to_tree(params, cfg))
+
+
+def _gnn_stack(cfg) -> str:
+    """The name of the family's per-layer list: DimeNet's ``blocks``, the
+    others' ``layers``."""
+    return "blocks" if cfg.family == "dimenet" else "layers"
+
+
+def _gnn_path(name: str) -> tuple:
+    """A port parameter name → its path in the reference's GNN tree: the
+    index into ``layers`` / ``blocks`` an int, every other key a string
+    (MACE's mixings are keyed by ``str(l)``)."""
+    parts = name.split(".")
+    return (parts[0], int(parts[1]), *parts[2:]) if parts[0] in ("layers", "blocks") else \
+        tuple(parts)
+
+
+def gnn_params_into_(params, tree: dict, cfg) -> None:
+    """Copy the reference's GNN tree of ``cfg.family`` (GIN, GraphCast,
+    DimeNet or MACE; numpy or tensor leaves) into ``params`` — the model,
+    or a mapping of its parameter names to tensors — in place. Raises
+    ``KeyError`` on a missing leaf and ``ValueError`` on a misshaped one or
+    a layer list of the wrong length."""
+    stack = _gnn_stack(cfg)
+    if len(tree.get(stack, ())) != cfg.n_layers:
+        raise ValueError(f"the tree holds {len(tree.get(stack, ()))} {stack}, the config "
+                         f"{cfg.n_layers}")
+    for name, t in _named(params).items():
+        _put(t, _get(tree, *_gnn_path(name)), name)
+
+
+def gnn_params_from_numpy(tree: dict, cfg, *, device=None):
+    """The port's GNN model of ``cfg.family`` from the reference's pytree
+    (numpy leaves). The input width (GIN, GraphCast) and the species count
+    (DimeNet, MACE) are read from the tree. Raises as
+    :func:`gnn_params_into_`."""
+    from repro_torch.models.gnn import dimenet, gin, graphcast, mace
+
+    fam = cfg.family
+    if fam == "gin":
+        model = gin.GIN(cfg, _shape_of(tree, "layers", 0, "mlp", "w0")[0], device=device)
+    elif fam == "graphcast":
+        model = graphcast.GraphCast(cfg, _shape_of(tree, "encoder", "w0")[0], device=device)
+    elif fam in ("dimenet", "mace"):
+        cls = dimenet.DimeNet if fam == "dimenet" else mace.MACE
+        model = cls(cfg, _shape_of(tree, "species")[0], device=device)
+    else:
+        raise ValueError(f"unknown GNN family {fam!r}")
+    gnn_params_into_(model, tree, cfg)
+    return model
+
+
+def _shape_of(tree: dict, *path) -> tuple:
+    leaf = _get(tree, *path)
+    if leaf is None:
+        raise KeyError(f"the parameter tree has no leaf {'.'.join(map(str, path))}")
+    return tuple(leaf.shape)
+
+
+def gnn_params_to_tree(params, cfg) -> dict:
+    """The inverse of :func:`gnn_params_into_`: ``params`` (a GNN model, or a
+    mapping of its parameter names to tensors: its gradients, an
+    optimizer's moments) as the reference's tree of host tensors, the
+    ``layers`` / ``blocks`` a list of per-layer dicts."""
+    stack = _gnn_stack(cfg)
+    tree = {stack: [{} for _ in range(cfg.n_layers)]}
+    for name, t in _named(params).items():
+        path = _gnn_path(name)
+        if path[0] == stack:
+            _set(tree[stack][path[1]], path[2:], _host(t))
+        else:
+            _set(tree, path, _host(t))
+    return tree
+
+
+def gnn_params_to_numpy(params, cfg) -> dict:
+    """:func:`gnn_params_to_tree` with numpy leaves."""
+    return tree_map(_numpy, gnn_params_to_tree(params, cfg))

@@ -5,17 +5,17 @@ Each builder closes over the static config and returns
 ``step(model, opt_state, batch) -> (model, opt_state, metrics)`` (train) or
 the serving equivalent. A train step turns ``requires_grad`` on for the
 model it trains while it takes the loss's gradient with
-``torch.autograd.grad``, and leaves each flag as it found it (also when
-the loss raises)
-(a parameter the loss does not reach gets zeros, as ``jax.grad`` gives)
-and applies :func:`~repro_torch.train.optimizer.update` in place: the
-returned model and state are the ones passed in. ``metrics["loss"]`` stays
-a 0-d tensor on the model's device, so a step never waits for the card.
-Batches may be numpy arrays (``data.pipeline``'s) or tensors.
+``torch.autograd.grad`` (a parameter the loss does not reach gets zeros,
+as ``jax.grad`` gives), leaves each flag as it found it (also when the
+loss raises), and applies :func:`~repro_torch.train.optimizer.update` in
+place: the returned model and state are the ones passed in.
+``metrics["loss"]`` stays a 0-d tensor on the model's device, so a step
+never waits for the card. Batches may be numpy arrays
+(``data.pipeline``'s) or tensors.
 
 The reference's ``mesh``, ``seq_parallel`` and ``grad_specs`` shard a step
-over a ``("data", "model")`` mesh (ROADMAP.md queue A item 6e); the GNN
-losses come with the GNNs (item 6c). Both raise here.
+over a ``("data", "model")`` mesh (ROADMAP.md queue A item 6e); they raise
+here.
 """
 from __future__ import annotations
 
@@ -24,8 +24,9 @@ from typing import Callable
 
 import torch
 
-from repro_torch.configs.base import LMConfig, RecsysConfig
+from repro_torch.configs.base import GNNConfig, LMConfig, RecsysConfig
 from repro_torch.models import transformer as tf
+from repro_torch.models.gnn import dimenet, gin, graphcast, mace
 from repro_torch.models.recsys import autoint
 from repro_torch.train import optimizer as opt
 
@@ -95,16 +96,50 @@ def make_lm_serve_step(cfg: LMConfig) -> Callable:
 
 
 # ---------------------------------------------------------------------------
-# GNN
+# GNN (dispatch by family)
 # ---------------------------------------------------------------------------
-def gnn_loss(*args, **kwargs):
-    raise NotImplementedError(
-        "the GNN losses need the GNN models, which are not in the port yet: ROADMAP.md "
-        "queue A item 6c ports them")
+def _on(device, a):
+    return torch.as_tensor(a, device=device)
 
 
-def make_gnn_train_step(*args, **kwargs):
-    return gnn_loss(*args, **kwargs)
+def gnn_loss(model, cfg: GNNConfig, batch: dict) -> torch.Tensor:
+    """The reference's loss of each family on ``batch`` (tensors or numpy
+    arrays): GIN's mean cross-entropy on graph (``graph_ids``), sampled
+    (``blocks``) or node logits; GraphCast's MSE; DimeNet's and MACE's
+    energy MSE (per graph with ``graph_ids``)."""
+    fam, dev = cfg.family, model.device
+    if fam == "gin":
+        x = _on(dev, batch["x"])
+        if "graph_ids" in batch:
+            logits = gin.logits_graphs(model, cfg, x, _on(dev, batch["edges"]),
+                                       _on(dev, batch["graph_ids"]), batch["n_graphs"])
+        elif "blocks" in batch:
+            blocks = [{**{k: _on(dev, blk[k]) for k in ("src_idx", "dst_index", "mask")},
+                       "n_dst": int(blk["n_dst"])} for blk in batch["blocks"]]
+            logits = gin.forward_sampled(model, cfg, x, blocks)
+        else:
+            logits = gin.logits_nodes(model, cfg, x, _on(dev, batch["edges"]))
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        labels = _on(dev, batch["labels"]).long()
+        return -torch.mean(torch.take_along_dim(logp, labels[:, None], dim=1))
+    if fam == "graphcast":
+        return graphcast.mse_loss(model, cfg, _on(dev, batch["x"]), _on(dev, batch["edges"]),
+                                  _on(dev, batch["target"]))
+    kw = {"n_graphs": batch.get("n_graphs", 1)}
+    if batch.get("graph_ids") is not None:
+        kw["graph_ids"] = _on(dev, batch["graph_ids"])
+    z, pos, edges = (_on(dev, batch[k]) for k in ("z", "pos", "edges"))
+    if fam == "dimenet":
+        return dimenet.mse_loss(model, cfg, z, pos, edges, _on(dev, batch["triplets"]),
+                                _on(dev, batch["target"]), **kw)
+    if fam == "mace":
+        return mace.mse_loss(model, cfg, z, pos, edges, _on(dev, batch["target"]), **kw)
+    raise ValueError(fam)
+
+
+def make_gnn_train_step(cfg: GNNConfig, opt_cfg: opt.AdamWConfig | None = None) -> Callable:
+    """One AdamW step (no weight decay by default) on :func:`gnn_loss`."""
+    return _train_step(partial(gnn_loss, cfg=cfg), opt_cfg or opt.AdamWConfig(weight_decay=0.0))
 
 
 # ---------------------------------------------------------------------------

@@ -221,7 +221,10 @@ def test_import_repro_torch_pulls_in_neither_jax_nor_repro():
         "import repro_torch.models.ring_attention, repro_torch.launch.train\n"
         "import repro_torch.train.optimizer, repro_torch.train.compression\n"
         "import repro_torch.train.checkpoint, repro_torch.train.steps\n"
-        "import repro_torch.data.pipeline\n"
+        "import repro_torch.data.pipeline, repro_torch.graphs.sampler\n"
+        "import repro_torch.models.gnn.gin, repro_torch.models.gnn.graphcast\n"
+        "import repro_torch.models.gnn.dimenet, repro_torch.models.gnn.mace\n"
+        "import repro_torch.models.gnn.cg, repro_torch.configs.shapes\n"
         "from repro_torch.api import SessionCheckpoint, StreamSession, TriangleCounter\n"
         "from repro_torch.kernels.bitset_count import bitset_pair_count\n"
         "import numpy as np, tempfile, os\n"
@@ -253,6 +256,14 @@ def test_import_repro_torch_pulls_in_neither_jax_nor_repro():
         "bags = torch.full((2, 39, 3), 64)\n"
         "assert not embedding.lookup_multihot(a.table, rc, bags, use_kernel=True).any()\n"
         "assert get_config('yi_6b').n_layers == 32\n"
+        "from repro_torch.models.gnn import mace\n"
+        "from repro_torch.train.steps import make_gnn_train_step\n"
+        "from repro_torch.train.optimizer import init_state\n"
+        "mc = get_smoke('mace')\n"
+        "mm = mace.init_params(torch.Generator().manual_seed(0), mc, device='cpu')\n"
+        "pos = np.random.default_rng(0).normal(size=(5, 3)).astype(np.float32)\n"
+        "mb = {'z': np.arange(5), 'pos': pos, 'edges': e, 'target': np.ones(1, np.float32)}\n"
+        "make_gnn_train_step(mc)(mm, init_state(mm), mb)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

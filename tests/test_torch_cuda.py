@@ -1332,6 +1332,89 @@ def test_train_lm_resumes_on_the_card_and_its_checkpoint_restores_on_the_cpu(cud
         assert a.device.type == "cpu" and a.dtype == b.dtype and torch.equal(a, b)
 
 
+def _gnn_smoke_batch(arch, rng):
+    """(init keywords, a loss batch) of ``arch``'s smoke config: 30 nodes,
+    phantom-padded edges; DimeNet and MACE two molecules with graph ids."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.gnn.common import bidirect, pad_edges
+    from repro_torch.models.gnn.dimenet import build_triplets
+
+    cfg, n = get_smoke(arch), 30
+    u = rng.integers(0, n, 50)
+    edges = bidirect(np.stack([u, (u + rng.integers(1, n, 50)) % n], 1).astype(np.int32))
+    if arch == "gin_tu":
+        return {"d_in": 8}, {"x": rng.standard_normal((n, 8)).astype(np.float32),
+                             "edges": pad_edges(edges, len(edges) + 5, n),
+                             "labels": rng.integers(0, cfg.n_classes, n)}
+    if arch == "graphcast":
+        return {}, {"x": rng.standard_normal((n, cfg.n_vars)).astype(np.float32),
+                    "edges": pad_edges(edges, len(edges) + 5, n),
+                    "target": rng.standard_normal((n, cfg.n_vars)).astype(np.float32)}
+    pos = (rng.standard_normal((n, 3)) * 1.5).astype(np.float32)
+    gids = (np.arange(n) >= n // 2).astype(np.int32)
+    keep = gids[edges[:, 0]] == gids[edges[:, 1]]
+    batch = {"z": rng.integers(0, 4, n), "pos": pos, "graph_ids": gids, "n_graphs": 2,
+             "edges": pad_edges(edges[keep], int(keep.sum()) + 5, n),
+             "target": rng.standard_normal(2).astype(np.float32)}
+    if arch == "dimenet":
+        batch["triplets"] = build_triplets(edges[keep], n)
+    return {}, batch
+
+
+@pytest.mark.parametrize("arch", ["gin_tu", "graphcast", "dimenet", "mace"])
+def test_gnn_smoke_configs_on_the_card_match_the_cpu_port(cuda, arch):
+    """From the same weights (the card's, through ``convert``): the loss and
+    every gradient leaf, then the parameters after one
+    ``make_gnn_train_step`` step, within 1e-4 relative (a leaf by its norm);
+    the card's path launches no hand-written kernel."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.convert import gnn_params_from_numpy, gnn_params_to_numpy
+    from repro_torch.models.gnn import dimenet, gin, graphcast, mace
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps
+
+    cfg = get_smoke(arch)
+    kw, batch = _gnn_smoke_batch(arch, np.random.default_rng(5))
+    init = {"gin_tu": gin, "graphcast": graphcast, "dimenet": dimenet, "mace": mace}[arch]
+    m_dev = init.init_params(torch.Generator(device=cuda).manual_seed(5), cfg, **kw, device=cuda)
+    m_cpu = gnn_params_from_numpy(gnn_params_to_numpy(m_dev, cfg), cfg, device="cpu")
+    assert m_dev.device.type == cuda.type
+    before = launch_counts()
+    out = []
+    for m in (m_dev, m_cpu):
+        named = dict(m.named_parameters())
+        m.requires_grad_(True)
+        loss = steps.gnn_loss(m, cfg, batch)
+        grads = torch.autograd.grad(loss, list(named.values()), materialize_grads=True,
+                                    allow_unused=True)
+        m.requires_grad_(False)
+        out.append((loss.item(), dict(zip(named, grads))))
+    (l_dev, g_dev), (l_cpu, g_cpu) = out
+    assert abs(l_dev - l_cpu) <= 1e-4 * abs(l_cpu)
+    assert _leaf_rel(g_dev, g_cpu) <= 1e-4
+    step = steps.make_gnn_train_step(cfg)
+    step(m_dev, opt.init_state(m_dev), batch)
+    step(m_cpu, opt.init_state(m_cpu), batch)
+    assert _leaf_rel(dict(m_dev.named_parameters()), dict(m_cpu.named_parameters())) <= 1e-4
+    assert not any(p.requires_grad for p in m_dev.parameters())
+    assert launch_counts() == before  # segment sums and matmuls: no K1-K7
+
+
+def test_segment_ids_outside_the_range_are_dropped_on_the_card(cuda):
+    """``index_add`` would assert on the card; the port masks such ids as the
+    reference drops them."""
+    from repro_torch.models.gnn.common import aggregate, segment_sum
+
+    data = torch.arange(12.0, device=cuda).reshape(6, 2)
+    ids = torch.tensor([0, 3, -1, 9, 2, 3], device=cuda)
+    got = segment_sum(data, ids, 4)
+    want = torch.zeros(4, 2).index_add(0, torch.tensor([0, 3, 2, 3]),
+                                       data.cpu()[[0, 1, 4, 5]])
+    assert torch.equal(got.cpu(), want)
+    mx = aggregate(data, ids, 4, "max").cpu()
+    assert torch.equal(mx[1], torch.zeros(2)) and torch.equal(mx[3], data.cpu()[5])
+
+
 @pytest.mark.parametrize("n_stages", [2, 4, 8])
 def test_ring_attention_on_a_one_card_mesh_matches_chunked_attention(cuda, n_stages):
     from repro_torch.launch import make_ring_mesh
