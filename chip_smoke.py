@@ -223,16 +223,40 @@
    translation (2e-3 of the molecule's largest site energy + 2e-4) and a
    node permutation (1e-4 of it); (f) GIN at ``ogb_products`` (2,449,029
    nodes, 61,859,140 Chung-Lu edges, 100 features): a forward and 2 steps,
-   with their peaks.
+   with their peaks; (g) the partitioned engine (``models/gnn/
+   distributed.py``) on one-card meshes ``make_ring_mesh(S, devices=
+   [cuda:0] * S)``: (g1) the four smoke configs at S = 1, 2, 4 on the
+   reference test's graph, the loss and every gradient leaf within 1e-4
+   (a leaf by its norm) of the single-device model on the card (DimeNet
+   at S = 1; at S = 4, whose partition drops the triplets that cross
+   shards as the reference's does, against the CPU port's partitioned
+   loss); (g2) GIN at its full config at ``ogb_products`` ((f)'s graph,
+   nodes padded to a multiple of 4 as the reference's dryrun cell pads
+   them, relabelled by a seeded permutation where the busiest dst shard
+   would hold over ``GNN_SKEW`` times E/S edges) through
+   ``make_distributed_gnn_train_step`` at S = 4: its first loss within
+   1e-4 of the single-device model's on the same weights, 2 steps, their
+   walls and peak beside (f)'s; (g3) GraphCast and MACE at full width,
+   ``compute_dtype`` bf16, at S = 4, after reckoning ``ogb_products`` for
+   both (neither fits the card), on ``full_graph_sm``'s graph and
+   ``molecule``: every matrix product of the bf16 loss on bf16 operands,
+   the loss within ``GNN_BF16_REL`` of f32 and at least ``GNN_BF16_FLOOR``
+   (and ``GNN_BF16_NOISE`` times two f32 runs' gap) away from it, 2 steps,
+   the weights still float32.
+16. [examples] Each ``examples/torch_*.py`` on the card in its own process
+   (all six at once, their small arguments in ``EXAMPLES``), after the
+   slices' windows and outside the main path's: each exits 0, which each
+   does only when its own counts or losses check out.
 
 Phases 2 to 11 are the main path: every kernel's launch count is set to 0
 before them and must be above 0 after them. Phases 13 to 15 are later
 slices' paths, each driven with the counts set to 0 just before it and
 read just after: none reaches a hand-written kernel (the reference trains
 through chunked attention and the plain lookup, K6 and K7 have no
-backward, and the reference's GNNs reach no Pallas kernel), so their
-counts must stay 0. Any mismatch or exception exits non-zero.
-``python3 chip_smoke.py --train`` runs phases 13 to 15 alone.
+backward, and the reference's GNNs, the partitioned engine included,
+reach no Pallas kernel), so their counts must stay 0. Any mismatch or
+exception exits non-zero. ``python3 chip_smoke.py --train`` runs phases
+13 to 15 alone, ``--examples`` phase 16 alone.
 The last three lines are the ``kernels`` JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Imports nothing of JAX
 and nothing of the reference package ``repro``.
@@ -406,6 +430,40 @@ GNN_REL = 1e-4
 # [gnn] (e): MACE's invariances on the card, the reference test's bounds
 GNN_ROTATION = dict(rtol=2e-3, atol=2e-4)
 GNN_PERMUTATION_RTOL = 1e-4
+# [gnn] (g): the partitioned engine (models/gnn/distributed.py) on one-card
+# meshes of these widths at the smoke configs, and at GNN_MESH_STAGES
+# stages at full width; a graph whose busiest dst shard holds more than
+# GNN_SKEW times E/S edges is relabelled by a permutation drawn from
+# GNN_SEED first (partition_edges_by_dst pads every shard to the busiest)
+GNN_MESH_WIDTHS = (1, 2, 4)
+GNN_MESH_STAGES = 4
+GNN_SKEW = 1.1
+# (g2): the first distributed loss against the single-device model's on the
+# same weights and graph, relative
+GNN_MESH_REL = 1e-4
+# (g3), bf16 (compute_dtype) against f32 on the same weights: GraphCast's
+# loss relative; MACE's energy error |sqrt(L_bf16) - sqrt(L_f32)| as a share
+# of the sum of its site energies' magnitudes: its loss is the square of a
+# sum of site energies, each from products of three bf16 CG factors whose
+# sums of up to ~10 terms round at every add (2^-9 each), so bf16 lands
+# several percent off (4% at the smoke config on the CPU, 8.9% at d 32)
+GNN_BF16_REL = {"graphcast": 2e-2, "mace": 0.25}
+# and, in the same units, the least that gap may be: every weight and input
+# rounded to bf16 (2^-9 relative each) moved the loss by 5.5e-4 to 6.3e-4
+# (GraphCast) and 0.56 % to 1.02 % (MACE) on the card, while a float32 path
+# run twice parts only by the order of its atomic adds. The gap must also be
+# GNN_BF16_NOISE times the gap between two f32 runs, and every matrix
+# product of the bf16 loss must take bf16 operands (utils.MatmulDtypes)
+GNN_BF16_FLOOR = {"graphcast": 1e-5, "mace": 1e-5}
+GNN_BF16_NOISE = 10
+# [examples]: each examples/torch_*.py on the card, its arguments, within
+# EXAMPLE_TIMEOUT_S, all at once in their own processes
+EXAMPLES = (("torch_quickstart.py",), ("torch_pipeline_vs_mapreduce.py",),
+            ("torch_windowed_stream.py",), ("torch_serve_lm.py",),
+            ("torch_train_lm.py", "--size", "tiny", "--steps", "30", "--batch", "4",
+             "--seq", "32"),
+            ("torch_ring_attention_500k.py",))
+EXAMPLE_TIMEOUT_S = 300
 # Issue rates outside the tensor cores, per SM per clock, for compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
 # throughput): 32-bit integer add and bitwise logic 64, population count 16.
@@ -3572,7 +3630,9 @@ def gnn_init(arch: str, cfg, gen, **kw):
             "mace": mace}[arch].init_params(gen, cfg, **kw, device=DEVICE)
 
 
-def gnn_loss_and_grads(model, cfg, batch) -> tuple[float, dict]:
+def gnn_loss_and_grads(model, cfg, batch, loss_fn=None) -> tuple[float, dict]:
+    """``loss_fn(model, batch)`` (``gnn_loss`` by default) and its gradient by
+    parameter name."""
     import torch
 
     from repro_torch.train.steps import gnn_loss
@@ -3580,7 +3640,7 @@ def gnn_loss_and_grads(model, cfg, batch) -> tuple[float, dict]:
     named = dict(model.named_parameters())
     model.requires_grad_(True)
     try:
-        loss = gnn_loss(model, cfg, batch)
+        loss = (loss_fn or (lambda m, b: gnn_loss(m, cfg, b)))(model, batch)
         grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True,
                                     materialize_grads=True)
     finally:
@@ -3851,6 +3911,313 @@ def gnn_phase() -> dict:
         f"{cfg.name} at ogb_products", cfg, model, batch, 2, sync)}
     del model, batch
     torch.cuda.empty_cache()
+    out["g"] = gnn_mesh_phase(gen, sync)
+    return out
+
+
+def gnn_mesh(n_stages: int):
+    from repro_torch.launch import make_ring_mesh
+
+    return make_ring_mesh(n_stages, devices=[DEVICE] * n_stages)
+
+
+def gnn_mesh_smoke(rng) -> dict:
+    """(g1): each family's smoke config on one-card meshes of
+    GNN_MESH_WIDTHS stages, on the reference test's graph (gnp(64, 0.2,
+    seed=1) both ways): the loss and every gradient leaf against the
+    single-device model on the card, same weights, within GNN_REL (a leaf by
+    its norm); DimeNet (whose partition drops the triplets that cross
+    shards, as the reference's does) at one stage, and at GNN_MESH_STAGES
+    against the CPU port's partitioned loss."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.convert import gnn_params_from_numpy, gnn_params_to_numpy
+    from repro_torch.graphs import generators
+    from repro_torch.launch import make_ring_mesh
+    from repro_torch.models.gnn import distributed as D
+    from repro_torch.models.gnn.common import bidirect, pad_edges
+    from repro_torch.models.gnn.dimenet import build_triplets
+
+    n = 64
+    edges = bidirect(generators.gnp(n, 0.2, seed=1).edges)
+    plain = pad_edges(edges, len(edges) + 8, n)
+    out = {}
+    for arch, kw in (("gin_tu", {"d_in": 8}), ("graphcast", {}), ("mace", {}),
+                     ("dimenet", {})):
+        cfg = get_smoke(arch)
+        model = gnn_init(arch, cfg, torch.Generator(device=DEVICE).manual_seed(GNN_SEED), **kw)
+        feats = {"gin": lambda: {"x": rng.standard_normal((n, 8)).astype(np.float32),
+                                 "labels": rng.integers(0, cfg.n_classes, n)},
+                 "graphcast": lambda: {
+                     "x": rng.standard_normal((n, cfg.n_vars)).astype(np.float32),
+                     "target": rng.standard_normal((n, cfg.n_vars)).astype(np.float32)}}.get(
+            cfg.family, lambda: {"z": rng.integers(0, 4, n),
+                                 "pos": (rng.normal(size=(n, 3)) * 2.0).astype(np.float32),
+                                 "target": np.array([0.5], np.float32)})()
+        builder = D._BUILDERS[cfg.family]
+        widths = GNN_MESH_WIDTHS if cfg.family != "dimenet" else (1, GNN_MESH_STAGES)
+        for s in widths:
+            part, e_loc = D.partition_edges_by_dst(edges, n, s)
+            batch = {**feats, "edges": part}
+            if cfg.family == "dimenet":
+                batch["triplets"] = build_triplets(part, n)
+            loss, grads = gnn_loss_and_grads(model, cfg, batch,
+                                             builder(model, cfg, gnn_mesh(s)))
+            if cfg.family == "dimenet" and s > 1:
+                m_cpu = gnn_params_from_numpy(gnn_params_to_numpy(model, cfg), cfg,
+                                              device="cpu")
+                want, want_g = gnn_loss_and_grads(
+                    m_cpu, cfg, batch, builder(m_cpu, cfg, make_ring_mesh(s, devices=["cpu"] * s)))
+                what = "the CPU port's partitioned loss"
+            else:
+                want, want_g = gnn_loss_and_grads(
+                    model, cfg, {**batch, "edges": part if cfg.family == "dimenet" else plain})
+                what = "the single-device model"
+            loss_rel, grad_rel = abs(loss - want) / abs(want), leaf_rel(grads, want_g)
+            log(f"  (g1) {cfg.name} on {s} stage(s) of the card (e_loc {e_loc}): loss {loss!r} "
+                f"against {what}'s {want!r} (rel {loss_rel:.3e}), gradient leaf rel "
+                f"{grad_rel:.3e} (<= {GNN_REL:g})")
+            if not max(loss_rel, grad_rel) <= GNN_REL:
+                raise AssertionError(f"[gnn] (g1) {cfg.name} at S={s}: loss {loss_rel}, "
+                                     f"gradients {grad_rel} > {GNN_REL} from {what}")
+            out[f"{cfg.family} S={s}"] = {"loss": loss, "want": want, "loss_rel": loss_rel,
+                                          "grad_rel": grad_rel}
+    return out
+
+
+def gnn_relabelled_chung_lu(n: int, m: int, n_stages: int, gen) -> tuple:
+    """(g2)'s graph: [gnn] (f)'s Chung-Lu draw (``gnn_chung_lu``) over ``n``
+    nodes, reckoned for ``partition_edges_by_dst`` over ``n_stages`` dst
+    shards of n // n_stages rows: where the busiest shard holds more than
+    GNN_SKEW · m / n_stages edges, the nodes are relabelled by a random
+    permutation (a Chung-Lu graph all the same). Returns (src, dst, the
+    reckoning)."""
+    import torch
+
+    src, dst = gnn_chung_lu(n, m, gen)
+    rows = n // n_stages
+
+    def busiest(d):
+        return int(torch.bincount(torch.clamp(d // rows, max=n_stages - 1),
+                                  minlength=n_stages).max())
+
+    drawn = busiest(dst)
+    reck = {"edges": m, "per_shard_mean": m / n_stages, "busiest_as_drawn": drawn,
+            "relabelled": drawn > GNN_SKEW * m / n_stages}
+    if reck["relabelled"]:
+        perm = torch.randperm(n, generator=gen, device=DEVICE)
+        src, dst = perm[src], perm[dst]
+        reck["busiest_relabelled"] = busiest(dst)
+    return src, dst, reck
+
+
+def gnn_mesh_phase(gen, sync) -> dict:
+    """[gnn] (g), the partitioned engine on one-card meshes: (g1) the smoke
+    configs against the single-device models; (g2) GIN at its full config
+    at ogb_products through ``make_distributed_gnn_train_step`` at
+    GNN_MESH_STAGES stages, its first loss against the single-device
+    model's; (g3) GraphCast and MACE at full width in bf16 on the shapes
+    [gnn] runs them, against f32, after reckoning ogb_products for both."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.gnn import distributed as D
+    from repro_torch.models.gnn import gin
+    from repro_torch.models.gnn.mace import _paths
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.steps import gnn_loss
+    from repro_torch.utils import MatmulDtypes
+
+    rng = np.random.default_rng(GNN_SEED)
+    out = {"g1": gnn_mesh_smoke(rng)}
+    S = GNN_MESH_STAGES
+    mesh = gnn_mesh(S)
+
+    # (g2) GIN at ogb_products, nodes padded to a multiple of S as the
+    # reference's dryrun cell pads them
+    cfg, sh = get_config("gin_tu"), gnn_shapes()["ogb_products"]
+    n = -(-sh.n_nodes // S) * S
+    t0 = time.perf_counter()
+    src, dst, reck = gnn_relabelled_chung_lu(n, sh.n_edges, S, gen)
+    edges = torch.stack([src, dst], 1).to(torch.int32)
+    del src, dst
+    batch = {"x": torch.randn((n, sh.d_feat), generator=gen, device=DEVICE),
+             "edges": edges,
+             "labels": torch.randint(0, cfg.n_classes, (n,), generator=gen, device=DEVICE)}
+    model = gin.init_params(gen, cfg, sh.d_feat, device=DEVICE)
+    with torch.no_grad():
+        single = float(gnn_loss(model, cfg, batch))
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    part, e_loc = D.partition_edges_by_dst(edges.cpu().numpy(), n, S)
+    part_ms = (time.perf_counter() - t1) * 1e3
+    batch["edges"] = torch.as_tensor(part, device=DEVICE)
+    del edges, part
+    reck.update(e_loc=e_loc, slots=S * e_loc, partition_ms=part_ms,
+                setup_s=time.perf_counter() - t0)
+    log(f"  (g2) {cfg.name} at ogb_products ({sh.n_nodes:,} nodes padded to {n:,}, "
+        f"{sh.n_edges:,} Chung-Lu edges, {sh.d_feat} features) on {S} stages of the card: "
+        f"busiest dst shard as drawn {reck['busiest_as_drawn']:,} edges against E/S "
+        f"{sh.n_edges / S:,.0f}; relabelled {reck['relabelled']} "
+        f"(busiest after: {reck.get('busiest_relabelled', 'n/a')}); e_loc {e_loc:,}, "
+        f"S·e_loc {S * e_loc:,} slots; host partition {part_ms:.1f} ms")
+    held = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    step = D.make_distributed_gnn_train_step(cfg, mesh)
+    losses, walls = timed_steps(f"(g2) {cfg.name} at ogb_products, {S} stages", step, model,
+                                opt.init_state(model), [batch] * 2, sync)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rel = abs(losses[0] - single) / abs(single)
+    log(f"  (g2) first partitioned loss {losses[0]!r} against the single-device model's "
+        f"{single!r} (rel {rel:.3e}, <= {GNN_MESH_REL:g}); step walls {walls} ms, peak "
+        f"allocated {peak:.2f} GB ({held:.2f} GB held before the steps) beside [gnn] (f)'s "
+        "single-device step (867 ms, 53.07 GB, PERF.md §6)")
+    if not rel <= GNN_MESH_REL:
+        raise AssertionError(f"[gnn] (g2): the partitioned loss {losses[0]} parts from the "
+                             f"single-device loss {single} by {rel} > {GNN_MESH_REL}")
+    out["g2"] = {**reck, "single_loss": single, "losses": losses, "loss_rel": rel,
+                 "walls_ms": walls, "peak_gb": peak, "held_gb": held}
+    del model, batch, step
+    torch.cuda.empty_cache()
+
+    # (g3) GraphCast and MACE in bf16; first the reckoning at ogb_products
+    e_og = -(-2 * sh.n_edges // (S * 8)) * (S * 8)  # the dryrun cell's edges
+    gc_cfg, mc_cfg = get_config("graphcast"), get_config("mace")
+    chunk, c = e_og // 8, mc_cfg.d_hidden
+    dims = [2 * l + 1 for l in range(mc_cfg.l_max + 1)]
+    reckon = {
+        "graphcast_edge_state_gb": e_og * gc_cfg.d_hidden * 2 / 1e9,
+        "graphcast_saved_edge_carries_gb": gc_cfg.n_layers * e_og * gc_cfg.d_hidden * 2 / 1e9,
+        # one edge chunk of 8: the radial weights of every path, the source
+        # gathers of every l1, and the widest path's message
+        "mace_chunk_gb": chunk * c * 2 * (len(_paths(mc_cfg.l_max)) + sum(dims)
+                                          + max(dims)) / 1e9}
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9 if DEVICE == "cuda" \
+        else float("inf")
+    fits = {"graphcast": reckon["graphcast_saved_edge_carries_gb"] < card_gb,
+            "mace": reckon["mace_chunk_gb"] < card_gb}
+    log(f"  (g3) reckoned at ogb_products ({e_og:,} edges, the dryrun cell's, bf16): "
+        f"GraphCast's edge state {reckon['graphcast_edge_state_gb']:.1f} GB and its "
+        f"{gc_cfg.n_layers} checkpointed edge carries "
+        f"{reckon['graphcast_saved_edge_carries_gb']:.1f} GB; MACE's working set of one "
+        f"edge chunk of 8 (radial weights of {len(_paths(mc_cfg.l_max))} paths, the source "
+        f"gathers, the widest message) {reckon['mace_chunk_gb']:.1f} GB; the card holds "
+        f"{card_gb:.1f} GB: fits {fits}. Both run on the shapes [gnn] runs them "
+        "(full_graph_sm's graph, molecule)")
+    out["g3"] = {"reckoning": reckon, "fits_ogb_products": fits}
+    shapes = gnn_shapes()
+    fg, mol_shape = shapes["full_graph_sm"], shapes["molecule"]
+    gc_batch = {"x": torch.randn((fg.n_nodes, gc_cfg.n_vars), generator=gen, device=DEVICE),
+                "target": torch.randn((fg.n_nodes, gc_cfg.n_vars), generator=gen,
+                                      device=DEVICE)}
+    gc_batch["edges"] = D.partition_edges_by_dst(gnn_pairs(fg.n_nodes, fg.n_edges // 2, rng),
+                                                 fg.n_nodes, S)[0]
+    mols = gnn_molecules(mol_shape, rng)
+    mc_batch = {"z": mols["z"], "pos": mols["pos"],
+                "edges": D.partition_edges_by_dst(mols["real_edges"], len(mols["z"]), S)[0],
+                "target": np.array([mols["target"].sum()], np.float32)}
+    for arch, cfg, batch, kw in (("graphcast", gc_cfg, gc_batch, {}),
+                                 ("mace", mc_cfg, mc_batch, {"n_species": GNN_SPECIES})):
+        model = gnn_init(arch, cfg, gen, **kw)
+        builder = D._BUILDERS[cfg.family]
+        with torch.no_grad():
+            l32 = float(builder(model, cfg, mesh)(model, batch))
+            l32_again = float(builder(model, cfg, mesh)(model, batch))
+            with MatmulDtypes() as mm:
+                l16 = float(builder(model, cfg, mesh, compute_dtype=torch.bfloat16)(model, batch))
+        operands = sorted({str(d) for pair in mm.seen for d in pair})
+        if not mm.seen or operands != ["torch.bfloat16"]:
+            raise AssertionError(f"[gnn] (g3) {cfg.name}: the bf16 loss ran {len(mm.seen)} "
+                                 f"matrix products on operands {operands}")
+        if arch == "graphcast":
+            err, what = abs(l16 - l32) / abs(l32), "of the f32 loss"
+            noise = abs(l32_again - l32) / abs(l32)
+        else:
+            from repro_torch.models.gnn import mace
+
+            with torch.no_grad():
+                sites = mace.forward_energy(
+                    model, cfg, torch.as_tensor(mols["z"], device=DEVICE),
+                    torch.as_tensor(mols["pos"], device=DEVICE),
+                    torch.as_tensor(mols["edges"], device=DEVICE),
+                    graph_ids=torch.arange(len(mols["z"]), device=DEVICE),
+                    n_graphs=len(mols["z"]))
+            scale = float(sites.abs().sum())
+            err, what = abs(math.sqrt(l16) - math.sqrt(l32)) / scale, \
+                f"of Σ|site energy| ({scale!r})"
+            noise = abs(math.sqrt(l32_again) - math.sqrt(l32)) / scale
+        floor = max(GNN_BF16_FLOOR[arch], GNN_BF16_NOISE * noise)
+        log(f"  (g3) {cfg.name} on {S} stages, compute_dtype bf16: loss {l16!r} against f32 "
+            f"{l32!r}: {err:.3e} {what} (<= {GNN_BF16_REL[arch]:g}, >= {floor:.3e}: "
+            f"{GNN_BF16_FLOOR[arch]:g} and {GNN_BF16_NOISE} x the {noise:.3e} between two f32 "
+            f"runs); {len(mm.seen)} matrix products, every one on bf16 operands")
+        if not (math.isfinite(l16) and floor <= err <= GNN_BF16_REL[arch]):
+            raise AssertionError(f"[gnn] (g3) {cfg.name}: bf16 {l16} against f32 {l32}: "
+                                 f"{err} outside [{floor}, {GNN_BF16_REL[arch]}]")
+        held = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        step = D.make_distributed_gnn_train_step(cfg, mesh, compute_dtype=torch.bfloat16)
+        losses, walls = timed_steps(f"(g3) {cfg.name} bf16, {S} stages", step, model,
+                                    opt.init_state(model), [batch] * 2, sync)
+        if not all(p.dtype == torch.float32 for p in model.parameters()):
+            raise AssertionError(f"[gnn] (g3) {cfg.name}: a bf16 step changed a weight's dtype")
+        out["g3"][arch] = {"f32_loss": l32, "f32_noise": noise, "bf16_loss": l16, "err": err,
+                           "bf16_matmuls": len(mm.seen), "losses": losses,
+                           "walls_ms": walls, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                           "held_gb": held}
+        log(f"  (g3) {cfg.name}: peak allocated {out['g3'][arch]['peak_gb']:.2f} GB "
+            f"({held:.2f} GB held before the steps)")
+        del model, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def examples_phase() -> dict:
+    """[examples]: each ``examples/torch_*.py`` on the card (EXAMPLES' small
+    arguments), every one in its own process, all at once, each within
+    EXAMPLE_TIMEOUT_S; each must exit 0 (each asserts its own counts)."""
+    import shutil
+
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for name, *args in EXAMPLES:
+            extra = ["--ckpt-dir", ckpt] if name == "torch_train_lm.py" else []
+            procs.append((name, subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "examples", name), *args, *extra,
+                 "--device", DEVICE],
+                env=env, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        out, failed = {}, []
+        for name, proc in procs:
+            try:
+                text, _ = proc.communicate(timeout=max(1.0, EXAMPLE_TIMEOUT_S
+                                                       - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                text, _ = proc.communicate()
+                text += f"\n(killed after {EXAMPLE_TIMEOUT_S} s)"
+            lines = text.strip().splitlines()
+            log(f"  {name} (exit {proc.returncode}): " + " | ".join(lines[-3:]))
+            out[name] = {"rc": proc.returncode, "tail": lines[-3:]}
+            if proc.returncode != 0:
+                failed.append(name)
+                for line in lines[-30:]:
+                    log(f"    {line}")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    if failed:
+        raise AssertionError(f"[examples] failed on the card: {failed}")
     return out
 
 
@@ -4183,7 +4550,8 @@ def slice_phases() -> tuple[dict, dict, dict]:
             "gnn": "the GNN smoke configs on the card against the CPU port; GIN, GraphCast, "
                    "DimeNet and MACE at their full configs on GNN_SHAPES' sizes (GIN at "
                    "full_graph_sm, molecule, minibatch_lg through the sampler and "
-                   "ogb_products); MACE's invariances"}[label])
+                   "ogb_products); MACE's invariances; the partitioned engine on one-card "
+                   "meshes (GIN at ogb_products on 4 stages)"}[label])
         reset_launch_counts()
         results.append(run())
         torch.cuda.synchronize()
@@ -4236,6 +4604,11 @@ def main() -> int:
         log("[train summary] " + json.dumps(train))
         log("[ring attention summary] " + json.dumps(ring))
         log("[gnn summary] " + json.dumps(gnn))
+        return 0
+    if sys.argv[1:] == ["--examples"]:  # [examples] alone
+        log(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+        _build.build_all(verbose=True)  # once here, not in six processes at once
+        log("[examples summary] " + json.dumps(examples_phase()))
         return 0
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -4362,6 +4735,11 @@ def main() -> int:
     log(f"[profile] done in {time.perf_counter() - t0:.1f} s")
     del graphs
     train, ring, gnn = slice_phases()
+    t0 = time.perf_counter()
+    log("[examples] each examples/torch_*.py on the card, in its own process "
+        "(outside the main path's launch window)")
+    examples = examples_phase()
+    log(f"[examples] done in {time.perf_counter() - t0:.1f} s")
 
     out = []
     for name, k in kernels().items():
@@ -4414,6 +4792,7 @@ def main() -> int:
     log("[train summary] " + json.dumps(train))
     log("[ring attention summary] " + json.dumps(ring))
     log("[gnn summary] " + json.dumps(gnn))
+    log("[examples summary] " + json.dumps(examples))
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": out}))
     print(card)

@@ -223,3 +223,18 @@ def count_triangles_bitset_ring(g: Graph, *, mesh=None, n_stages: int | None = N
     part, masks, edges = build_bitset_ring_operands(g, n_stages, balance=balance,
                                                     device=dev)
     return int(_ring_run(bitset_ring_spec(), masks, edges, n_stages, mesh, sequential))
+
+
+# --------------------------------------------------------------------------
+# Host conveniences
+# --------------------------------------------------------------------------
+def count_triangles(g: Graph, *, method: str = "dense", **kw) -> int:
+    """DEPRECATED front door, a thin shim over ``repro_torch.api``.
+
+    Routes through the shared planner-driven ``TriangleCounter`` (its
+    ``count_triangles``; ``device=`` as there, ``cuda`` by default);
+    ``method="auto"`` lets the planner choose. New code should use
+    ``repro_torch.api.TriangleCounter`` directly."""
+    from repro_torch.api import count_triangles as _api_count_triangles
+
+    return _api_count_triangles(g, method=method, **kw)

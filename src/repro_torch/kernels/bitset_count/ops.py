@@ -98,3 +98,29 @@ def bitset_edge_count_per_edge(masks: torch.Tensor, edges: torch.Tensor) -> torc
     if edges.shape[0] >= 2**31:
         raise ValueError(f"one CTA per edge: at most 2**31 - 1 edges, got {edges.shape[0]}")
     return _launch(PER_EDGE, (masks,), edges)
+
+
+# csrc/bitset_count.cu's launch geometry of K3 and K4: THREADS a CTA, a
+# group of the power of two >= W threads (at most 32) per edge, at most
+# GRID_PER_SM CTAs per SM (the CTAs then stride over the edges)
+THREADS = 256
+GRID_PER_SM = 16
+
+
+def bitset_grid_steps(n_edges: int, *, n_words: int, sms: int | None = None) -> int:
+    """CTAs :func:`bitset_edge_count` (K3; K4 alike) launches for a block of
+    ``n_edges`` edges over tables of ``n_words`` 32-bit words a row, on a
+    card with ``sms`` SMs (by default the current CUDA device's count, which
+    the launch reads): the reference counts its Pallas grid steps,
+    ceil(B / edge_tile); the kernel gives each edge a group of the power of
+    two >= W threads (at most 32), so a CTA of ``THREADS`` takes 256 / group
+    edges, capped at ``GRID_PER_SM`` · sms CTAs."""
+    if n_edges <= 0 or n_words <= 0:
+        return 0
+    if sms is None:
+        sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    group_log2 = 0
+    while (1 << group_log2) < n_words and group_log2 < 5:
+        group_log2 += 1
+    per_block = THREADS >> group_log2
+    return min(-(-n_edges // per_block), GRID_PER_SM * sms)

@@ -273,3 +273,17 @@ def triangle_count(u: torch.Tensor, *, live_grid: bool = True) -> torch.Tensor:
             LIVE(ub.data_ptr(), n, ld, mat_stride, batch, slice_, items, out.data_ptr(),
                  stream=torch.cuda.current_stream(dev).cuda_stream)
     return out if u.dim() == 3 else out[0]
+
+
+def triangle_count_grid_steps(n: int, *, sms: int | None = None) -> int:
+    """CTAs :func:`triangle_count` launches for an (n, n) input: the work
+    items of :func:`split_plan` under the upper-triangular skip, one CTA
+    each, on a card with ``sms`` SMs (by default the current CUDA device's
+    count, which the kernels read). The reference counts its Pallas grid
+    steps here; in the port K1 and K2 under the skip decode the same items
+    (:func:`work_item`), so this is both kernels' count."""
+    if not n:
+        return 0
+    if sms is None:
+        sms = _sm_count(torch.cuda.current_device())
+    return split_plan(n, n, n, True, sms)[1]

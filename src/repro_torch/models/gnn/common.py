@@ -12,6 +12,8 @@ never clamps them, so it gives the reference's sums for any ids. The MLP
 """
 from __future__ import annotations
 
+from collections.abc import Mapping
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -132,10 +134,16 @@ def mlp_normal_(p: DenseMLP, generator: torch.Generator) -> DenseMLP:
     return p
 
 
-def mlp_apply(p: DenseMLP, x: torch.Tensor, *, act=F.silu, final_act: bool = False) -> torch.Tensor:
-    for i in range(p.n):
-        x = x @ getattr(p, f"w{i}") + getattr(p, f"b{i}")
-        if i < p.n - 1 or final_act:
+def mlp_apply(p: DenseMLP | Mapping[str, torch.Tensor], x: torch.Tensor, *, act=F.silu,
+              final_act: bool = False) -> torch.Tensor:
+    """``p``: a :class:`DenseMLP`, or a mapping of its tensors by leaf name
+    (``"w0"``, ``"b0"``, ...), as the partitioned engine holds each device's
+    copy in its compute dtype."""
+    w = p if isinstance(p, Mapping) else dict(p.named_parameters())
+    n = len(w) // 2
+    for i in range(n):
+        x = x @ w[f"w{i}"] + w[f"b{i}"]
+        if i < n - 1 or final_act:
             x = act(x)
     return x
 

@@ -63,6 +63,11 @@ def _train_step(loss: Callable, opt_cfg: opt.AdamWConfig) -> Callable:
 # ---------------------------------------------------------------------------
 # LM
 # ---------------------------------------------------------------------------
+def lm_loss_remat(model, cfg: LMConfig, batch, *, chunk_q: int = 1024) -> torch.Tensor:
+    """``loss_fn`` with per-block rematerialisation (activation checkpointing)."""
+    return tf.loss_fn(model, cfg, batch, chunk_q=chunk_q, remat=True)
+
+
 def make_lm_train_step(cfg: LMConfig, opt_cfg: opt.AdamWConfig | None = None,
                        *, chunk_q: int = 1024, remat: bool = True,
                        ce_chunk: int | None = None, mesh=None,

@@ -1,12 +1,14 @@
 """Small shared utilities: the count dtype, device resolution, the
-serving tier's exception-propagating thread, and a map over trees of
-tensors (nested dicts, lists and tuples: the reference's pytrees)."""
+serving tier's exception-propagating thread, a map over trees of tensors
+(nested dicts, lists and tuples: the reference's pytrees) and their
+bytes, and a record of the dtypes that matrix products ran in."""
 from __future__ import annotations
 
 import threading
 from typing import Any, Callable
 
 import torch
+from torch.overrides import TorchFunctionMode
 
 
 def count_dtype() -> torch.dtype:
@@ -77,3 +79,29 @@ def tree_leaves(tree: Any) -> list:
     out: list = []
     tree_map(out.append, tree)
     return out
+
+
+def bytes_of(tree: Any) -> int:
+    """Bytes of the tensors and arrays among ``tree``'s leaves (other leaves
+    count 0)."""
+    return sum(x.numel() * x.element_size() if isinstance(x, torch.Tensor)
+               else x.size * x.dtype.itemsize
+               for x in tree_leaves(tree) if hasattr(x, "dtype"))
+
+
+class MatmulDtypes(TorchFunctionMode):
+    """While entered, records in ``seen`` the operand dtypes of every
+    ``@`` / ``matmul`` called from Python: how a caller checks that a
+    compute dtype reached the arithmetic, not only the result's dtype."""
+
+    _FUNCS = (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__, torch.mm,
+              torch.bmm)
+
+    def __init__(self):
+        super().__init__()
+        self.seen: list[tuple[torch.dtype, torch.dtype]] = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in self._FUNCS:
+            self.seen.append((args[0].dtype, args[1].dtype))
+        return func(*args, **(kwargs or {}))

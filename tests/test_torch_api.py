@@ -225,6 +225,7 @@ def test_import_repro_torch_pulls_in_neither_jax_nor_repro():
         "import repro_torch.models.gnn.gin, repro_torch.models.gnn.graphcast\n"
         "import repro_torch.models.gnn.dimenet, repro_torch.models.gnn.mace\n"
         "import repro_torch.models.gnn.cg, repro_torch.configs.shapes\n"
+        "import repro_torch.models.gnn.distributed\n"
         "from repro_torch.api import SessionCheckpoint, StreamSession, TriangleCounter\n"
         "from repro_torch.kernels.bitset_count import bitset_pair_count\n"
         "import numpy as np, tempfile, os\n"
@@ -264,6 +265,14 @@ def test_import_repro_torch_pulls_in_neither_jax_nor_repro():
         "pos = np.random.default_rng(0).normal(size=(5, 3)).astype(np.float32)\n"
         "mb = {'z': np.arange(5), 'pos': pos, 'edges': e, 'target': np.ones(1, np.float32)}\n"
         "make_gnn_train_step(mc)(mm, init_state(mm), mb)\n"
+        "from repro_torch.launch import make_ring_mesh\n"
+        "from repro_torch.models.gnn import distributed as gd, gin\n"
+        "gc = get_smoke('gin_tu')\n"
+        "gmod = gin.init_params(torch.Generator().manual_seed(0), gc, 3, device='cpu')\n"
+        "pe, _ = gd.partition_edges_by_dst(np.concatenate([e, e[:, ::-1]]), 6, 2)\n"
+        "gb = {'x': np.ones((6, 3), np.float32), 'edges': pe, 'labels': np.zeros(6, np.int64)}\n"
+        "gd.make_distributed_gnn_train_step(gc, make_ring_mesh(2, devices=['cpu'] * 2))(\n"
+        "    gmod, init_state(gmod), gb)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -275,12 +284,15 @@ def test_import_repro_torch_pulls_in_neither_jax_nor_repro():
 
 
 def test_port_sources_never_import_jax_or_repro():
-    """Static twin of the subprocess check: no module of the port, and not
-    chip_smoke.py, names jax or the reference package in an import."""
+    """Static twin of the subprocess check: no module of the port, and
+    neither chip_smoke.py nor an ``examples/torch_*.py``, names jax or the
+    reference package in an import."""
     import ast
 
     roots = [os.path.join(REPO, "src", "repro_torch")]
     files = [os.path.join(REPO, "chip_smoke.py")]
+    files += [os.path.join(REPO, "examples", f) for f in os.listdir(os.path.join(REPO, "examples"))
+              if f.startswith("torch_") and f.endswith(".py")]
     for root in roots:
         for d, _, names in os.walk(root):
             files += [os.path.join(d, f) for f in names if f.endswith(".py")]

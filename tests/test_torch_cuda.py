@@ -1400,6 +1400,59 @@ def test_gnn_smoke_configs_on_the_card_match_the_cpu_port(cuda, arch):
     assert launch_counts() == before  # segment sums and matmuls: no K1-K7
 
 
+@pytest.mark.parametrize("arch", ["gin_tu", "graphcast", "mace"])
+def test_partitioned_gnn_on_a_one_card_mesh_matches_the_single_device_model(cuda, arch):
+    """``models/gnn/distributed``'s loss and gradients on four stages of the
+    card against the single-device model on the card, the same weights,
+    within 1e-4 relative (a leaf by its norm); a distributed train step
+    leaves the weights float32 and not requiring grad; no K1-K7 launch."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import make_ring_mesh
+    from repro_torch.models.gnn import distributed as D
+    from repro_torch.models.gnn import gin, graphcast, mace
+    from repro_torch.models.gnn.common import bidirect, pad_edges
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps
+
+    cfg, n, rng = get_smoke(arch), 32, np.random.default_rng(7)
+    u = rng.integers(0, n, 60)
+    edges = bidirect(np.stack([u, (u + rng.integers(1, n, 60)) % n], 1).astype(np.int32))
+    kw = {"d_in": 8} if arch == "gin_tu" else {}
+    batch = {"gin_tu": lambda: {"x": rng.standard_normal((n, 8)).astype(np.float32),
+                                "labels": rng.integers(0, cfg.n_classes, n)},
+             "graphcast": lambda: {
+                 "x": rng.standard_normal((n, cfg.n_vars)).astype(np.float32),
+                 "target": rng.standard_normal((n, cfg.n_vars)).astype(np.float32)},
+             "mace": lambda: {"z": rng.integers(0, 4, n),
+                              "pos": (rng.standard_normal((n, 3)) * 1.5).astype(np.float32),
+                              "target": np.array([0.5], np.float32)}}[arch]()
+    init = {"gin_tu": gin, "graphcast": graphcast, "mace": mace}[arch]
+    model = init.init_params(torch.Generator(device=cuda).manual_seed(7), cfg, **kw, device=cuda)
+    mesh = make_ring_mesh(4, devices=[cuda] * 4)
+    part = D.partition_edges_by_dst(edges, n, 4)[0]
+    before = launch_counts()
+    out = []
+    for fn, b in ((D._BUILDERS[cfg.family](model, cfg, mesh), {**batch, "edges": part}),
+                  (lambda m, bb: steps.gnn_loss(m, cfg, bb),
+                   {**batch, "edges": pad_edges(edges, len(edges) + 3, n)})):
+        named = dict(model.named_parameters())
+        model.requires_grad_(True)
+        loss = fn(model, b)
+        grads = torch.autograd.grad(loss, list(named.values()), materialize_grads=True,
+                                    allow_unused=True)
+        model.requires_grad_(False)
+        out.append((loss.item(), dict(zip(named, grads))))
+    (l_mesh, g_mesh), (l_one, g_one) = out
+    assert abs(l_mesh - l_one) <= 1e-4 * abs(l_one)
+    assert _leaf_rel(g_mesh, {k: g.cpu() for k, g in g_one.items()}) <= 1e-4
+    dtype = torch.bfloat16 if arch != "gin_tu" else None
+    step = D.make_distributed_gnn_train_step(cfg, mesh, compute_dtype=dtype)
+    _, _, m = step(model, opt.init_state(model), {**batch, "edges": part})
+    assert np.isfinite(m["loss"].item())
+    assert all(p.dtype == torch.float32 and not p.requires_grad for p in model.parameters())
+    assert launch_counts() == before  # gathers, segment sums and matmuls: no K1-K7
+
+
 def test_segment_ids_outside_the_range_are_dropped_on_the_card(cuda):
     """``index_add`` would assert on the card; the port masks such ids as the
     reference drops them."""
