@@ -243,20 +243,42 @@
    the loss within ``GNN_BF16_REL`` of f32 and at least ``GNN_BF16_FLOOR``
    (and ``GNN_BF16_NOISE`` times two f32 runs' gap) away from it, 2 steps,
    the weights still float32.
-16. [examples] Each ``examples/torch_*.py`` on the card in its own process
+16. [data-model mesh] The ``("data", "model")`` mesh (``launch.Mesh``,
+   ``launch.sharding``, ``models.moe.moe_apply_ep``, the mesh LM steps) on
+   one-card meshes ``make_local_mesh(data=, model=, devices=[cuda:0] *
+   k)``: (a) the yi_6b and deepseek_v2_lite_16b smoke configs on (2, 4),
+   (1, 4) and (4, 2) meshes, one ``make_lm_train_step(mesh=,
+   seq_parallel=True, grad_specs=lm_param_specs(...))`` step and one
+   ``make_lm_prefill(mesh=, seq_parallel=True)`` each against the CPU
+   port's same call on the same weights (loss rtol 2e-5, logits 1e-5 of
+   the largest, parameter and moment leaves 1e-4 by their norm), Yi's also
+   against the card's plain step; (b) one DeepSeek-V2-Lite MoE layer at
+   full width (64 experts, D 2,048, F 1,408, top-6) on 4 x 1,024 tokens on
+   a (2, 4) mesh, f32 and bf16: at the default capacity against the CPU
+   port's ``moe_apply_ep`` (1 x 1,024 tokens in bf16), the dropped share
+   printed; at capacity E/k, where nothing drops, against the card's
+   ``moe_apply`` (data rows routed differently by the two computations
+   are left out and counted); (c) DeepSeek-V2-Lite bf16 at full depth:
+   the mesh prefill on 4 x 1,024 tokens beside the single-device prefill
+   on the same model (walls, peaks, finite logits) and each MoE layer's
+   dropped share; (d) DeepSeek-V2-Lite at full width cut to 2 layers, f32,
+   the mesh train step: its first loss on 2 x 256 tokens within 1e-4 of
+   the CPU port's, then 3 steps of 4 x 1,024 (walls, tokens/s, peak).
+17. [examples] Each ``examples/torch_*.py`` on the card in its own process
    (all six at once, their small arguments in ``EXAMPLES``), after the
    slices' windows and outside the main path's: each exits 0, which each
    does only when its own counts or losses check out.
 
 Phases 2 to 11 are the main path: every kernel's launch count is set to 0
-before them and must be above 0 after them. Phases 13 to 15 are later
+before them and must be above 0 after them. Phases 13 to 16 are later
 slices' paths, each driven with the counts set to 0 just before it and
 read just after: none reaches a hand-written kernel (the reference trains
 through chunked attention and the plain lookup, K6 and K7 have no
-backward, and the reference's GNNs, the partitioned engine included,
-reach no Pallas kernel), so their counts must stay 0. Any mismatch or
-exception exits non-zero. ``python3 chip_smoke.py --train`` runs phases
-13 to 15 alone, ``--examples`` phase 16 alone.
+backward, the reference's GNNs, the partitioned engine included, reach no
+Pallas kernel, and neither do its mesh steps and its EP), so their counts
+must stay 0. Any mismatch or exception exits non-zero. ``python3
+chip_smoke.py --train`` runs phases 13 to 16 alone, ``--examples`` phase 17
+alone.
 The last three lines are the ``kernels`` JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Imports nothing of JAX
 and nothing of the reference package ``repro``.
@@ -456,6 +478,32 @@ GNN_BF16_REL = {"graphcast": 2e-2, "mace": 0.25}
 # product of the bf16 loss must take bf16 operands (utils.MatmulDtypes)
 GNN_BF16_FLOOR = {"graphcast": 1e-5, "mace": 1e-5}
 GNN_BF16_NOISE = 10
+# [data-model mesh]: one-card ("data", "model") meshes (launch.make_local_mesh
+# with devices=[cuda:0] * k). (a) the smoke configs on DM_SMOKE_MESHES, a
+# batch of DM_SMOKE_BATCH, each train step and prefill against the CPU
+# port's same call: loss rtol DM_LOSS_REL, logits within DM_LOGIT_REL of
+# the largest, parameter and moment leaves within TRAIN_REL (a leaf by its
+# norm)
+DM_SMOKE_MESHES = ((2, 4), (1, 4), (4, 2))
+DM_SMOKE_BATCH = (4, 32)
+DM_LOSS_REL = 2e-5
+DM_LOGIT_REL = 1e-5
+# (b) one DeepSeek-V2-Lite MoE layer at full width on DM_MESH, DM_TOKENS
+# tokens (4 x 1,024); the CPU port's EP on DM_CPU_TOKENS[dtype] of them (bf16
+# matmuls on the host are slow); outputs within DM_EP_REL[dtype] of the
+# largest, data rows whose routing the two devices pick differently left out
+# and counted
+DM_MESH = (2, 4)
+DM_TOKENS = 4 * 1024
+DM_CPU_TOKENS = {"float32": 4 * 1024, "bfloat16": 1024}
+DM_EP_REL = {"float32": 2e-5, "bfloat16": 2e-2}
+# (c) the bf16 model at full depth, a mesh prefill of DM_PREFILL (batch, seq)
+DM_PREFILL = (4, 1024)
+# (d) DeepSeek-V2-Lite at full width cut to TRAIN_DS_LAYERS, f32: the first
+# mesh step against the CPU port's on DM_TRAIN_CHECK (batch, seq) within
+# TRAIN_REL, then DM_TRAIN_STEPS timed steps of TRAIN_BATCH x TRAIN_SEQ
+DM_TRAIN_CHECK = (2, 256)
+DM_TRAIN_STEPS = 3
 # [examples]: each examples/torch_*.py on the card, its arguments, within
 # EXAMPLE_TIMEOUT_S, all at once in their own processes
 EXAMPLES = (("torch_quickstart.py",), ("torch_pipeline_vs_mapreduce.py",),
@@ -4175,6 +4223,357 @@ def gnn_mesh_phase(gen, sync) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# [data-model mesh]: the ("data", "model") mesh on one card
+# --------------------------------------------------------------------------
+def dm_mesh(data: int, model: int, device=None):
+    from repro_torch.launch import make_local_mesh
+
+    return make_local_mesh(data=data, model=model, devices=[device or DEVICE] * (data * model))
+
+
+def dm_smoke(sync) -> dict:
+    """(a): yi_6b's and deepseek_v2_lite_16b's smoke configs on each of
+    DM_SMOKE_MESHES: one ``make_lm_train_step(mesh=, seq_parallel=True,
+    grad_specs=)`` step and one ``make_lm_prefill(mesh=, seq_parallel=True)``
+    on the card against the CPU port's same call on the same weights; Yi's
+    also against the card's plain step (the mesh changes nothing on a dense
+    model)."""
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.convert import lm_param_shapes
+    from repro_torch.data.pipeline import LMTokenPipeline
+    from repro_torch.launch import lm_param_specs
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps
+
+    out = {}
+    for arch in ("yi_6b", "deepseek_v2_lite_16b"):
+        small = get_smoke(arch)
+        base = tf.init_params(torch.Generator(device=DEVICE).manual_seed(21), small,
+                              device=DEVICE)
+        weights = {k: v.cpu() for k, v in base.state_dict().items()}
+        batch = LMTokenPipeline(small, *DM_SMOKE_BATCH, seed=9).batch_at(0)
+
+        def copy(device):
+            m = tf.Transformer(small, device=device)
+            m.load_state_dict(weights)
+            return m
+
+        def one_step(device, mesh, hints=True):
+            m = copy(device)
+            kw = dict(seq_parallel=True, grad_specs=lm_param_specs(
+                lm_param_shapes(m, small), mesh)) if (hints and mesh is not None) else {}
+            state = opt.init_state(m)
+            step = steps.make_lm_train_step(small, chunk_q=16, mesh=mesh, **kw)
+            _, state, met = step(m, state, batch)
+            return float(met["loss"]), m, state
+
+        for shape in DM_SMOKE_MESHES:
+            label = f"{small.name} on a {shape} mesh"
+            md, mc = dm_mesh(*shape), dm_mesh(*shape, device="cpu")
+            l_dev, m_dev, s_dev = one_step(DEVICE, md)
+            l_cpu, m_cpu, s_cpu = one_step("cpu", mc)
+            loss_rel = abs(l_dev - l_cpu) / abs(l_cpu)
+            p_rel = leaf_rel(dict(m_dev.named_parameters()), dict(m_cpu.named_parameters()))
+            m_rel = max(leaf_rel(s_dev[k], s_cpu[k]) for k in ("m", "v"))
+            prefill = {d: steps.make_lm_prefill(small, DM_SMOKE_BATCH[1] + 4, chunk_q=16,
+                                                mesh=mesh, seq_parallel=True)
+                       (copy(d), batch["tokens"])[0].cpu()
+                       for d, mesh in ((DEVICE, md), ("cpu", mc))}
+            logit_rel = float((prefill[DEVICE] - prefill["cpu"]).abs().max()
+                              / prefill["cpu"].abs().max())
+            sync()
+            log(f"  (a) {label}, card vs CPU port: loss {l_dev!r} / {l_cpu!r} (rel "
+                f"{loss_rel:.3e} <= {DM_LOSS_REL:g}), parameter leaf rel {p_rel:.3e}, moment "
+                f"leaf rel {m_rel:.3e} (<= {TRAIN_REL:g}); prefill logits {logit_rel:.3e} of "
+                f"the largest (<= {DM_LOGIT_REL:g})")
+            if not (loss_rel <= DM_LOSS_REL and p_rel <= TRAIN_REL and m_rel <= TRAIN_REL
+                    and logit_rel <= DM_LOGIT_REL):
+                raise AssertionError(f"[data-model mesh] (a) {label}: the card and the CPU "
+                                     f"port part: loss {loss_rel}, parameters {p_rel}, moments "
+                                     f"{m_rel}, logits {logit_rel}")
+            row = {"loss": [l_dev, l_cpu], "loss_rel": loss_rel, "param_rel": p_rel,
+                   "moment_rel": m_rel, "logit_rel": logit_rel}
+            if small.moe is None:  # a dense model: the mesh and the plain step agree
+                l_plain, m_plain, _ = one_step(DEVICE, None)
+                plain_rel = max(abs(l_dev - l_plain) / abs(l_plain),
+                                leaf_rel(dict(m_dev.named_parameters()),
+                                         dict(m_plain.named_parameters())))
+                log(f"  (a) {label}: the card's mesh step against its plain step {plain_rel:.3e}")
+                if not plain_rel <= DM_LOSS_REL:
+                    raise AssertionError(f"[data-model mesh] (a) {label}: the mesh step parts "
+                                         f"from the plain step by {plain_rel}")
+                row["plain_rel"] = plain_rel
+            out[f"{arch} {shape}"] = row
+    return out
+
+
+def dm_row_routing(p, cfg, x, n_rows: int):
+    """top_i as the EP routes x: each data row on its own (a (T, k) tensor)."""
+    import torch
+
+    from repro_torch.models import moe
+
+    with torch.no_grad():
+        return torch.cat([moe.route(p, cfg, r)[2] for r in x.chunk(n_rows)])
+
+
+def dm_rows_agree(label: str, got, want, route_got, route_want, n_rows: int,
+                  rel: float) -> dict:
+    """``got`` against ``want`` (T, D) data row by data row, within ``rel`` of
+    the largest |want|; a row whose routing (top-k ids, in order) the two
+    computations picked differently is left out (and counted): one flipped
+    slot moves its token's output and, past capacity, the positions of the
+    row's later slots. At least one row must be compared."""
+    import torch
+
+    got, want = got.float().cpu(), want.float().cpu()
+    same = [torch.equal(a, b) for a, b in zip(route_got.cpu().chunk(n_rows),
+                                              route_want.cpu().chunk(n_rows))]
+    kept = [r for r, ok in enumerate(same) if ok]
+    scale = float(want.abs().max())
+    err = max((float((g - w).abs().max()) for r, (g, w) in
+               enumerate(zip(got.chunk(n_rows), want.chunk(n_rows))) if r in kept),
+              default=float("nan")) / scale
+    log(f"  {label}: {len(kept)} of {n_rows} data rows routed alike, max |diff| {err:.3e} of "
+        f"the largest output (<= {rel:g})")
+    if not kept or not err <= rel:
+        raise AssertionError(f"[data-model mesh] {label}: {err} > {rel} over rows {kept}")
+    return {"rows_compared": len(kept), "rows": n_rows, "rel": err}
+
+
+def dm_moe_layer(sync) -> dict:
+    """(b): one DeepSeek-V2-Lite MoE layer at full width (64 experts, D
+    2,048, F 1,408, top-6, 2 shared) on DM_TOKENS tokens on a DM_MESH mesh,
+    in f32 and in bf16: at the default capacity against the CPU port's
+    ``moe_apply_ep`` (the dropped share printed), at capacity E/k (nothing
+    can drop) against the card's ``moe_apply``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("deepseek_v2_lite_16b")
+    e, k = cfg.moe.n_routed, cfg.moe.top_k
+    gen = torch.Generator(device=DEVICE).manual_seed(22)
+    p32 = moe.moe_init(gen, cfg, device=DEVICE)
+    x32 = torch.randn(DM_TOKENS, cfg.d_model, generator=gen, device=DEVICE)
+    md, mc = dm_mesh(*DM_MESH), dm_mesh(*DM_MESH, device="cpu")
+    rows = DM_MESH[0]
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        wdt = getattr(torch, dtype)
+        p = moe.MoE(cfg, wdt, device=DEVICE)
+        p.load_state_dict(p32.state_dict())
+        x = x32.to(wdt)
+        res = {}
+        with torch.no_grad():
+            for label, cf in (("default", 1.25), ("E/k", e / k)):
+                moe.moe_apply_ep(p, cfg, x, mesh=md, capacity_factor=cf)  # warm-up
+                sync()
+                t0 = time.perf_counter()
+                y, aux = moe.moe_apply_ep(p, cfg, x, mesh=md, capacity_factor=cf)
+                sync()
+                wall = (time.perf_counter() - t0) * 1e3
+                dropped = moe.ep_dropped(p, cfg, x, mesh=md, capacity_factor=cf)
+                cap = moe.ep_capacity(DM_TOKENS // rows, cfg, cf)
+                if not bool(torch.isfinite(y).all()):
+                    raise AssertionError(f"[data-model mesh] (b) {dtype} {label}: not finite")
+                log(f"  (b) {dtype}, capacity factor {cf:g} (cap {cap} a row and expert): EP "
+                    f"wall {wall:.3f} ms, aux {float(aux)!r}, dropped share {dropped!r}")
+                row = {"capacity_factor": cf, "cap": cap, "ep_ms": wall, "dropped": dropped,
+                       "aux": float(aux)}
+                if label == "default":
+                    n = DM_CPU_TOKENS[dtype]
+                    pc = moe.MoE(cfg, wdt, device="cpu")
+                    pc.load_state_dict({a: b.cpu() for a, b in p.state_dict().items()})
+                    xc = x[:n].cpu()
+                    t0 = time.perf_counter()
+                    want, _ = moe.moe_apply_ep(pc, cfg, xc, mesh=mc, capacity_factor=cf)
+                    host_s = time.perf_counter() - t0
+                    got, _ = moe.moe_apply_ep(p, cfg, x[:n], mesh=md, capacity_factor=cf)
+                    row["cpu"] = dm_rows_agree(
+                        f"(b) {dtype} EP on {n} tokens, card vs CPU port ({host_s:.1f} s on "
+                        "the host)", got, want, dm_row_routing(p, cfg, x[:n], rows),
+                        dm_row_routing(pc, cfg, xc, rows), rows, DM_EP_REL[dtype])
+                    row["cpu"]["host_s"] = host_s
+                    del pc
+                else:
+                    if dropped:
+                        raise AssertionError(f"[data-model mesh] (b) {dtype}: {dropped} of the "
+                                             "slots dropped at capacity E/k")
+                    moe.moe_apply(p, cfg, x)  # warm-up
+                    sync()
+                    t0 = time.perf_counter()
+                    want, _ = moe.moe_apply(p, cfg, x)
+                    sync()
+                    row["moe_apply_ms"] = (time.perf_counter() - t0) * 1e3
+                    row["plain"] = dm_rows_agree(
+                        f"(b) {dtype} EP at capacity E/k against moe_apply on the card "
+                        f"({row['moe_apply_ms']:.3f} ms)", y, want,
+                        dm_row_routing(p, cfg, x, rows), moe.route(p, cfg, x)[2], rows,
+                        DM_EP_REL[dtype])
+                res[label] = row
+        out[dtype] = res
+        del p
+    return out
+
+
+def dm_prefill_full(sync) -> dict:
+    """(c): DeepSeek-V2-Lite bf16 at full width and depth, nothing else
+    held: ``make_lm_prefill(mesh=DM_MESH, seq_parallel=True)`` on
+    DM_PREFILL tokens beside the single-device prefill on the same model
+    and tokens (walls after a warm-up of each, peaks), and each MoE layer's
+    dropped share in the mesh prefill."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import steps
+
+    cfg = get_config("deepseek_v2_lite_16b")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 1e9
+    model = tf.init_params(torch.Generator(device=DEVICE).manual_seed(23), cfg, torch.bfloat16,
+                           device=DEVICE)
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    b, s = DM_PREFILL
+    tokens = torch.from_numpy(np.random.default_rng(24).integers(1, cfg.vocab, (b, s)))
+    mesh = dm_mesh(*DM_MESH)
+    runs = {"single": steps.make_lm_prefill(cfg, s, chunk_q=1024),
+            "mesh": steps.make_lm_prefill(cfg, s, chunk_q=1024, mesh=mesh, seq_parallel=True)}
+    out, logits = {"weights_gb": n_bytes / 1e9, "held_gb": held}, {}
+    drops = []
+    ep = tf.moe_apply_ep
+
+    def recording(p, c, x, **kw):  # the share each MoE layer drops, read before it runs
+        drops.append(moe.ep_dropped(p, c, x, **kw))
+        return ep(p, c, x, **kw)
+
+    for label, run in runs.items():
+        run(model, tokens)  # warm-up
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        tf.moe_apply_ep = recording
+        try:
+            drops.clear()
+            t0 = time.perf_counter()
+            logits[label], cache = run(model, tokens)
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            tf.moe_apply_ep = ep
+        del cache
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        finite = bool(torch.isfinite(logits[label]).all())
+        out[label] = {"wall_ms": wall, "peak_gb": peak, "finite": finite}
+        log(f"  (c) {cfg.name} bf16 ({n_bytes / 1e9:.2f} GB of weights), {label} prefill of "
+            f"{b} x {s} tokens: wall {wall:.3f} ms (the drop counting's syncs included on the "
+            f"mesh), peak allocated {peak:.2f} GB, logits finite {finite}")
+        if not finite:
+            raise AssertionError(f"[data-model mesh] (c) the {label} prefill's logits")
+    # the mesh prefill again without counting drops: its wall alone
+    sync()
+    t0 = time.perf_counter()
+    runs["mesh"](model, tokens)
+    sync()
+    out["mesh"]["wall_uncounted_ms"] = (time.perf_counter() - t0) * 1e3
+    out["mesh"]["dropped_by_layer"] = list(drops)
+    dist = float((logits["mesh"] - logits["single"]).abs().max()
+                 / logits["single"].abs().max())
+    out["mesh_vs_single_rel"] = dist
+    log(f"  (c) mesh prefill wall without the drop counting {out['mesh']['wall_uncounted_ms']:.3f}"
+        f" ms; dropped share by MoE layer (cap {moe.ep_capacity(b * s // DM_MESH[0], cfg, 1.25)}"
+        f" a row and expert): {[round(d, 5) for d in drops]}; mesh logits part from the "
+        f"single-device ones by {dist:.3e} of the largest (the drops)")
+    if len(drops) != cfg.n_layers - cfg.moe.n_dense_layers:
+        raise AssertionError(f"[data-model mesh] (c) {len(drops)} MoE layers ran on the mesh")
+    del model, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def dm_train(sync) -> dict:
+    """(d): DeepSeek-V2-Lite at full width cut to TRAIN_DS_LAYERS layers,
+    f32, ``make_lm_train_step(mesh=DM_MESH, seq_parallel=True,
+    grad_specs=lm_param_specs(...))``: the first step's loss on a
+    DM_TRAIN_CHECK batch against the CPU port's same step on the same
+    weights, then DM_TRAIN_STEPS timed steps of TRAIN_BATCH x TRAIN_SEQ."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_param_shapes
+    from repro_torch.data.pipeline import LMTokenPipeline
+    from repro_torch.launch import lm_param_specs
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps
+
+    cfg = dataclasses.replace(get_config("deepseek_v2_lite_16b"), n_layers=TRAIN_DS_LAYERS)
+    model = tf.init_params(torch.Generator(device=DEVICE).manual_seed(25), cfg, device=DEVICE)
+    md, mc = dm_mesh(*DM_MESH), dm_mesh(*DM_MESH, device="cpu")
+    specs = lm_param_specs(lm_param_shapes(model, cfg), md)
+    check = LMTokenPipeline(cfg, *DM_TRAIN_CHECK, seed=2).batch_at(0)
+    cpu = tf.Transformer(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    first = {}
+    for label, m, mesh in (("card", model, md), ("cpu", cpu, mc)):
+        step = steps.make_lm_train_step(cfg, remat=True, ce_chunk=TRAIN_CE_CHUNK, mesh=mesh,
+                                        seq_parallel=True, grad_specs=specs)
+        t0 = time.perf_counter()
+        _, _, met = step(m, opt.init_state(m), check)
+        first[label] = (float(met["loss"]), (time.perf_counter() - t0) * 1e3)
+    del cpu
+    rel = abs(first["card"][0] - first["cpu"][0]) / abs(first["cpu"][0])
+    log(f"  (d) {cfg.name} x{TRAIN_DS_LAYERS} f32 on a {DM_MESH} mesh, first step on "
+        f"{DM_TRAIN_CHECK}: loss card {first['card'][0]!r} / CPU port {first['cpu'][0]!r} "
+        f"(rel {rel:.3e} <= {TRAIN_REL:g}; the CPU step took {first['cpu'][1]:.0f} ms)")
+    if not rel <= TRAIN_REL:
+        raise AssertionError(f"[data-model mesh] (d) first loss {rel} > {TRAIN_REL}")
+    model = tf.init_params(torch.Generator(device=DEVICE).manual_seed(25), cfg, device=DEVICE)
+    pipe = LMTokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=1)
+    state = opt.init_state(model)
+    step = steps.make_lm_train_step(cfg, remat=True, ce_chunk=TRAIN_CE_CHUNK, mesh=md,
+                                    seq_parallel=True, grad_specs=specs)
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = timed_steps(f"(d) {cfg.name} x{TRAIN_DS_LAYERS} on a {DM_MESH} mesh", step,
+                                model, state, [pipe.batch_at(i) for i in range(DM_TRAIN_STEPS)],
+                                sync)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    med = sorted(walls[1:])[len(walls[1:]) // 2]
+    log(f"  (d) step walls {walls} ms: {tokens / med * 1e3:.1f} tokens/s at the median of "
+        f"steps 2-{DM_TRAIN_STEPS}, peak allocated {peak:.2f} GB (beside [train] (c)'s "
+        "single-device steps)")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return {"first_loss": first, "first_rel": rel, "losses": losses, "walls_ms": walls,
+            "tokens_per_s": tokens / med * 1e3, "peak_gb": peak}
+
+
+def dm_mesh_phase() -> dict:
+    """[data-model mesh], as the module docstring says: (a) the smoke
+    configs against the CPU port, (b) one full-width MoE layer, (c) the
+    bf16 model's mesh prefill at full depth, (d) the 2-layer f32 mesh
+    train step."""
+    import torch
+
+    sync = torch.cuda.synchronize if DEVICE == "cuda" else (lambda: None)
+    out = {}
+    for key, run in (("a", dm_smoke), ("b", dm_moe_layer), ("c", dm_prefill_full),
+                     ("d", dm_train)):
+        t0 = time.perf_counter()
+        out[key] = run(sync)
+        log(f"  ({key}) done in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    return out
+
+
 def examples_phase() -> dict:
     """[examples]: each ``examples/torch_*.py`` on the card (EXAMPLES' small
     arguments), every one in its own process, all at once, each within
@@ -4522,14 +4921,16 @@ def probe_k6_mla() -> int:
     return 0
 
 
-def slice_phases() -> tuple[dict, dict, dict]:
-    """[train], [ring attention] and [gnn], each driven with the launch
-    counts set to 0 just before it and read just after: no such path
-    reaches a hand-written kernel (the reference trains through chunked
-    attention and the plain lookup, its ring attention is two einsums, and
-    its GNNs' message passing is segment sums outside any Pallas kernel),
-    so every count must stay 0. Then the tf32x3 K6 on the ring's inputs,
-    outside the windows, and serving after a train step (C1)."""
+def slice_phases() -> tuple[dict, dict, dict, dict]:
+    """[train], [ring attention], [gnn] and [data-model mesh], each driven
+    with the launch counts set to 0 just before it and read just after: no
+    such path reaches a hand-written kernel (the reference trains through
+    chunked attention and the plain lookup, its ring attention is two
+    einsums, its GNNs' message passing is segment sums outside any Pallas
+    kernel, and its mesh steps run chunked attention and an EP of einsums
+    and segment sums), so every count must stay 0. Then the tf32x3 K6 on
+    the ring's inputs, outside the windows, and serving after a train step
+    (C1)."""
     import torch
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -4537,7 +4938,7 @@ def slice_phases() -> tuple[dict, dict, dict]:
     torch.cuda.empty_cache()
     results = []
     for label, run in (("train", train_phase), ("ring attention", ring_attention_phase),
-                       ("gnn", gnn_phase)):
+                       ("gnn", gnn_phase), ("data-model mesh", dm_mesh_phase)):
         t0 = time.perf_counter()
         log(f"[{label}] " + {
             "train": "the smoke configs on the card against the CPU port; Yi-6B at full "
@@ -4551,7 +4952,12 @@ def slice_phases() -> tuple[dict, dict, dict]:
                    "DimeNet and MACE at their full configs on GNN_SHAPES' sizes (GIN at "
                    "full_graph_sm, molecule, minibatch_lg through the sampler and "
                    "ogb_products); MACE's invariances; the partitioned engine on one-card "
-                   "meshes (GIN at ogb_products on 4 stages)"}[label])
+                   "meshes (GIN at ogb_products on 4 stages)",
+            "data-model mesh": f"one-card ('data', 'model') meshes: the smoke configs' mesh "
+                               f"train and prefill steps on {DM_SMOKE_MESHES} against the CPU "
+                               f"port; a full-width DeepSeek-V2-Lite MoE layer expert-parallel "
+                               f"on {DM_MESH} in f32 and bf16; the bf16 model's mesh prefill at "
+                               f"full depth; its 2-layer f32 mesh train step"}[label])
         reset_launch_counts()
         results.append(run())
         torch.cuda.synchronize()
@@ -4563,12 +4969,12 @@ def slice_phases() -> tuple[dict, dict, dict]:
                                  "hand-written kernel")
         log(f"[{label}] done in {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
-    train, (ring, qkv), gnn = results
+    train, (ring, qkv), gnn, dm = results
     ring_attention_beside_k6(ring, qkv)
     del qkv
     train["serve_after_train"] = serve_after_train()
     torch.cuda.empty_cache()
-    return train, ring, gnn
+    return train, ring, gnn, dm
 
 
 def main() -> int:
@@ -4596,14 +5002,15 @@ def main() -> int:
 
     if sys.argv[1:] == ["--probe"]:
         return probe_k2() or probe_k1() or probe_k6_tf32x3() or probe_k6_mla()
-    if sys.argv[1:] == ["--train"]:  # [train], [ring attention] and [gnn] alone
+    if sys.argv[1:] == ["--train"]:  # [train], [ring attention], [gnn], [data-model mesh]
         log(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
         _build.build_all(["flash_attention_tf32x3_sm90", "flash_attention", "embedding_bag"],
                          verbose=True)
-        train, ring, gnn = slice_phases()
+        train, ring, gnn, dm = slice_phases()
         log("[train summary] " + json.dumps(train))
         log("[ring attention summary] " + json.dumps(ring))
         log("[gnn summary] " + json.dumps(gnn))
+        log("[data-model mesh summary] " + json.dumps(dm))
         return 0
     if sys.argv[1:] == ["--examples"]:  # [examples] alone
         log(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -4734,7 +5141,7 @@ def main() -> int:
     profile_phase(graphs)
     log(f"[profile] done in {time.perf_counter() - t0:.1f} s")
     del graphs
-    train, ring, gnn = slice_phases()
+    train, ring, gnn, dm = slice_phases()
     t0 = time.perf_counter()
     log("[examples] each examples/torch_*.py on the card, in its own process "
         "(outside the main path's launch window)")
@@ -4792,6 +5199,7 @@ def main() -> int:
     log("[train summary] " + json.dumps(train))
     log("[ring attention summary] " + json.dumps(ring))
     log("[gnn summary] " + json.dumps(gnn))
+    log("[data-model mesh summary] " + json.dumps(dm))
     log("[examples summary] " + json.dumps(examples))
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": out}))

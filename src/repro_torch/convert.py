@@ -75,8 +75,11 @@ def _named(params) -> dict:
 
 
 def _host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``t``; a meta tensor (a shape) stays meta."""
     if t is None:
         raise ValueError("a parameter has no tensor (a gradient never computed?)")
+    if t.is_meta:
+        return t.detach()
     return t.detach().to("cpu", copy=True)
 
 
@@ -147,6 +150,15 @@ def lm_params_to_tree(params, cfg) -> dict:
     for path, layers in stacks.items():
         _set(tree, path, torch.stack([_host(layers[j]) for j in range(len(layers))]))
     return tree
+
+
+def lm_param_shapes(params, cfg) -> dict:
+    """:func:`lm_params_to_tree`'s layout with meta tensors for leaves:
+    each leaf's shape and dtype, nothing copied (what the spec builders of
+    ``launch.sharding`` read). ``params`` may be a model built on
+    ``device="meta"``."""
+    return lm_params_to_tree({name: torch.empty_like(t, device="meta")
+                              for name, t in _named(params).items()}, cfg)
 
 
 def lm_params_to_numpy(params, cfg) -> dict:

@@ -4,7 +4,9 @@
 The reference expresses the dynamic pipeline's partitioning in shapes
 GSPMD partitions over the flattened mesh. The port holds the
 same partition on a :class:`~repro_torch.launch.RingMesh`, one process
-driving every stage:
+driving every stage (a 2-D :class:`~repro_torch.launch.Mesh` is taken
+flattened in mesh order, as the reference's ``_flat_axes`` flattens it:
+its coordinates are the stages):
 
 - node states h (N, d) are S row shards, shard s the rows [s·n_loc,
   (s+1)·n_loc) on ``mesh.devices[s]`` (n_loc = N // S; N must divide);
@@ -54,6 +56,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import GNNConfig
+from repro_torch.launch.mesh import flat_ring
 from repro_torch.models.gnn import common as C
 from repro_torch.models.gnn.cg import sh_l
 from repro_torch.models.gnn.dimenet import bilinear_apply, radial_basis, spherical_basis
@@ -182,6 +185,7 @@ def _gathered_sum(parts: list, device) -> torch.Tensor:
 # family instances
 # ---------------------------------------------------------------------------
 def gin_distributed_loss(model, cfg: GNNConfig, mesh):
+    mesh = flat_ring(mesh)
     devs = mesh.devices
 
     def one_layer(w, i, h, edges, n_loc):
@@ -216,6 +220,7 @@ def gin_distributed_loss(model, cfg: GNNConfig, mesh):
 def graphcast_distributed_loss(model, cfg: GNNConfig, mesh, *, remat: bool = True,
                                compute_dtype=None):
     """One checkpoint per layer with ``remat`` (the reference's scan body)."""
+    mesh = flat_ring(mesh)
     devs = mesh.devices
 
     def body(w, i, h, e, edges, n_loc):
@@ -255,6 +260,7 @@ def mace_distributed_loss(model, cfg: GNNConfig, mesh, *, compute_dtype=None):
     """Flattened-irrep node states, CG-path edge math, local scatter; each
     stage's edges in ``n_chunks`` chunks (a checkpoint each), one source
     gather per l1."""
+    mesh = flat_ring(mesh)
     devs = mesh.devices
     lm, c = cfg.l_max, cfg.d_hidden
     paths = _paths(lm)
@@ -379,6 +385,7 @@ def in_shard_triplets(triplets, mesh, e_loc: int) -> list:
 def dimenet_distributed_loss(model, cfg: GNNConfig, mesh):
     """Edge-centric: edge messages live with their dst's shard; a triplet
     keeps the reference's in-shard rule (:func:`in_shard_triplets`)."""
+    mesh = flat_ring(mesh)
     devs = mesh.devices
 
     def one_block(w, i, m, energy, geo, n_loc):
@@ -451,6 +458,8 @@ def make_distributed_gnn_train_step(cfg: GNNConfig, mesh, opt_cfg=None, compute_
     opt_state, {"loss"})``, updating in place as ``train.steps`` does."""
     from repro_torch.train import optimizer as opt
     from repro_torch.train.steps import _train_step
+
+    mesh = flat_ring(mesh)
 
     builder = _BUILDERS[cfg.family]
     kw = {}

@@ -13,13 +13,16 @@ at most 24 of V2-Lite's 64 experts. A device-side grouped GEMM would
 remove both the sync and the per-expert launches (ROADMAP.md A0j).
 
 Expert weights are stacked (E, ...) as in the reference, so the parameter
-tree carries across leaf for leaf. The expert-parallel path
-(``moe_apply_ep``) raises: it shards experts over a ``("data", "model")``
-mesh, which comes with ROADMAP.md queue A item 6e.
+tree carries across leaf for leaf, and expert parallelism is a split of
+that leading axis over the ``"model"`` axis of a ``("data", "model")``
+mesh: ``moe_apply_ep``, the reference's GShard dispatch with a capacity
+per expert (tokens past it drop), run one mesh coordinate after another
+by the one process that holds the mesh.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import LMConfig
@@ -125,8 +128,116 @@ def moe_apply(p: MoE, cfg: LMConfig, x: torch.Tensor) -> tuple[torch.Tensor, tor
     return y.to(x.dtype), aux
 
 
-def moe_apply_ep(*args, **kwargs):
-    raise NotImplementedError(
-        "expert-parallel MoE shards the experts over a ('data', 'model') mesh, which is not in "
-        "the port yet: ROADMAP.md queue A item 6e ports it; moe_apply runs the layer on one "
-        "device")
+# ---------------------------------------------------------------------------
+# Expert-parallel path: GShard capacity dispatch on a ("data", "model") mesh
+# ---------------------------------------------------------------------------
+def ep_capacity(t_loc: int, cfg: LMConfig, capacity_factor: float) -> int:
+    """Slots per expert and data row: max(1, int(t_loc·k / E · factor)),
+    in the reference's order of operations."""
+    return max(1, int(t_loc * cfg.moe.top_k / cfg.moe.n_routed * capacity_factor))
+
+
+def _slot_positions(flat_e: torch.Tensor, n_cols: int) -> torch.Tensor:
+    """Each slot's exclusive running count among the earlier slots of its
+    column (slot order: token, then its k picks in ``top_k`` order)."""
+    oh = F.one_hot(flat_e, n_cols)
+    return (oh.cumsum(0) - oh).gather(1, flat_e[:, None])[:, 0]
+
+
+def _ep_shard(p: MoE, cfg: LMConfig, x_loc: torch.Tensor, m: int, e_loc: int, cap: int):
+    """Mesh coordinate (row, m) on ``x_loc``'s device: route the row, fill
+    the (e_loc, cap, D) buffer of model shard m's experts, run their FFNs
+    and combine back → (its part of the row's output (t_loc, D), the row's
+    aux loss)."""
+    t_loc, d = x_loc.shape
+    e, k = cfg.moe.n_routed, cfg.moe.top_k
+    dev = x_loc.device
+    scores = torch.softmax(x_loc.float() @ p.router.to(dev), dim=-1)
+    top_w, top_i = torch.topk(scores, k, dim=-1)
+    top_w = top_w / top_w.sum(-1, keepdim=True)
+    local = top_i.reshape(-1) - m * e_loc
+    in_range = (local >= 0) & (local < e_loc)
+    col = torch.where(in_range, local, e_loc)  # the other shards' slots share a spare column
+    pos = _slot_positions(col, e_loc + 1)
+    keep = in_range & (pos < cap)
+    tok = torch.arange(t_loc * k, device=dev) // k
+    # a kept slot's row in the buffer; every other slot writes a spare row, dropped after
+    row = torch.where(keep, col * cap + pos, e_loc * cap)
+    dispatch = x_loc.new_zeros(e_loc * cap + 1, d).index_put((row,), x_loc[tok])
+    dispatch = dispatch[:-1].reshape(e_loc, cap, d)
+    sl = slice(m * e_loc, (m + 1) * e_loc)
+    g = activation(cfg.act)(torch.bmm(dispatch, p.w_gate[sl].to(dev)))
+    u = torch.bmm(dispatch, p.w_up[sl].to(dev))
+    y = torch.bmm((g * u).to(x_loc.dtype), p.w_down[sl].to(dev)).reshape(e_loc * cap, d)
+    y_slot = torch.cat([y, y.new_zeros(1, d)])[row]  # 0 where dropped or foreign
+    out = (y_slot * top_w.reshape(-1, 1).to(x_loc.dtype)).reshape(t_loc, k, d).sum(1)
+    density = F.one_hot(top_i, e).sum(1).float().mean(0)
+    return out, e * torch.sum(density * scores.mean(0))
+
+
+def moe_apply_ep(p: MoE, cfg: LMConfig, x: torch.Tensor, *, mesh,
+                 capacity_factor: float = 1.25) -> tuple[torch.Tensor, torch.Tensor]:
+    """The expert-parallel MoE on ``mesh`` (a ``launch.Mesh`` with a
+    ``"model"`` axis), the reference's GShard dispatch: x (T, D) → (y (T, D)
+    in x's dtype on x's device, aux loss).
+
+    The T tokens split over the data axes into contiguous rows of t_loc;
+    coordinate (r, m) routes row r on its device, fills a (E/M, cap, D)
+    buffer for model shard m's experts (``w_*[m·E/M:(m+1)·E/M]``, read on
+    that device), runs their FFNs and combines back; the M parts of a row
+    are summed on coordinate (r, 0)'s device, the psum over ``"model"``.
+    cap = :func:`ep_capacity`; a slot's position in its expert is the
+    running count of the row's earlier slots there, and a slot at
+    position ≥ cap drops: it adds nothing, and still counts in the
+    density. With a generous ``capacity_factor`` (E/k: nothing can drop)
+    this equals :func:`moe_apply`.
+
+    ``aux`` is the reference's: its value is data row 0's load-balance
+    loss, its gradient the mean of the rows' gradients (ROADMAP.md §C).
+    Differentiable through the dispatch, the copies and the sums. Raises
+    ``ValueError`` when E does not divide over the model axis or T over
+    the data rows."""
+    from repro_torch.launch.mesh import data_model_grid
+
+    grid = data_model_grid(mesh)
+    n_rows, n_model = grid.shape
+    e = cfg.moe.n_routed
+    t, _ = x.shape
+    if e % n_model:
+        raise ValueError(f"{e} experts do not split over a model axis of {n_model}")
+    if t % n_rows:
+        raise ValueError(f"{t} tokens do not split over {n_rows} data rows")
+    e_loc, t_loc = e // n_model, t // n_rows
+    cap = ep_capacity(t_loc, cfg, capacity_factor)
+    rows, auxes = [], []
+    for r in range(n_rows):
+        x_row = x[r * t_loc:(r + 1) * t_loc]
+        total = None
+        for m in range(n_model):
+            part, aux = _ep_shard(p, cfg, x_row.to(grid[r, m]), m, e_loc, cap)
+            part = part.to(grid[r, 0])
+            total = part if total is None else total + part
+            if m == 0:
+                auxes.append(aux.to(x.device))
+        rows.append(total.to(x.device))
+    out = torch.cat(rows)
+    if p.shared is not None:
+        out = out + mlp_apply(p.shared, x, cfg.act)
+    mean = torch.stack(auxes).mean()
+    return out.to(x.dtype), auxes[0].detach() + (mean - mean.detach())
+
+
+def ep_dropped(p: MoE, cfg: LMConfig, x: torch.Tensor, *, mesh,
+               capacity_factor: float = 1.25) -> float:
+    """The share of x's T·k routed slots that :func:`moe_apply_ep` on
+    ``mesh`` drops (a host float; one sync)."""
+    from repro_torch.launch.mesh import data_model_grid
+
+    n_rows = data_model_grid(mesh).shape[0]
+    t, k = x.shape[0], cfg.moe.top_k
+    cap = ep_capacity(t // n_rows, cfg, capacity_factor)
+    with torch.no_grad():
+        _, _, top_i = route(p, cfg, x)
+        pos = torch.cat([_slot_positions(r.reshape(-1), cfg.moe.n_routed)
+                         for r in top_i.reshape(n_rows, -1, k)])
+    return float((pos >= cap).float().mean())

@@ -15,9 +15,14 @@ cache keeps the reference's stacked layout (``{"dense": {"k": (L, B, Hkv,
 S_max, hd), "v": ...}}``; MLA's ``{"c": (L, B, S_max, r), "kr": (L, B,
 S_max, dr)}``, and an MoE model's ``"moe_stack"`` beside ``"dense"``) and
 is written in place: ``prefill`` fills a fresh one, ``decode_step`` writes
-one position of the cache it is given and returns that same cache. The
-expert-parallel MoE comes with the ``("data", "model")`` mesh (ROADMAP.md
-queue A item 6e).
+one position of the cache it is given and returns that same cache.
+
+``hidden``, ``forward``, ``loss_fn`` and ``prefill`` take the reference's
+``ep_mesh`` (an MoE layer then runs ``moe.moe_apply_ep`` on that mesh) and
+``constrain(x, role)``, a hook applied to the residual stream after the
+embedding and after every block (role ``"residual"``): in the reference a
+sharding constraint, here a function that may check x and must return it
+unchanged (``train.steps.make_lm_constrain``).
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ from repro_torch.models.layers import (
     rms_norm,
     rotary_cos_sin,
 )
-from repro_torch.models.moe import MoE, moe_apply
+from repro_torch.models.moe import MoE, moe_apply, moe_apply_ep
 from repro_torch.utils import resolve_device
 
 AUX_COEF = 0.001  # the MoE load-balance loss's weight in loss_fn
@@ -120,24 +125,32 @@ def init_params(generator: torch.Generator, cfg: LMConfig, dtype=torch.float32, 
     return model
 
 
-def _ffn(cfg: LMConfig, p: Block, h: torch.Tensor):
+def _ffn(cfg: LMConfig, p: Block, h: torch.Tensor, ep_mesh=None):
     """h + the layer's MLP or MoE of rms_norm(h) → (x, the MoE's aux loss,
-    or None for an MLP layer)."""
+    or None for an MLP layer). With ``ep_mesh`` the MoE is expert-parallel
+    on that mesh."""
     z = rms_norm(h, p.ln2.to(h.dtype), cfg.norm_eps)
     if p.moe_layer:
         b, s, d = z.shape
-        y, aux = moe_apply(p.moe, cfg, z.reshape(b * s, d))
+        if ep_mesh is not None:
+            y, aux = moe_apply_ep(p.moe, cfg, z.reshape(b * s, d), mesh=ep_mesh)
+        else:
+            y, aux = moe_apply(p.moe, cfg, z.reshape(b * s, d))
         return h + y.reshape(b, s, d), aux
     return h + mlp_apply(p.mlp, z, cfg.act), None
 
 
 def _block(cfg: LMConfig, p: Block, x: torch.Tensor, cos, sin, *, use_flash: bool,
-           chunk_q: int):
+           chunk_q: int, ep_mesh=None):
     """One layer over x (B, S, D) → (x, aux or None)."""
     full = attn.mla_full if _is_mla(cfg) else attn.gqa_full
     h = x + full(p.attn, cfg, rms_norm(x, p.ln1.to(x.dtype), cfg.norm_eps), cos, sin,
                  use_flash=use_flash, chunk_q=chunk_q)
-    return _ffn(cfg, p, h)
+    return _ffn(cfg, p, h, ep_mesh)
+
+
+def _no_constraint(x: torch.Tensor, role: str) -> torch.Tensor:
+    return x
 
 
 def _positions(start, n: int, device) -> torch.Tensor:
@@ -147,41 +160,46 @@ def _positions(start, n: int, device) -> torch.Tensor:
 
 
 def hidden(model: Transformer, cfg: LMConfig, tokens: torch.Tensor, *,
-           use_flash: bool = False, chunk_q: int = 1024,
-           remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+           use_flash: bool = False, chunk_q: int = 1024, remat: bool = False,
+           constrain=None, ep_mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) → (final-norm hidden (B, S, D), the MoE layers'
     summed aux loss, a float32 scalar: 0 for a dense model).
 
     Follows the caller's grad mode. ``remat=True`` checkpoints each block
     (``torch.utils.checkpoint``, non-reentrant): the backward pass
     recomputes a block's activations from its input, as the reference's
-    ``jax.checkpoint`` on the block."""
-    x = model.embed[tokens.long()]
+    ``jax.checkpoint`` on the block. ``constrain`` and ``ep_mesh``: the
+    module docstring."""
+    cst = constrain or _no_constraint
+    x = cst(model.embed[tokens.long()], "residual")
     cos, sin = rotary_cos_sin(_positions(0, tokens.shape[1], x.device), _rope_dim(cfg),
                               cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in model.layers:
         if remat and torch.is_grad_enabled():
             x, a = checkpoint(_block, cfg, blk, x, cos, sin, use_flash=use_flash,
-                              chunk_q=chunk_q, use_reentrant=False)
+                              chunk_q=chunk_q, ep_mesh=ep_mesh, use_reentrant=False)
         else:
-            x, a = _block(cfg, blk, x, cos, sin, use_flash=use_flash, chunk_q=chunk_q)
+            x, a = _block(cfg, blk, x, cos, sin, use_flash=use_flash, chunk_q=chunk_q,
+                          ep_mesh=ep_mesh)
+        x = cst(x, "residual")
         if a is not None:
             aux = aux + a
     return rms_norm(x, model.final_norm.to(x.dtype), cfg.norm_eps), aux
 
 
 def forward(model: Transformer, cfg: LMConfig, tokens: torch.Tensor, *,
-            use_flash: bool = False, chunk_q: int = 1024,
-            remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+            use_flash: bool = False, chunk_q: int = 1024, remat: bool = False,
+            constrain=None, ep_mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) → (logits (B, S, V) in float32, aux loss)."""
-    x, aux = hidden(model, cfg, tokens, use_flash=use_flash, chunk_q=chunk_q, remat=remat)
+    x, aux = hidden(model, cfg, tokens, use_flash=use_flash, chunk_q=chunk_q, remat=remat,
+                    constrain=constrain, ep_mesh=ep_mesh)
     return (x @ model.unembed).float(), aux
 
 
 def loss_fn(model: Transformer, cfg: LMConfig, batch: dict, *, use_flash: bool = False,
-            chunk_q: int = 1024, remat: bool = False,
-            ce_chunk: int | None = None) -> torch.Tensor:
+            chunk_q: int = 1024, remat: bool = False, constrain=None,
+            ce_chunk: int | None = None, ep_mesh=None) -> torch.Tensor:
     """Token-mean next-token cross-entropy of ``batch`` (``"tokens"`` and
     ``"labels"``, (B, S) each, tensors or numpy arrays) plus ``AUX_COEF``
     times the MoE aux loss, a float32 scalar on the model's device.
@@ -191,11 +209,12 @@ def loss_fn(model: Transformer, cfg: LMConfig, batch: dict, *, use_flash: bool =
     dev = model.device
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     labels = torch.as_tensor(batch["labels"], device=dev)
+    kw = dict(use_flash=use_flash, chunk_q=chunk_q, remat=remat, constrain=constrain,
+              ep_mesh=ep_mesh)
     if ce_chunk:
-        x, aux = hidden(model, cfg, tokens, use_flash=use_flash, chunk_q=chunk_q, remat=remat)
+        x, aux = hidden(model, cfg, tokens, **kw)
         return chunked_cross_entropy(x, model.unembed, labels, chunk=ce_chunk) + AUX_COEF * aux
-    logits, aux = forward(model, cfg, tokens, use_flash=use_flash, chunk_q=chunk_q,
-                          remat=remat)
+    logits, aux = forward(model, cfg, tokens, **kw)
     return cross_entropy(logits, labels) + AUX_COEF * aux
 
 
@@ -224,19 +243,23 @@ def _layer_cache(cfg: LMConfig, cache: dict, i: int) -> dict:
 
 @torch.no_grad()
 def prefill(model: Transformer, cfg: LMConfig, tokens: torch.Tensor, s_max: int, *,
-            cache_dtype=torch.float32, use_flash: bool = False,
-            chunk_q: int = 1024) -> tuple[torch.Tensor, dict]:
+            cache_dtype=torch.float32, use_flash: bool = False, chunk_q: int = 1024,
+            constrain=None, ep_mesh=None) -> tuple[torch.Tensor, dict]:
     """Fill a new KV cache for positions [0, S) and return the last token's
-    logits (B, V) in float32 — never the (B, S, V) logits."""
+    logits (B, V) in float32 — never the (B, S, V) logits. ``constrain``
+    and ``ep_mesh``: the module docstring."""
     b, s = tokens.shape
-    x = model.embed[tokens.long()]
+    cst = constrain or _no_constraint
+    x = cst(model.embed[tokens.long()], "residual")
     cos, sin = rotary_cos_sin(_positions(0, s, x.device), _rope_dim(cfg), cfg.rope_theta)
     cache = cache_init(cfg, b, s_max, cache_dtype, device=x.device)
     fill = attn.mla_prefill_cache if _is_mla(cfg) else attn.gqa_prefill_cache
     for i, blk in enumerate(model.layers):
         fill(blk.attn, cfg, rms_norm(x, blk.ln1.to(x.dtype), cfg.norm_eps), cos, sin,
              _layer_cache(cfg, cache, i))
-        x, _ = _block(cfg, blk, x, cos, sin, use_flash=use_flash, chunk_q=chunk_q)
+        x, _ = _block(cfg, blk, x, cos, sin, use_flash=use_flash, chunk_q=chunk_q,
+                      ep_mesh=ep_mesh)
+        x = cst(x, "residual")
     x = rms_norm(x[:, -1:], model.final_norm.to(x.dtype), cfg.norm_eps)
     return (x[:, 0] @ model.unembed).float(), cache
 

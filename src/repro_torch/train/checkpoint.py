@@ -18,9 +18,14 @@ numpy has no bfloat16 without ``ml_dtypes``, which the port does not
 need: a bf16 leaf is stored as its uint16 bit pattern with ``"bfloat16"``
 in the manifest, and a ``"bfloat16"`` leaf the reference wrote is read as
 the same bits. ``restore(step, like, device=)`` places every leaf on
-``like``'s device (or ``device``) in ``like``'s dtype. The reference's
-``shardings=`` places leaves on a ``("data", "model")`` mesh, which comes
-with ROADMAP.md queue A item 6e.
+``like``'s device (or ``device``) in ``like``'s dtype.
+
+Elastic restore: leaves are stored as global arrays, so a checkpoint
+restores onto any mesh. ``save`` takes leaves placed on a mesh
+(``launch.sharding.place``) and writes each gathered, as the reference
+writes global arrays; ``restore(step, like, shardings=)`` places each leaf
+per its ``NamedSharding`` (saved from 8 coordinates, restored onto 4), and a
+placed like leaf without one is placed as it was.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.launch.sharding import Placed, gather, place
 from repro_torch.utils import PropagatingThread, tree_map
 
 _BF16 = "bfloat16"
@@ -49,7 +55,10 @@ def _flatten_with_paths(tree: Any, prefix: tuple = ()) -> list[tuple[str, Any]]:
 
 def _to_host(x: Any) -> Any:
     """A host copy of one leaf that later in-place updates cannot reach: a
-    CPU tensor for a tensor, a numpy array otherwise."""
+    CPU tensor for a tensor or a placed tensor (gathered), a numpy array
+    otherwise."""
+    if isinstance(x, Placed):
+        return gather(x, "cpu")
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu", copy=True)
     return np.array(x)
@@ -131,32 +140,49 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Any, *, device=None) -> Any:
+    def restore(self, step: int, like: Any, *, device=None, shardings: Any = None) -> Any:
         """Step ``step`` in the structure of ``like``: each leaf a tensor of
         the like leaf's dtype on ``device`` (default: the like leaf's
-        device); a numpy like leaf gives a numpy array of its dtype. Raises
-        ``KeyError`` on a leaf the checkpoint lacks and ``ValueError`` on a
-        shape that differs."""
+        device); a numpy like leaf gives a numpy array of its dtype.
+        ``shardings`` (a tree shaped as ``like`` of ``NamedSharding`` or
+        None) places a leaf on its mesh instead; a placed like leaf
+        (``launch.sharding.Placed``) without one keeps its own sharding.
+        Raises ``KeyError`` on a leaf the checkpoint lacks and
+        ``ValueError`` on a shape that differs, a shardings tree of another
+        structure or a split that does not divide."""
         path = os.path.join(self.dir, f"step_{step:012d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
         by_key = {leaf["key"]: leaf for leaf in manifest["leaves"]}
+        like_leaves = _flatten_with_paths(like)
+        where = {}
+        if shardings is not None:
+            where = dict(_flatten_with_paths(shardings))
+            if sorted(where) != sorted(key for key, _ in like_leaves):
+                raise ValueError("the shardings tree does not have the structure of like")
         restored = {}
         with np.load(os.path.join(path, "arrays.npz")) as data:
-            for key, like_leaf in _flatten_with_paths(like):
+            for key, like_leaf in like_leaves:
                 if key not in by_key:
                     raise KeyError(f"checkpoint missing leaf {key!r}")
                 meta = by_key[key]
                 arr = _decode(data[meta["name"]], meta["dtype"])
-                if tuple(arr.shape) != tuple(np.shape(like_leaf)):
-                    raise ValueError(f"shape mismatch for {key}: {tuple(arr.shape)} vs "
-                                     f"{tuple(np.shape(like_leaf))}")
-                if isinstance(like_leaf, torch.Tensor):
-                    restored[key] = arr.to(device=device or like_leaf.device,
-                                           dtype=like_leaf.dtype)
+                shape = tuple(like_leaf.shape) if hasattr(like_leaf, "shape") else \
+                    tuple(np.shape(like_leaf))
+                if tuple(arr.shape) != shape:
+                    raise ValueError(f"shape mismatch for {key}: {tuple(arr.shape)} vs {shape}")
+                sharding = where.get(key) or (like_leaf.sharding if isinstance(like_leaf, Placed)
+                                              else None)
+                if isinstance(like_leaf, (torch.Tensor, Placed)):
+                    leaf = arr.to(like_leaf.dtype)
                 else:
                     host = arr.float() if arr.dtype == torch.bfloat16 else arr
-                    restored[key] = host.numpy().astype(np.asarray(like_leaf).dtype)
+                    leaf = host.numpy().astype(np.asarray(like_leaf).dtype)
+                if sharding is not None:
+                    leaf = place(leaf, sharding)
+                elif isinstance(like_leaf, torch.Tensor):
+                    leaf = leaf.to(device or like_leaf.device)
+                restored[key] = leaf
         return _rebuild(like, restored)
 
 

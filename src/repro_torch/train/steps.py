@@ -13,9 +13,14 @@ place: the returned model and state are the ones passed in.
 never waits for the card. Batches may be numpy arrays
 (``data.pipeline``'s) or tensors.
 
-The reference's ``mesh``, ``seq_parallel`` and ``grad_specs`` shard a step
-over a ``("data", "model")`` mesh (ROADMAP.md queue A item 6e); they raise
-here.
+``mesh`` (a ``launch.Mesh``) runs an MoE model's layers expert-parallel
+on it (``moe_apply_ep``), as the reference's mesh steps do. The
+reference's ``seq_parallel`` residual constraint and ``grad_specs`` are
+GSPMD layout hints that move where a value lives and never the value; in
+this port a shard lies where it was put, so they are checked (the spec tree
+against the parameters, its axes against the mesh, its rank against each
+array) and raise ``ValueError`` where the reference refuses, and the
+values are unchanged (ROADMAP.md §C).
 """
 from __future__ import annotations
 
@@ -25,19 +30,12 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import GNNConfig, LMConfig, RecsysConfig
+from repro_torch.convert import lm_param_shapes
+from repro_torch.launch.sharding import NamedSharding, P, check_specs, dp_axes
 from repro_torch.models import transformer as tf
 from repro_torch.models.gnn import dimenet, gin, graphcast, mace
 from repro_torch.models.recsys import autoint
 from repro_torch.train import optimizer as opt
-
-
-def _no_mesh(what: str, **kwargs) -> None:
-    given = [k for k, v in kwargs.items() if v not in (None, False)]
-    if given:
-        raise NotImplementedError(
-            f"{what}: {', '.join(given)} shard the step over a ('data', 'model') mesh, which "
-            "is not in the port yet: ROADMAP.md queue A item 6e ports it; the step runs on "
-            "one device")
 
 
 def _train_step(loss: Callable, opt_cfg: opt.AdamWConfig) -> Callable:
@@ -73,21 +71,58 @@ def make_lm_train_step(cfg: LMConfig, opt_cfg: opt.AdamWConfig | None = None,
                        ce_chunk: int | None = None, mesh=None,
                        seq_parallel: bool = False, grad_specs=None) -> Callable:
     """One AdamW step on ``tf.loss_fn`` (chunked attention; ``remat``
-    checkpoints each block; ``ce_chunk`` the chunked cross-entropy)."""
-    _no_mesh("make_lm_train_step", mesh=mesh, seq_parallel=seq_parallel,
-             grad_specs=grad_specs)
-    loss = partial(tf.loss_fn, cfg=cfg, chunk_q=chunk_q, remat=remat, ce_chunk=ce_chunk)
+    checkpoints each block; ``ce_chunk`` the chunked cross-entropy). With
+    ``mesh``: an MoE model's layers run on it expert-parallel;
+    ``seq_parallel`` checks the residual stream against the reference's
+    sequence-parallel spec (:func:`make_lm_constrain`); ``grad_specs`` (a
+    spec tree in ``convert.lm_params_to_tree``'s layout, e.g.
+    ``launch.sharding.lm_param_specs``) is checked against the parameters
+    on every step. Without a mesh, ``seq_parallel`` and ``grad_specs`` are
+    ignored, as in the reference."""
+    constrain = make_lm_constrain(mesh) if (mesh is not None and seq_parallel) else None
+    ep_mesh = mesh if (mesh is not None and cfg.moe is not None) else None
+    loss = partial(tf.loss_fn, cfg=cfg, chunk_q=chunk_q, remat=remat, ce_chunk=ce_chunk,
+                   constrain=constrain, ep_mesh=ep_mesh)
+    if grad_specs is not None and mesh is not None:
+        plain = loss
+
+        def loss(model, batch):
+            check_specs(grad_specs, lm_param_shapes(model, cfg), mesh)
+            return plain(model, batch=batch)
+
     return _train_step(loss, opt_cfg or opt.AdamWConfig())
+
+
+def make_lm_constrain(mesh) -> Callable:
+    """``constrain(x, role)`` for ``tf.hidden`` / ``tf.prefill``: the
+    reference's Megatron sequence-parallel spec for the residual stream,
+    ``P(dp, "model", None)`` (batch over the data axes, sequence over
+    ``"model"``), checked as a sharding constraint is (the mesh has the
+    axes, the array the rank; a dim need not divide: the reference pads
+    it); x is returned unchanged. Other roles pass through."""
+    dp = dp_axes(mesh)
+    specs = {"residual": NamedSharding(mesh, P(dp if len(dp) > 1 else dp[0], "model", None))}
+
+    def constrain(x, role):
+        if role in specs:
+            specs[role].check(tuple(x.shape), even=False)
+        return x
+
+    return constrain
 
 
 def make_lm_prefill(cfg: LMConfig, s_max: int, *, chunk_q: int = 1024, mesh=None,
                     seq_parallel: bool = False, cache_dtype=None) -> Callable:
-    _no_mesh("make_lm_prefill", mesh=mesh, seq_parallel=seq_parallel)
+    """``step(model, tokens) -> (last-token logits, cache)``; ``mesh`` and
+    ``seq_parallel`` as :func:`make_lm_train_step`'s."""
+    constrain = make_lm_constrain(mesh) if (mesh is not None and seq_parallel) else None
+    ep_mesh = mesh if (mesh is not None and cfg.moe is not None) else None
     cache_dtype = cache_dtype or torch.float32
 
     def step(model, tokens):
         return tf.prefill(model, cfg, torch.as_tensor(tokens, device=model.device), s_max,
-                          chunk_q=chunk_q, cache_dtype=cache_dtype)
+                          chunk_q=chunk_q, cache_dtype=cache_dtype, constrain=constrain,
+                          ep_mesh=ep_mesh)
 
     return step
 

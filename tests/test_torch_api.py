@@ -273,6 +273,14 @@ def test_import_repro_torch_pulls_in_neither_jax_nor_repro():
         "gb = {'x': np.ones((6, 3), np.float32), 'edges': pe, 'labels': np.zeros(6, np.int64)}\n"
         "gd.make_distributed_gnn_train_step(gc, make_ring_mesh(2, devices=['cpu'] * 2))(\n"
         "    gmod, init_state(gmod), gb)\n"
+        "from repro_torch.launch import make_local_mesh, sharding\n"
+        "from repro_torch.models import moe\n"
+        "dc = get_smoke('deepseek_v2_lite_16b')\n"
+        "dm = moe.moe_init(torch.Generator().manual_seed(0), dc, device='cpu')\n"
+        "y, _ = moe.moe_apply_ep(dm, dc, torch.ones(8, dc.d_model),\n"
+        "                        mesh=make_local_mesh(data=2, model=4, devices=['cpu'] * 8))\n"
+        "assert y.shape == (8, dc.d_model)\n"
+        "assert sharding.P('data', None) == ('data', None)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

@@ -1483,3 +1483,98 @@ def test_ring_attention_on_a_one_card_mesh_matches_chunked_attention(cuda, n_sta
             for _ in range(3):  # back to back, no synchronisation between the runs
                 got = ring_attention(q, k, v, n_stages=n_stages, mesh=m)
             torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+def _data_model_mesh(data, model, device):
+    from repro_torch.launch import make_local_mesh
+
+    return make_local_mesh(data=data, model=model, devices=[device] * (data * model))
+
+
+@pytest.mark.parametrize("cf", [8.0, 1.25, 1.0])
+def test_expert_parallel_moe_on_a_one_card_mesh_matches_the_cpu_port(cuda, cf):
+    """moe_apply_ep of the deepseek_v2_lite_16b smoke layer on a one-card
+    (2, 4) mesh against the CPU port's on a CPU (2, 4) mesh, same weights and
+    tokens: routing equal as integers, y and aux within 2e-4, the router's
+    gradient of y.sum() within 1e-4 (by its norm), the dropped share equal
+    (none at 8.0, some at 1.0)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import moe
+
+    cfg = get_smoke("deepseek_v2_lite_16b")
+    layer = moe.moe_init(torch.Generator(device=cuda).manual_seed(7), cfg, device=cuda)
+    host = moe.MoE(cfg, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in layer.state_dict().items()})
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (64, cfg.d_model)).astype(np.float32))
+    assert torch.equal(moe.route(layer, cfg, x.to(cuda))[2].cpu(), moe.route(host, cfg, x)[2])
+    got, want = {}, {}
+    for out, p, xx, mesh in ((got, layer, x.to(cuda), _data_model_mesh(2, 4, cuda)),
+                             (want, host, x, _data_model_mesh(2, 4, "cpu"))):
+        p.router.requires_grad_(True)
+        try:
+            y, aux = moe.moe_apply_ep(p, cfg, xx, mesh=mesh, capacity_factor=cf)
+            (g,) = torch.autograd.grad(y.sum(), [p.router])
+        finally:
+            p.router.requires_grad_(False)
+        out.update(y=y.detach().cpu(), aux=aux.detach().cpu(), g=g.cpu(),
+                   dropped=moe.ep_dropped(p, cfg, xx, mesh=mesh, capacity_factor=cf))
+    torch.testing.assert_close(got["y"], want["y"], rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(got["aux"], want["aux"], rtol=2e-4, atol=2e-4)
+    assert _leaf_rel({"g": got["g"]}, {"g": want["g"]}) <= 1e-4
+    assert got["dropped"] == want["dropped"]
+    assert want["dropped"] == 0 if cf == 8.0 else want["dropped"] > 0 if cf == 1.0 else True
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "deepseek_v2_lite_16b"])
+def test_mesh_train_step_on_a_one_card_mesh_matches_the_cpu_port(cuda, arch):
+    """make_lm_train_step(mesh=(2, 4), seq_parallel=True, grad_specs=) on the
+    card against the CPU port's on a CPU mesh, two steps from the same
+    weights: losses within 2e-5, every parameter leaf within 1e-4 (by its
+    norm)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.convert import lm_param_shapes
+    from repro_torch.data.pipeline import LMTokenPipeline
+    from repro_torch.launch import lm_param_specs
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps
+
+    cfg = get_smoke(arch)
+    m_dev = tf.init_params(torch.Generator(device=cuda).manual_seed(9), cfg, device=cuda)
+    m_cpu = tf.Transformer(cfg, device="cpu")
+    m_cpu.load_state_dict({k: v.cpu() for k, v in m_dev.state_dict().items()})
+    pipe = LMTokenPipeline(cfg, 4, 16, seed=2)
+    runs = []
+    for m, dev in ((m_dev, cuda), (m_cpu, "cpu")):
+        mesh = _data_model_mesh(2, 4, dev)
+        step = steps.make_lm_train_step(cfg, chunk_q=8, mesh=mesh, seq_parallel=True,
+                                        grad_specs=lm_param_specs(lm_param_shapes(m, cfg), mesh))
+        state = opt.init_state(m)
+        losses = [step(m, state, pipe.batch_at(i))[2]["loss"].item() for i in range(2)]
+        runs.append(losses)
+    for a, b in zip(*runs):
+        assert abs(a - b) <= 2e-5 * abs(b), runs
+    assert _leaf_rel(dict(m_dev.named_parameters()), dict(m_cpu.named_parameters())) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "deepseek_v2_lite_16b"])
+def test_mesh_prefill_on_a_one_card_mesh_matches_the_cpu_port(cuda, arch):
+    """make_lm_prefill(mesh=(2, 4), seq_parallel=True): last-token logits
+    within 1e-5 of the largest, and no hand-written kernel launched."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import steps
+
+    cfg = get_smoke(arch)
+    m_dev = tf.init_params(torch.Generator(device=cuda).manual_seed(10), cfg, device=cuda)
+    m_cpu = tf.Transformer(cfg, device="cpu")
+    m_cpu.load_state_dict({k: v.cpu() for k, v in m_dev.state_dict().items()})
+    tokens = np.random.default_rng(11).integers(0, cfg.vocab, (4, 24)).astype(np.int32)
+    before = launch_counts()
+    a, _ = steps.make_lm_prefill(cfg, 28, chunk_q=8, mesh=_data_model_mesh(2, 4, cuda),
+                                 seq_parallel=True)(m_dev, tokens)
+    assert launch_counts() == before
+    b, _ = steps.make_lm_prefill(cfg, 28, chunk_q=8, mesh=_data_model_mesh(2, 4, "cpu"),
+                                 seq_parallel=True)(m_cpu, tokens)
+    assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(b.abs().max())

@@ -105,11 +105,6 @@ def test_moe_apply_matches_reference(ds, t):
     _close(aux, want_aux)
 
 
-def test_moe_apply_ep_raises_naming_item_6e():
-    with pytest.raises(NotImplementedError, match="item 6e"):
-        moe.moe_apply_ep(None, None, None, mesh=None)
-
-
 # --------------------------------------------------------------------------
 # MLA
 # --------------------------------------------------------------------------

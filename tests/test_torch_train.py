@@ -392,11 +392,6 @@ def test_compressed_sgd_converges():
     assert 0.5 * torch.sum(torch.square(w - target)).item() < 1e-3
 
 
-def test_compressed_psum_raises_naming_item_6e():
-    with pytest.raises(NotImplementedError, match="item 6e"):
-        comp.compressed_psum({"w": torch.zeros(2)}, {"w": torch.zeros(2)}, "data")
-
-
 # ---------------------------------------------------------------------------
 # Data pipelines
 # ---------------------------------------------------------------------------
@@ -655,15 +650,6 @@ def test_lm_prefill_and_serve_steps_match_reference():
     want, _ = ref_steps.make_lm_serve_step(cfg)(params, ref_cache, jnp.asarray(nxt),
                                                 jnp.asarray(9, jnp.int32))
     _leaf_close(got.numpy(), want, 2e-5)
-
-
-def test_mesh_arguments_and_gnn_steps_raise_naming_their_items():
-    cfg = get_smoke("yi_6b")
-    for kw in ({"mesh": object()}, {"seq_parallel": True}, {"grad_specs": {}}):
-        with pytest.raises(NotImplementedError, match="item 6e"):
-            steps.make_lm_train_step(cfg, **kw)
-    with pytest.raises(NotImplementedError, match="item 6e"):
-        steps.make_lm_prefill(cfg, 8, mesh=object())
 
 
 def _drop_step(directory, step):
