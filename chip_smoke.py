@@ -264,7 +264,27 @@
    dropped share; (d) DeepSeek-V2-Lite at full width cut to 2 layers, f32,
    the mesh train step: its first loss on 2 x 256 tokens within 1e-4 of
    the CPU port's, then 3 steps of 4 x 1,024 (walls, tokens/s, peak).
-17. [examples] Each ``examples/torch_*.py`` on the card in its own process
+17. [dryrun] The dry run on the production mesh (``launch.dryrun``,
+   ``hlo_analysis``, ``analytic``): (a) ``run_cell`` on ``DRY_CELLS``, one
+   cell a family, on the (16, 16) mesh of meta coordinates (nothing
+   allocated): each ``ok``, its GiB a device and its three roofline terms
+   at the H100's rates printed beside ``analytic``; (b) the triangle cell at
+   ``dense_64k`` (n 65,536, density 0.3) realised on the card: U drawn from
+   ``DRY_SEED`` in row chunks, the ring of ``DRY_RING_STAGES`` stages of one
+   card (``make_ring_mesh(8, devices=[cuda:0] * 8)``, uint8 blocks of 4.29
+   GB) with S² K2 launches, the stage chain with S² more and K1's count of
+   the same U, the three equal as int64 (past 2³¹), the wall beside the dry
+   run's roofline of the same cell on the same mesh shape and K2's int8
+   bound; the count also equal to cuBLAS's (``torch._int_mm`` of U's row
+   chunks with U, masked by U, summed in int64: no code of K1 or K2), and
+   the ring's densest visit, one K2 launch whose sum passes 2³¹, equal to
+   K2's plain version; (c) DeepSeek-V2-Lite bf16 at full depth prefilling 4 x 1,024
+   tokens on the one-card (2, 4) mesh and Yi-6B at full width, 8 layers,
+   f32, one train step of 4 x 1,024 tokens on a (1, 1) mesh of the card,
+   both built by ``lm_cell``: the FLOPs counted on the card equal the meta
+   count, and on (1, 1) the arguments on the card equal the dry run's
+   argument bytes; the peak allocated beside the predicted peak.
+18. [examples] Each ``examples/torch_*.py`` on the card in its own process
    (all six at once, their small arguments in ``EXAMPLES``), after the
    slices' windows and outside the main path's: each exits 0, which each
    does only when its own counts or losses check out.
@@ -276,9 +296,12 @@ read just after: none reaches a hand-written kernel (the reference trains
 through chunked attention and the plain lookup, K6 and K7 have no
 backward, the reference's GNNs, the partitioned engine included, reach no
 Pallas kernel, and neither do its mesh steps and its EP), so their counts
-must stay 0. Any mismatch or exception exits non-zero. ``python3
-chip_smoke.py --train`` runs phases 13 to 16 alone, ``--examples`` phase 17
-alone.
+must stay 0. Phase 17 has its own window too, in which K2 launches exactly
+2·S² times (the ring and the chain of (b)), K1 once, and nothing else,
+besides the one K2 launch held against its plain version. Any
+mismatch or exception exits non-zero. ``python3 chip_smoke.py --train``
+runs phases 13 to 16 alone, ``--dryrun`` phase 17 alone, ``--examples``
+phase 18 alone.
 The last three lines are the ``kernels`` JSON line, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Imports nothing of JAX
 and nothing of the reference package ``repro``.
@@ -310,15 +333,18 @@ GRAPHS = TABLE1 + (LARGE_NAME,)
 # 8192 ids; FB107x9's hub (dmax 5074, padded to 8192) puts MapReduce's node
 # batch of 256 rows at 256·8192² pairs, past the card's memory.
 NOT_RUN = {"FNA.5": {"sparse", "mapreduce"}, LARGE_NAME: {"mapreduce"}}
-# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): int8 tensor ops and
-# the device memory rate.
-PEAK_INT8_OPS = 1.979e15
-PEAK_BYTES = 3.35e12
-# Float rates of the same data sheet: FP32 on the CUDA cores, and bf16 and
-# TF32 on the tensor cores (dense).
-PEAK_F32_FLOPS = 66.9e12
-PEAK_BF16_FLOPS = 989.4e12
-PEAK_TF32_FLOPS = 494.7e12
+# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): int8 tensor ops, the
+# device memory rate, FP32 on the CUDA cores, and bf16 and TF32 on the tensor
+# cores. One copy, the port's src/repro_torch/launch/hlo_analysis.py (also
+# the dry run's); a directory holding chip_smoke.py alone skips the import,
+# and main() says what is missing.
+SRC = os.path.join(HERE, "src")
+if os.path.isdir(os.path.join(SRC, "repro_torch")):
+    sys.path.insert(0, SRC)
+    from repro_torch.launch.hlo_analysis import HBM_BW as PEAK_BYTES  # noqa: E402
+    from repro_torch.launch.hlo_analysis import PEAK_F32_FLOPS, PEAK_INT8_OPS  # noqa: E402
+    from repro_torch.launch.hlo_analysis import PEAK_FLOPS as PEAK_BF16_FLOPS  # noqa: E402
+    from repro_torch.launch.hlo_analysis import PEAK_TF32_FLOPS  # noqa: E402
 # The f32 tensor-core K6 does each product as three TF32 passes
 TF32X3_PASSES = 3
 # K6's routes (ops.kernel_route) and the kernel each launches
@@ -504,6 +530,23 @@ DM_PREFILL = (4, 1024)
 # TRAIN_REL, then DM_TRAIN_STEPS timed steps of TRAIN_BATCH x TRAIN_SEQ
 DM_TRAIN_CHECK = (2, 256)
 DM_TRAIN_STEPS = 3
+# [dryrun]: (a) the dry run's sweep, one cell a family, on the (16, 16) mesh of
+# meta coordinates (no card; python -m repro_torch.launch.dryrun's run_cell)
+DRY_CELLS = (("yi_6b", "train_4k"), ("deepseek_v2_lite_16b", "decode_32k"),
+             ("gin_tu", "ogb_products"), ("autoint", "serve_bulk"), ("triangle", "dense_64k"))
+# (b) the triangle cell realised on the card at dense_64k (n 65,536, density
+# 0.3): U drawn from DRY_SEED on the card, a one-card ring of DRY_RING_STAGES
+# stages (uint8 blocks of 4.29 GB in all), S² K2 visits
+DRY_RING_STAGES = 8
+DRY_SEED = 29
+# rows of U a chunk in cuBLAS's independent count of (b) (an int32 product of
+# 4,096 x 65,536 is 1.07 GB)
+DRY_CHECK_ROWS = 4096
+# (c) the LM cells realised on the card, each counted there and on meta:
+# DeepSeek-V2-Lite bf16 at full depth prefilling DRY_LM_TOKENS (batch, seq)
+# on the one-card DM_MESH, and Yi-6B at full width cut to TRAIN_YI_LAYERS,
+# f32, one train step of DRY_LM_TOKENS on a (1, 1) mesh of the card
+DRY_LM_TOKENS = (4, 1024)
 # [examples]: each examples/torch_*.py on the card, its arguments, within
 # EXAMPLE_TIMEOUT_S, all at once in their own processes
 EXAMPLES = (("torch_quickstart.py",), ("torch_pipeline_vs_mapreduce.py",),
@@ -645,6 +688,7 @@ def check_kernels(graphs: dict) -> dict:
         _sm_count,
         live_grid_size,
         masked_matmul_sum,
+        masked_matmul_sum_ops,
         split_plan,
         triangle_count,
     )
@@ -771,7 +815,7 @@ def check_kernels(graphs: dict) -> dict:
                              masked_matmul_sum(cols, u_k, u_s),
                              masked_matmul_sum_ref(cols, u_k, u_s)))
         c8, k8 = cols.contiguous().view(torch.int8), u_k.view(torch.int8)
-        ops = 2 * R * R * n_pad
+        ops = masked_matmul_sum_ops(R, R, n_pad)  # 2·R·K·N, the op's flop formula
         big = name == LARGE_NAME
         timed[name] = dict(
             shape=[R, R, n_pad],
@@ -4574,6 +4618,253 @@ def dm_mesh_phase() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# [dryrun]: the dry run on the production mesh, and its cells on the card
+# --------------------------------------------------------------------------
+def dryrun_sweep() -> dict:
+    """(a): DRY_CELLS through ``launch.dryrun.run_cell`` on the (16, 16)
+    mesh of meta coordinates: each must come back ``ok``; its GiB a device,
+    dominant term and three terms at the H100's rates beside ``analytic``."""
+    from repro_torch.configs.shapes import shapes_for
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for arch, name in DRY_CELLS:
+        shape = next(s for s in shapes_for(arch) if s.name == name)
+        rec = dryrun.run_cell(arch, shape, out_dir=os.path.join(HERE, "results", "dryrun"),
+                              verbose=False)
+        if not rec["ok"]:
+            raise AssertionError(f"[dryrun] (a) {arch} x {name}: {rec['error']}\n"
+                                 f"{rec['traceback']}")
+        rl, ana, mem = rec["roofline"], rec["analytic"], rec["memory"]
+        log(f"  (a) {arch} x {name} x pod_16x16: {mem['peak_bytes_per_device'] / 2**30:.2f} "
+            f"GiB/device, dominant {rl['dominant']}: compute {rl['compute_s']:.4e} s, memory "
+            f"{rl['memory_s']:.4e} s, collective {rl['collective_s']:.4e} s; analytic compute "
+            f"{ana['compute_s']:.4e} s, memory {ana['memory_s']:.4e} s (counted FLOPs / analytic "
+            f"{rl['global_flops'] / ana['flops']:.4f}); built {rec['build_s']} s, counted "
+            f"{rec['count_s']} s")
+        out[f"{arch}/{name}"] = {k: rec[k] for k in ("memory", "roofline", "analytic", "counted",
+                                                     "build_s", "count_s", "wall_s")}
+    return out
+
+
+def dryrun_triangle(sync) -> dict:
+    """(b): the triangle cell at dense_64k realised on the card: U drawn
+    from DRY_SEED in row chunks, the ring of DRY_RING_STAGES stages of one
+    card through ``DynamicPipeline`` (S² K2 launches), the stage chain
+    (``run_sequential``, S² more) and K1's ``triangle_count`` of the same U
+    (one launch), all three equal as int64 and to cuBLAS's count of the same
+    U (``_int_mm`` over row chunks, the mask, an int64 sum: no code of K1 or
+    K2); the ring's densest visit on K2 against its plain version; the wall
+    beside the dry run's roofline for the same cell and mesh and K2's int8
+    bound. Returns the comparison's launch in ``compare_launches``."""
+    import torch
+
+    from repro_torch.configs.shapes import shapes_for
+    from repro_torch.core.dynamic_pipeline import run_sequential
+    from repro_torch.core.triangle_pipeline import dense_ring_spec
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.triangle_count.ops import masked_matmul_sum, triangle_count
+    from repro_torch.kernels.triangle_count.ref import masked_matmul_sum_ref
+    from repro_torch.launch import analytic, dryrun, hlo_analysis, make_ring_mesh
+
+    shape = next(s for s in shapes_for("triangle") if s.name == "dense_64k")
+    s_n = DRY_RING_STAGES
+    gen = torch.Generator(device=DEVICE).manual_seed(DRY_SEED)
+    t0 = time.perf_counter()
+    cell = dryrun.triangle_cell("triangle", shape, make_ring_mesh(s_n, devices=[DEVICE] * s_n),
+                                generator=gen)
+    sync()
+    draw_s = time.perf_counter() - t0
+    blocks = cell.args[0]
+    rows, n_pad = blocks.shape[1], blocks.shape[2]
+    k0 = launch_counts()
+    t0 = time.perf_counter()
+    ring = int(cell.run())
+    sync()
+    ring_ms = (time.perf_counter() - t0) * 1e3
+    k1 = launch_counts()
+    t0 = time.perf_counter()
+    chain = int(run_sequential(dense_ring_spec(rows), blocks, blocks, s_n))
+    sync()
+    chain_ms = (time.perf_counter() - t0) * 1e3
+    k2 = launch_counts()
+    t0 = time.perf_counter()
+    live = int(triangle_count(blocks.reshape(n_pad, n_pad)))
+    sync()
+    k1_ms = (time.perf_counter() - t0) * 1e3
+    k3 = launch_counts()
+    want = {"masked_matmul_sum": s_n * s_n}
+    for label, a, b, need in (("ring", k0, k1, want), ("chain", k1, k2, want),
+                              ("K1", k2, k3, {"triangle_count_live": 1})):
+        got = {n: b[n] - a[n] for n in b if b[n] != a[n]}
+        if got != need:
+            raise AssertionError(f"[dryrun] (b) the {label} launched {got}, want {need}")
+    log(f"  (b) dense_64k (n {shape.n_nodes:,}, density {shape.density}) on a one-card ring of "
+        f"{s_n} stages, uint8 blocks {tuple(blocks.shape)} ({blocks.numel() / 1e9:.2f} GB, drawn "
+        f"in {draw_s:.2f} s): ring {ring:,} ({ring_ms:.1f} ms, {s_n * s_n} K2), chain "
+        f"{chain:,} ({chain_ms:.1f} ms, {s_n * s_n} K2), K1 {live:,} ({k1_ms:.1f} ms, 1 launch)")
+    # cuBLAS's int8 product of the same U, a row chunk at a time: Σ (U·U) ⊙ U
+    t0 = time.perf_counter()
+    u = blocks.reshape(n_pad, n_pad)
+    cublas = 0
+    for r0 in range(0, n_pad, DRY_CHECK_ROWS):
+        part = torch._int_mm(u[r0:r0 + DRY_CHECK_ROWS].view(torch.int8), u.view(torch.int8))
+        cublas += int(part.mul_(u[r0:r0 + DRY_CHECK_ROWS]).sum(dtype=torch.int64))
+        del part
+    cublas_ms = (time.perf_counter() - t0) * 1e3
+    log(f"  (b) cuBLAS's count of the same U (_int_mm over {DRY_CHECK_ROWS:,}-row chunks, "
+        f"masked, summed in int64): {cublas:,} ({cublas_ms:.1f} ms)")
+    if not ring == chain == live == cublas:
+        raise AssertionError(f"[dryrun] (b) counts differ: ring {ring}, chain {chain}, K1 {live}, "
+                             f"cuBLAS {cublas}")
+    if ring <= 2**31:
+        raise AssertionError(f"[dryrun] (b) {ring} triangles: dense_64k should pass 2^31")
+    # the densest visit (stage 0 visited by stage 1's block) on K2 against its
+    # plain version: one launch whose own sum passes 2^31
+    visit = (blocks[0][:, rows:2 * rows], blocks[1], blocks[0])
+    k4 = launch_counts()
+    got = int(masked_matmul_sum(*visit))
+    compare = {n: v - k4[n] for n, v in launch_counts().items() if v != k4[n]}
+    plain = int(masked_matmul_sum_ref(*visit))
+    log(f"  (b) the densest visit, ({rows:,}x{rows:,})·({rows:,}x{n_pad:,}) ⊙ ({rows:,}x{n_pad:,}): "
+        f"K2 {got:,}, plain version {plain:,} (max abs err {abs(got - plain)})")
+    if got != plain or compare != {"masked_matmul_sum": 1}:
+        raise AssertionError(f"[dryrun] (b) the densest visit: K2 {got} ({compare}), plain {plain}")
+    if got <= 2**31:
+        raise AssertionError(f"[dryrun] (b) the densest visit's {got} should pass 2^31")
+    # the dry run of the same cell on the same mesh shape, on meta
+    meta = dryrun.triangle_cell("triangle", shape, make_ring_mesh(s_n, devices=["meta"] * s_n))
+    counts = dryrun.count_cell(meta)
+    rl = hlo_analysis.roofline_from_counts(
+        counts.flops * meta.scale, counts.bytes_accessed * meta.scale,
+        hlo_analysis.collective_stats(meta.collectives), s_n,
+        hlo_analysis.peak_ops(meta.ops_dtype))
+    ana = analytic.analytic_cell("triangle", "dense_64k")
+    int8_s = rl.global_flops / hlo_analysis.PEAK_INT8_OPS
+    log(f"  (b) the dry run of the cell on {s_n} stages: {rl.global_flops:.4e} operations "
+        f"(analytic {ana['flops']:.4e}), {rl.global_bytes_accessed:.4e} bytes; per stage compute "
+        f"{rl.compute_s:.4e} s (int8 peak), memory {rl.memory_s:.4e} s, collective "
+        f"{rl.collective_s:.4e} s; on one card the {s_n} stages add up: int8 bound "
+        f"{int8_s:.4f} s at {hlo_analysis.PEAK_INT8_OPS / 1e12:.0f} TOPS, memory "
+        f"{rl.global_bytes_accessed / hlo_analysis.HBM_BW:.4f} s; the ring's wall "
+        f"{ring_ms / 1e3:.4f} s is {ring_ms / 1e3 / int8_s:.2f}x the int8 bound")
+    del cell, blocks, u, visit
+    return {"count": ring, "ring_ms": ring_ms, "chain_ms": chain_ms, "k1_ms": k1_ms,
+            "cublas_count": cublas, "cublas_ms": cublas_ms, "densest_visit": got,
+            "compare_launches": compare, "draw_s": draw_s, "ops": rl.global_flops,
+            "analytic_ops": ana["flops"], "int8_bound_s": int8_s, "roofline": rl.as_dict()}
+
+
+def _card_bytes(tree) -> int:
+    from repro_torch.utils import bytes_of, tree_leaves
+
+    return sum(bytes_of(dict(x.named_parameters())) if hasattr(x, "named_parameters")
+               else bytes_of(x) for x in tree_leaves(tree))
+
+
+def dryrun_lm(sync) -> dict:
+    """(c): two LM cells built by ``launch.dryrun.lm_cell`` on the card and
+    on meta, each counted by ``dryrun.count_cell``: the card's FLOPs must
+    equal the meta count; on the (1, 1) mesh the arguments on the card
+    (parameters, AdamW state, batch) must equal the dry run's argument
+    bytes; the peak allocated beside the predicted peak."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import LMShape
+    from repro_torch.launch import dryrun
+
+    b, s = DRY_LM_TOKENS
+    yi = dataclasses.replace(get_config("yi_6b"), n_layers=TRAIN_YI_LAYERS)
+    cases = (("deepseek_v2_lite_16b", LMShape("prefill_4x1024", s, b, "prefill"), DM_MESH,
+              torch.bfloat16, None),
+             ("yi_6b", LMShape("train_4x1024", s, b, "train"), (1, 1), torch.float32, yi))
+    out = {}
+    for arch, shape, (data, model), dtype, cfg in cases:
+        label = f"{arch}{'' if cfg is None else f' x{cfg.n_layers}'} {shape.kind}"
+        meta = dryrun.lm_cell(arch, shape, dm_mesh(data, model, "meta"), dtype=dtype, cfg=cfg)
+        want = dryrun.count_cell(meta)
+        del meta
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        card = dryrun.lm_cell(arch, shape, dm_mesh(data, model), dtype=dtype, cfg=cfg,
+                              generator=torch.Generator(device=DEVICE).manual_seed(DRY_SEED))
+        sync()
+        args_on_card = _card_bytes(card.args)
+        torch.cuda.reset_peak_memory_stats()
+        got = dryrun.count_cell(card)
+        sync()
+        peak = torch.cuda.max_memory_allocated() - held
+        coords = data * model
+        temp = want.peak_live_bytes // card.spread
+        predicted = (card.argument_bytes + card.output_bytes + temp - card.alias_bytes) * coords
+        log(f"  (c) {label} ({dtype}) on a one-card ({data}, {model}) mesh: FLOPs card "
+            f"{got.flops:,} / meta {want.flops:,}; bytes accessed card {got.bytes_accessed:.4e} / "
+            f"meta {want.bytes_accessed:.4e}; arguments on the card {args_on_card:,} B, the dry "
+            f"run's {card.argument_bytes:,} B a coordinate x {coords}; peak allocated "
+            f"{peak / 1e9:.2f} GB against the predicted {predicted / 1e9:.2f} GB "
+            f"({coords} coordinates' peaks; ratio {peak / predicted:.3f}); counted on the card "
+            f"in {got.seconds:.1f} s, on meta in {want.seconds:.1f} s")
+        if got.flops != want.flops:
+            raise AssertionError(f"[dryrun] (c) {label}: the card's FLOPs {got.flops} are not "
+                                 f"the meta count {want.flops}")
+        if coords == 1 and args_on_card != card.argument_bytes:
+            raise AssertionError(f"[dryrun] (c) {label}: {args_on_card} argument bytes on the "
+                                 f"card, the dry run predicts {card.argument_bytes}")
+        out[label] = {"flops": got.flops, "meta_flops": want.flops,
+                      "bytes_accessed": got.bytes_accessed,
+                      "meta_bytes_accessed": want.bytes_accessed,
+                      "argument_bytes_card": args_on_card,
+                      "argument_bytes_per_coordinate": card.argument_bytes,
+                      "peak_gb": peak / 1e9, "predicted_peak_gb": predicted / 1e9,
+                      "count_s": got.seconds, "meta_count_s": want.seconds}
+        del card
+        torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_phase() -> dict:
+    """[dryrun], as the module docstring says, in its own launch window: (a)
+    the sweep's cells on the meta production mesh, (b) the triangle cell
+    realised at dense_64k, (c) two LM cells realised, their FLOPs held to
+    the meta counts. The window must see S² K2 launches for the ring and S²
+    for the chain, one K1 launch, and nothing else."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    sync = torch.cuda.synchronize if DEVICE == "cuda" else (lambda: None)
+    t_phase = time.perf_counter()
+    log(f"[dryrun] the dry run on the production mesh (launch.dryrun): {len(DRY_CELLS)} cells "
+        f"on the meta (16, 16) mesh; the triangle cell at dense_64k on a one-card ring of "
+        f"{DRY_RING_STAGES} stages against the chain and K1; DeepSeek-V2-Lite's bf16 prefill on "
+        f"{DM_MESH} and Yi-6B x{TRAIN_YI_LAYERS}'s f32 train step on (1, 1), counted on the card "
+        "and on meta")
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    out = {}
+    for key, run in (("a", lambda _: dryrun_sweep()), ("b", dryrun_triangle),
+                     ("c", dryrun_lm)):
+        t0 = time.perf_counter()
+        out[key] = run(sync)
+        log(f"  ({key}) done in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    sync()
+    compare = out["b"]["compare_launches"]  # K2 against its plain version: not the path's
+    launched = {name: k - compare.get(name, 0) for name, k in launch_counts().items()
+                if k - compare.get(name, 0)}
+    want = {"masked_matmul_sum": 2 * DRY_RING_STAGES**2, "triangle_count_live": 1}
+    log(f"[dryrun] kernel launches in this window: {launched} (want {want}), besides "
+        f"{compare} comparing K2 with its plain version")
+    if launched != want:
+        raise AssertionError(f"[dryrun] launched {launched}, want {want}")
+    out["launches"] = launched
+    log(f"[dryrun] done in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def examples_phase() -> dict:
     """[examples]: each ``examples/torch_*.py`` on the card (EXAMPLES' small
     arguments), every one in its own process, all at once, each within
@@ -5012,6 +5303,11 @@ def main() -> int:
         log("[gnn summary] " + json.dumps(gnn))
         log("[data-model mesh summary] " + json.dumps(dm))
         return 0
+    if sys.argv[1:] == ["--dryrun"]:  # [dryrun] alone
+        log(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+        _build.build_all(["triangle_count_sm90"], verbose=True)
+        log("[dryrun summary] " + json.dumps(dryrun_phase()))
+        return 0
     if sys.argv[1:] == ["--examples"]:  # [examples] alone
         log(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
         _build.build_all(verbose=True)  # once here, not in six processes at once
@@ -5142,6 +5438,7 @@ def main() -> int:
     log(f"[profile] done in {time.perf_counter() - t0:.1f} s")
     del graphs
     train, ring, gnn, dm = slice_phases()
+    dry = dryrun_phase()
     t0 = time.perf_counter()
     log("[examples] each examples/torch_*.py on the card, in its own process "
         "(outside the main path's launch window)")
@@ -5171,6 +5468,7 @@ def main() -> int:
                 "embedding_bag": "src/repro/kernels/embedding_bag/embedding_bag.py:32",
             }[name],
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
+            "dryrun_launches": dry["launches"].get(name, 0),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -5200,6 +5498,7 @@ def main() -> int:
     log("[ring attention summary] " + json.dumps(ring))
     log("[gnn summary] " + json.dumps(gnn))
     log("[data-model mesh summary] " + json.dumps(dm))
+    log("[dryrun summary] " + json.dumps(dry))
     log("[examples summary] " + json.dumps(examples))
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": out}))

@@ -2,16 +2,19 @@
 
 ``get_config(arch)`` returns the full published config, ``get_smoke(arch)``
 the reduced same-family config of the CPU tests, as in the reference.
-Shapes live in ``repro_torch.configs.shapes``. An unknown name raises
-``KeyError`` (the reference's ``triangle`` is not an architecture here:
-``TriangleConfig`` stays in ``configs.base``).
+Shapes live in ``repro_torch.configs.shapes``. ``triangle`` is the paper's
+own workload (``TriangleConfig``), last as in the reference's list; the
+dry run (``launch.dryrun``) sweeps every name here. An unknown name raises
+``KeyError``.
 """
 from __future__ import annotations
 
 import importlib
 
 ARCHS = ["granite_8b", "nemotron_4_15b", "yi_6b", "deepseek_v2_lite_16b", "deepseek_v2_236b",
-         "mace", "dimenet", "graphcast", "gin_tu", "autoint"]
+         "mace", "dimenet", "graphcast", "gin_tu", "autoint",
+         # the paper's own workload
+         "triangle"]
 
 
 def _mod(arch: str):

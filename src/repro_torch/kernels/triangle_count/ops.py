@@ -20,6 +20,8 @@ import ctypes
 import functools
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels._build import CudaKernel
 from repro_torch.kernels.triangle_count.ref import (
@@ -197,6 +199,26 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def masked_matmul_sum_ops(R: int, K: int, N: int, upper_triangular: bool = False) -> int:
+    """The integer operations of :func:`masked_matmul_sum` on A (R, K),
+    B (K, N), M (R, N): a multiply and an add for each term of A·B that the
+    kernel computes, 2·R·K·N; under ``upper_triangular`` only the live
+    ``TILE`` block triples rb ≤ kb ≤ cb (output rows, contraction, columns),
+    ragged edge tiles at their own sizes. ``torch.utils.flop_counter``
+    counts the op by this, and the kernel's bound is taken from it."""
+    if not upper_triangular:
+        return 2 * R * K * N
+
+    def tiles(n):
+        return [min(TILE, n - i) for i in range(0, n, TILE)]
+
+    rows, inner, cols = tiles(R), tiles(K), tiles(N)
+    total = 0
+    for kb, k in enumerate(inner):
+        total += k * sum(rows[:kb + 1]) * sum(cols[kb:])
+    return 2 * total
+
+
 def masked_matmul_sum(a: torch.Tensor, b: torch.Tensor, m: torch.Tensor, *,
                       upper_triangular: bool = False) -> torch.Tensor:
     """sum((A @ B) ⊙ M) for A (R, K), B (K, N), M (R, N), as an int64 scalar.
@@ -206,21 +228,50 @@ def masked_matmul_sum(a: torch.Tensor, b: torch.Tensor, m: torch.Tensor, *,
     16-byte rule (:func:`tma_row_stride`). ``upper_triangular`` adds the
     structural skip of the single-matrix count U·U⊙U at ``TILE``: output
     tiles of M·Bᵀ below the diagonal skipped, contraction chunks from the
-    tile's column on."""
+    tile's column on.
+
+    On CPU tensors it runs the plain version, on CUDA tensors the kernel's
+    launch (or a raise: nothing falls back). It is also the custom op
+    ``repro_torch::masked_matmul_sum``, which it goes through on meta
+    tensors (only the int64 scalar it would return, for a dry run's shapes)
+    and wherever a dispatch mode is active, so that ``torch.utils.
+    flop_counter`` counts it, by :func:`masked_matmul_sum_ops`. Elsewhere
+    it calls the op's implementation itself: the dispatcher's hop costs a
+    call 30–45 µs of host time on an H100, which a ring of small visits
+    waits on."""
     if a.dim() != 2 or b.dim() != 2 or m.dim() != 2 \
             or a.shape[1] != b.shape[0] or m.shape != (a.shape[0], b.shape[1]):
         raise ValueError(f"shapes {tuple(a.shape)} @ {tuple(b.shape)} vs mask "
                          f"{tuple(m.shape)}")
-    if a.device.type == "cpu":
-        return masked_matmul_sum_ref(a, b, m, upper_triangular=upper_triangular)
+    if a.device.type not in ("cpu", "cuda", "meta") \
+            or any(x.device != a.device for x in (b, m)):
+        raise ValueError(f"expected CPU or CUDA tensors (or meta ones, for shapes), all on "
+                         f"one device, got {a.device}, {b.device}, {m.device}")
+    if a.device.type == "meta" or _get_current_dispatch_mode() is not None:
+        return torch.ops.repro_torch.masked_matmul_sum(a, b, m, upper_triangular)
+    if a.device.type == "cuda":
+        return _masked_matmul_sum_cuda(a, b, m, upper_triangular)
+    return masked_matmul_sum_ref(a, b, m, upper_triangular=upper_triangular)
+
+
+@torch.library.custom_op("repro_torch::masked_matmul_sum", mutates_args=(),
+                         device_types="cpu")
+def _masked_matmul_sum_op(a: torch.Tensor, b: torch.Tensor, m: torch.Tensor,
+                          upper_triangular: bool) -> torch.Tensor:
+    return masked_matmul_sum_ref(a, b, m, upper_triangular=upper_triangular)
+
+
+@_masked_matmul_sum_op.register_kernel("cuda")
+def _masked_matmul_sum_cuda(a: torch.Tensor, b: torch.Tensor, m: torch.Tensor,
+                            upper_triangular: bool) -> torch.Tensor:
     dev = _check_cuda(a, b, m)
     (R, K), N = a.shape, b.shape[1]
     if max(R, K, N) > _INT32_MAX:
         raise ValueError(f"{R} rows, {K} inner and {N} columns exceed the kernel's "
                          f"reach: TMA's 32-bit coordinates take at most {_INT32_MAX}")
-    out = torch.zeros(1, dtype=torch.int64, device=dev)
+    out = torch.zeros((), dtype=torch.int64, device=dev)
     if not (R and K and N):
-        return out[0]
+        return out
     slice_, items = split_plan(R, K, N, upper_triangular, _sm_count(dev.index))
     if items > _INT32_MAX:
         raise ValueError(f"{items} work items exceed the kernel's 1-D grid "
@@ -233,7 +284,18 @@ def masked_matmul_sum(a: torch.Tensor, b: torch.Tensor, m: torch.Tensor, *,
                    m.data_ptr(), tma_row_stride(m), R, K, N, int(upper_triangular),
                    slice_, items, out.data_ptr(),
                    stream=torch.cuda.current_stream(dev).cuda_stream)
-    return out[0]
+    return out
+
+
+@_masked_matmul_sum_op.register_fake
+def _masked_matmul_sum_fake(a, b, m, upper_triangular):
+    return a.new_empty((), dtype=torch.int64)
+
+
+@register_flop_formula(torch.ops.repro_torch.masked_matmul_sum)
+def _masked_matmul_sum_flops(a_shape, b_shape, m_shape, upper_triangular, *, out_shape=None,
+                             **kwargs) -> int:
+    return masked_matmul_sum_ops(a_shape[0], a_shape[1], b_shape[1], upper_triangular)
 
 
 def triangle_count(u: torch.Tensor, *, live_grid: bool = True) -> torch.Tensor:

@@ -8,8 +8,11 @@ training driver.
 expert-parallel MoE and the LM mesh steps; ``sharding`` holds the
 reference's spec trees and places tensors on a mesh; ``train.train_lm``
 (``python -m repro_torch.launch.train``) trains an LM with checkpoints and
-exact restart. The reference's XLA dry run (``dryrun``, ``hlo_analysis``,
-``analytic``) is ROADMAP.md queue A item 6f.
+exact restart; ``dryrun`` (``python -m repro_torch.launch.dryrun``) builds
+every (architecture, shape) cell on the production mesh of meta
+coordinates and records its memory and roofline a device, at the H100's
+rates of ``hlo_analysis``, beside ``analytic``'s closed forms (ROADMAP.md
+item 6f).
 """
 from repro_torch.launch.mesh import (
     Mesh,

@@ -9,7 +9,9 @@ unsorted and combined over the k copies. The reference's grouped matmul is
 ``torch.matmul`` per expert that received tokens. The group sizes are read
 to the host once per call to cut the sorted rows (one device sync per MoE
 layer), and empty groups launch nothing: at decode, 4 tokens × top-6 reach
-at most 24 of V2-Lite's 64 experts. A device-side grouped GEMM would
+at most 24 of V2-Lite's 64 experts. On meta tensors (``launch.dryrun``)
+there is nothing to read: all T·k rows run as one group, the same
+products any routing gives. A device-side grouped GEMM would
 remove both the sync and the per-expert launches (ROADMAP.md A0j).
 
 Expert weights are stacked (E, ...) as in the reference, so the parameter
@@ -100,7 +102,9 @@ def moe_apply(p: MoE, cfg: LMConfig, x: torch.Tensor) -> tuple[torch.Tensor, tor
         0, flat_e, torch.ones_like(flat_e))
     y_sorted = None if grad else torch.empty_like(xs)
     parts, start = [], 0
-    for i, n in enumerate(counts.tolist()):  # the one host sync of the layer
+    # a meta tensor (a dry run) has no counts to read: one group of all T·k rows
+    sizes = [t * k] + [0] * (e - 1) if x.device.type == "meta" else counts.tolist()
+    for i, n in enumerate(sizes):  # the one host sync of the layer
         if n:
             rows = xs[start:start + n]
             h = act(rows @ p.w_gate[i]) * (rows @ p.w_up[i])

@@ -226,6 +226,8 @@ def test_import_repro_torch_pulls_in_neither_jax_nor_repro():
         "import repro_torch.models.gnn.dimenet, repro_torch.models.gnn.mace\n"
         "import repro_torch.models.gnn.cg, repro_torch.configs.shapes\n"
         "import repro_torch.models.gnn.distributed\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.hlo_analysis\n"
+        "import repro_torch.launch.analytic, repro_torch.configs.triangle\n"
         "from repro_torch.api import SessionCheckpoint, StreamSession, TriangleCounter\n"
         "from repro_torch.kernels.bitset_count import bitset_pair_count\n"
         "import numpy as np, tempfile, os\n"
@@ -281,6 +283,11 @@ def test_import_repro_torch_pulls_in_neither_jax_nor_repro():
         "                        mesh=make_local_mesh(data=2, model=4, devices=['cpu'] * 8))\n"
         "assert y.shape == (8, dc.d_model)\n"
         "assert sharding.P('data', None) == ('data', None)\n"
+        "from repro_torch.launch import dryrun\n"
+        "from repro_torch.configs.shapes import TRIANGLE_SHAPES\n"
+        "cell = dryrun.triangle_cell('triangle', TRIANGLE_SHAPES[0],\n"
+        "                            make_local_mesh(data=2, model=4, devices=['meta'] * 8))\n"
+        "assert dryrun.count_cell(cell).flops > 0\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

@@ -1578,3 +1578,77 @@ def test_mesh_prefill_on_a_one_card_mesh_matches_the_cpu_port(cuda, arch):
     b, _ = steps.make_lm_prefill(cfg, 28, chunk_q=8, mesh=_data_model_mesh(2, 4, "cpu"),
                                  seq_parallel=True)(m_cpu, tokens)
     assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+# --------------------------------------------------------------------------
+# the dry run (launch.dryrun): K2 as a custom op, cells on the card
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("upper", [False, True])
+def test_masked_matmul_sum_custom_op_launches_on_the_card(cuda, upper):
+    """The op ``repro_torch::masked_matmul_sum`` on CUDA tensors launches K2
+    (the count +1), never its fake, and equals the plain version."""
+    rng = np.random.default_rng(29)
+    a, b, m = (_rand01(rng, s, 0.4, cuda) for s in ((300, 513), (513, 700), (300, 700)))
+    before = launch_counts()["masked_matmul_sum"]
+    got = torch.ops.repro_torch.masked_matmul_sum(a, b, m, upper)
+    assert launch_counts()["masked_matmul_sum"] == before + 1
+    assert (got.device.type, got.dtype, got.shape) == ("cuda", torch.int64, ())
+    assert int(got) == int(masked_matmul_sum_ref(a, b, m, upper_triangular=upper))
+
+
+def test_masked_matmul_sum_takes_the_custom_op_only_under_a_dispatch_mode(cuda):
+    """Outside a dispatch mode ``masked_matmul_sum`` launches K2 itself,
+    without the dispatcher's hop; under ``FlopCounterMode`` it goes through
+    the custom op, launches all the same and is counted by its flop
+    formula."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels.triangle_count.ops import masked_matmul_sum_ops
+
+    rng = np.random.default_rng(30)
+    a, b, m = (_rand01(rng, s, 0.4, cuda) for s in ((300, 513), (513, 700), (300, 700)))
+    before = launch_counts()["masked_matmul_sum"]
+    direct = masked_matmul_sum(a, b, m)
+    with FlopCounterMode(display=False) as fc:
+        seen = masked_matmul_sum(a, b, m)
+    assert launch_counts()["masked_matmul_sum"] == before + 2
+    assert int(direct) == int(seen) == int(masked_matmul_sum_ref(a, b, m))
+    assert fc.get_total_flops() == masked_matmul_sum_ops(300, 513, 700) > 0
+
+
+def _dry_cells(device, data, model, **kw):
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.shapes import LMShape
+    from repro_torch.launch import dryrun, make_local_mesh
+
+    mesh = make_local_mesh(data=data, model=model, devices=[device] * (data * model))
+    return [dryrun.lm_cell(arch, LMShape(kind, 32, 8, kind), mesh, cfg=get_smoke(arch), **kw)
+            for arch, kind in (("yi_6b", "train"), ("deepseek_v2_lite_16b", "prefill"),
+                               ("deepseek_v2_lite_16b", "train"))]
+
+
+def test_dryrun_smoke_lm_cells_on_the_card_count_the_meta_flops(cuda):
+    """Smoke LM cells built by ``lm_cell`` on a one-card (2, 4) mesh count,
+    on the card, the FLOPs their meta cells count; nothing launches."""
+    from repro_torch.launch import dryrun
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    before = launch_counts()
+    for card, meta in zip(_dry_cells(cuda, 2, 4, generator=gen), _dry_cells("meta", 2, 4)):
+        assert card.argument_bytes == meta.argument_bytes
+        assert dryrun.count_cell(card).flops == dryrun.count_cell(meta).flops > 0
+    assert launch_counts() == before
+
+
+def test_dryrun_argument_bytes_on_a_one_card_mesh_are_the_cards(cuda):
+    """On a (1, 1) mesh of the card a train cell's parameters, AdamW state
+    and batch on the card are the dry run's argument bytes, exactly."""
+    from repro_torch.utils import bytes_of
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for cell in _dry_cells(cuda, 1, 1, generator=gen)[::2]:
+        model, state, batch = cell.args
+        on_card = bytes_of(dict(model.named_parameters())) + bytes_of(state) + bytes_of(batch)
+        assert all(t.device.type == "cuda" for t in (*model.parameters(), state["step"],
+                                                     *batch.values()))
+        assert on_card == cell.argument_bytes

@@ -800,11 +800,19 @@ def test_cuda_kernel_raises_on_launch_error_and_counts_successes():
 
 
 def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
+    """Every wrapper refuses another device type, but K2, the custom op
+    ``repro_torch::masked_matmul_sum``, which takes meta tensors for a dry
+    run's shapes (its fake: an int64 scalar, nothing launched) and refuses
+    operands on two devices."""
     u = torch.zeros(4, 4, dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         triangle_count(u)
+    before = launch_counts()
+    got = masked_matmul_sum(u, u, u)
+    assert (got.device.type, got.dtype, got.shape) == ("meta", torch.int64, ())
+    assert launch_counts() == before
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        masked_matmul_sum(u, u, u)
+        masked_matmul_sum(torch.zeros(4, 4, dtype=torch.uint8), u, u)
     with pytest.raises(ValueError):
         bitset_edge_count(torch.zeros(4, 1, dtype=torch.int32, device="meta"),
                           torch.zeros(2, 2, dtype=torch.int32, device="meta"))

@@ -86,17 +86,21 @@ def test_param_counts_equal_the_reference(arch):
 
 
 def test_archs_the_port_does_not_run_name_their_roadmap_item():
-    """Every reference architecture now loads in the port (the GNNs since
-    ROADMAP.md item 6c-i; ``triangle`` is no architecture here: its
-    ``TriangleConfig`` stays in ``configs.base``); an unknown name still
-    raises, naming what the port has."""
+    """Every reference architecture loads in the port (the GNNs since
+    ROADMAP.md item 6c-i, ``triangle`` since 6f: its config and smoke
+    config equal the reference's field for field), the list ends as the
+    reference's does; an unknown name still raises, naming what the port
+    has."""
     from repro.configs import ARCHS as REF_ARCHS
+    from repro_torch.configs import ARCHS as PORT_ARCHS
 
     for arch in REF_ARCHS:
-        if arch == "triangle":
-            continue
         assert get_config(arch).name and get_smoke(arch).name
-    for arch in ("no_such_arch", "triangle"):
+    assert sorted(PORT_ARCHS) == sorted(REF_ARCHS) and PORT_ARCHS[-1] == REF_ARCHS[-1]
+    for port, ref in ((get_config("triangle"), ref_get_config("triangle")),
+                      (get_smoke("triangle"), ref_get_smoke("triangle"))):
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    for arch in ("no_such_arch",):
         with pytest.raises(KeyError, match="not in the port"):
             get_config(arch)
 
