@@ -1665,9 +1665,14 @@ def hybrid_phase(graphs: dict, stream_table: list) -> list:
         torch.cuda.reset_peak_memory_stats()
         k0 = launch_counts()
         t0 = time.perf_counter()
-        r = counter.count_stream(n, feeds, plan=p)
+        session = counter.open_stream(n, plan=p)  # count_stream, with the close traced
+        for f in feeds:
+            session.feed(f)
+        # the close's one read of lost brings the hub slots used
+        r, counters = traced_counters(session.finalize)
         c = r.item()
         wall = time.perf_counter() - t0
+        del session
         k1 = launch_counts()
         peak = torch.cuda.max_memory_allocated()
         if r.plan.state_layout != "hybrid":
@@ -1679,7 +1684,7 @@ def hybrid_phase(graphs: dict, stream_table: list) -> list:
             raise AssertionError(f"{name}: state bytes {r.stats['state_bytes']} != planned")
         nb = r.stats["n_blocks"]
         check_hybrid_launches(f"{name} hybrid count_stream", k0, k1, nb)
-        used = r.stats["hubs_used"]
+        used = counters["hybrid.hubs_used"]
         if hubs is not None and used != hubs:  # every slot taken by the end
             raise AssertionError(f"{name}: {used} of {hubs} hub slots used")
         row = dict(graph=name, n=n, feeds=len(feeds), blocks=nb,
@@ -1760,6 +1765,19 @@ def timed_sync(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def traced_counters(fn):
+    """(result, the tracer's counters) of ``fn()``, run with the tracer on;
+    the tracer is off and empty again afterwards, also when ``fn`` raises."""
+    from repro_torch import tracing
+
+    tracing.enable()
+    try:
+        return fn(), tracing.drain()[1]
+    finally:
+        tracing.disable()
+        tracing.drain()
 
 
 def serve_streams_phase(graphs: dict) -> dict:
@@ -2039,8 +2057,8 @@ def serve_streams_phase(graphs: dict) -> dict:
     _, wall = timed_sync(lambda: feed_round_robin(mux, {sid: yt_blocks}))
     plan_txt = (f"(e) YT admitted as {verdict.action} (H={p.hub_slots} C={p.tail_capacity} "
                 f"B={p.block_size}")
-    try:
-        r = mux.close(sid)
+    try:  # the close's one read of lost brings the hub slots used
+        r, counters = traced_counters(lambda: mux.close(sid))
     except RuntimeError as err:
         # only the exact-count refusal of a plan that really lost endpoints
         # (close ingests the tail block first, so read the counter after it)
@@ -2052,6 +2070,7 @@ def serve_streams_phase(graphs: dict) -> dict:
             f"refusal: {err}")
         summary["e"] = dict(action=verdict.action, hub_slots=p.hub_slots, lost=lost)
     else:
+        used = counters["hybrid.hubs_used"]
         c = r.item()
         k1 = launch_counts()
         if c != want_yt:
@@ -2059,7 +2078,7 @@ def serve_streams_phase(graphs: dict) -> dict:
         check_hybrid_launches("YT multiplexed", k0, k1, r.stats["n_blocks"])
         log(f"  {plan_txt}, {r.stats['state_bytes']} B charged): {len(yt_blocks)} feeds "
             f"-> {r.stats['n_blocks']} blocks in {wall * 1e3:.1f} ms, count {c} = host oracle, "
-            f"hubs used {r.stats['hubs_used']}, lost 0; K5/K4/K3 1/2/1 a block")
+            f"hubs used {used}, lost 0; K5/K4/K3 1/2/1 a block")
         summary["e"] = dict(action=verdict.action, hub_slots=p.hub_slots,
                             state_bytes=r.stats["state_bytes"], wall_ms=wall * 1e3,
                             blocks=r.stats["n_blocks"], count=c, lost=0)

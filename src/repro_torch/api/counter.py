@@ -35,12 +35,12 @@ import dataclasses
 import functools
 import json
 import os
-import time
 from typing import Any, Iterable
 
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.api.planner import GraphStats, Plan, Resources, backend_exec_flags
 from repro_torch.api.planner import plan as plan_fn
 from repro_torch.utils import resolve_device
@@ -64,6 +64,7 @@ class CountResult:
     plan:   the executed :class:`Plan` (method, predicted bytes, reason).
     wall_s: host wall time of build+launch (launches are asynchronous: it
             excludes device completion unless the path synchronizes anyway).
+            A stream's is the sum of its sessions' ingest spans.
     stats:  per-run details — cache key and hit, stage costs for
             ring plans, block counts for streams.
     """
@@ -74,7 +75,10 @@ class CountResult:
     stats: dict = dataclasses.field(default_factory=dict)
 
     def item(self) -> int:
-        return int(self.count.item())
+        """The count on the host: waits for the device, then copies (the
+        ``count.wait`` span)."""
+        with tracing.span("count.wait"):
+            return int(self.count.item())
 
     def __int__(self) -> int:
         return self.item()
@@ -133,7 +137,8 @@ class SessionCheckpoint:
             "n_blocks": self.n_blocks,
             "n_epochs_advanced": self.n_epochs_advanced,
             "wall_s": self.wall_s})
-        np.savez_compressed(path, __meta__=np.array(meta), **self.arrays)
+        with tracing.span("ckpt.spill"):
+            np.savez_compressed(path, __meta__=np.array(meta), **self.arrays)
         self.arrays, self.path = None, path
         self.disk_bytes = int(os.path.getsize(path))
 
@@ -141,7 +146,7 @@ class SessionCheckpoint:
         """The snapshot arrays, loading (and deleting) the spill file if the
         checkpoint was spilled."""
         if self.arrays is None:
-            with np.load(self.path) as z:
+            with tracing.span("ckpt.load"), np.load(self.path) as z:
                 self.arrays = {k: z[k] for k in z.files if k != "__meta__"}
             os.remove(self.path)
             self.path, self.disk_bytes = None, None
@@ -280,14 +285,13 @@ class TriangleCounter:
         The use is recorded under ``(plan.cache_key(), shape bucket)``
         (``stats["cache"]`` holds the key and whether it was seen before)."""
         p = plan or self.plan_for(g)
-        t0 = time.perf_counter()
-        executor = getattr(self, f"_run_{p.method}", None)
-        if executor is None:
-            raise ValueError(f"plan method {p.method!r} not executable here")
-        self._check_plan(p)
-        count, stats = executor(g, p)
-        return CountResult(count=count, plan=p,
-                           wall_s=time.perf_counter() - t0, stats=stats)
+        with tracing.timed("counter.count") as sp:
+            executor = getattr(self, f"_run_{p.method}", None)
+            if executor is None:
+                raise ValueError(f"plan method {p.method!r} not executable here")
+            self._check_plan(p)
+            count, stats = executor(g, p)
+        return CountResult(count=count, plan=p, wall_s=sp.seconds, stats=stats)
 
     # -- streaming entry points -------------------------------------------
     def open_stream(self, n_nodes: int, *, plan: Plan | None = None,
@@ -470,15 +474,15 @@ class TriangleCounter:
         self._check_plan(p)
         from repro_torch.core.triangle_pipeline import count_triangles_dense
 
-        t0 = time.perf_counter()
-        n_max = max(g.n_nodes for g in graphs)
-        n_b = bucket(n_max)
-        b_b = bucket(len(graphs), minimum=8)
-        us = _forward_adjacency_batch(graphs, n_b, self.device)
-        key = (("batch_dense",) + p.cache_key(), (b_b, n_b))
-        counts = count_triangles_dense(us[:, :n_max, :n_max])
+        with tracing.timed("counter.count_batch") as sp:
+            n_max = max(g.n_nodes for g in graphs)
+            n_b = bucket(n_max)
+            b_b = bucket(len(graphs), minimum=8)
+            us = _forward_adjacency_batch(graphs, n_b, self.device)
+            key = (("batch_dense",) + p.cache_key(), (b_b, n_b))
+            counts = count_triangles_dense(us[:, :n_max, :n_max])
         return CountResult(
-            count=counts, plan=p, wall_s=time.perf_counter() - t0,
+            count=counts, plan=p, wall_s=sp.seconds,
             stats={"cache": self._note(key),
                    "batch_size": len(graphs), "bucket": (b_b, n_b)},
         )
@@ -677,11 +681,24 @@ class StreamSession:
         if self.result is not None:
             raise RuntimeError("session already finalized")
 
-    def _ingest_tail(self) -> None:
-        tail = self._buffer.flush()
-        if tail is not None:
-            self._ingest(self.state, tail)
-            self.n_blocks += 1
+    def _ingest_block(self, block) -> float:
+        """Enqueue one padded block's launches (the ``ingest.block`` span);
+        returns the host seconds that took."""
+        with tracing.timed("ingest.block") as sp:
+            tracing.count("ingest.blocks", key=len(block))
+            self._ingest(self.state, block)
+        self.n_blocks += 1
+        return sp.seconds
+
+    def _ingest_tail(self) -> float:
+        """Flush the buffered tail and ingest it (the ``ingest.tail``
+        span); returns the host seconds that took."""
+        with tracing.timed("ingest.tail") as sp:
+            with tracing.span("ingest.reblock"):
+                tail = self._buffer.flush()
+            if tail is not None:
+                self._ingest_block(tail)
+        return sp.seconds
 
     def feed(self, edges) -> None:
         """Buffer ``edges`` ((B, 2) array-like, any B including ragged);
@@ -694,11 +711,11 @@ class StreamSession:
         from repro_torch.core import streaming
 
         edges = streaming.validate_edges(edges, self.n_nodes)
-        t0 = time.perf_counter()
-        for b in self._buffer.push(edges):
-            self._ingest(self.state, b)
-            self.n_blocks += 1
-        self._wall += time.perf_counter() - t0
+        with tracing.timed("ingest.reblock") as sp:
+            blocks = self._buffer.push(edges)
+        self._wall += sp.seconds
+        for b in blocks:
+            self._wall += self._ingest_block(b)
 
     # -- split surface for an async driver: feed() = reblock() + ingest_ready()
     # per emitted block, so a producer thread can own the host half
@@ -714,24 +731,27 @@ class StreamSession:
         self._live()
         from repro_torch.core import streaming
 
-        return self._buffer.push(streaming.validate_edges(edges, self.n_nodes))
+        edges = streaming.validate_edges(edges, self.n_nodes)
+        with tracing.span("ingest.reblock"):
+            return self._buffer.push(edges)
 
     def flush_ready(self):
         """PRODUCER half of an async tail flush: the padded tail block (None
         when nothing is buffered), NOT ingested."""
         self._live()
-        return self._buffer.flush()
+        with tracing.span("ingest.reblock"):
+            return self._buffer.flush()
 
-    def ingest_ready(self, block) -> None:
+    def ingest_ready(self, block) -> float:
         """CONSUMER half of an async ``feed``: ingest one already-padded
         block (from :meth:`reblock` / :meth:`flush_ready`). Called in the
         order the blocks were produced, the device work is IDENTICAL to a
-        synchronous ``feed`` of the same edges."""
+        synchronous ``feed`` of the same edges. Returns the host seconds the
+        ingest took (its ``ingest.block`` span)."""
         self._live()
-        t0 = time.perf_counter()
-        self._ingest(self.state, block)
-        self.n_blocks += 1
-        self._wall += time.perf_counter() - t0
+        seconds = self._ingest_block(block)
+        self._wall += seconds
+        return seconds
 
     def expire_ready(self) -> None:
         """CONSUMER half of an async ``advance``: slide the window WITHOUT
@@ -744,10 +764,10 @@ class StreamSession:
                 "window=E (or a plan with window_epochs > 0)")
         from repro_torch.core import streaming
 
-        t0 = time.perf_counter()
-        streaming.expire_epoch(self.state)
+        with tracing.timed("ingest.expire") as sp:
+            streaming.expire_epoch(self.state)
         self.n_epochs_advanced += 1
-        self._wall += time.perf_counter() - t0
+        self._wall += sp.seconds
 
     def set_block_size(self, block_size: int) -> list:
         """Adaptive re-blocking: change the emitted block shape from the
@@ -756,7 +776,8 @@ class StreamSession:
         them through :meth:`ingest_ready` in order. A later checkpoint
         carries the CURRENT shape."""
         self._live()
-        out = self._buffer.set_block_size(block_size)
+        with tracing.span("ingest.reblock"):
+            out = self._buffer.set_block_size(block_size)
         self.block_size = int(block_size)
         return out
 
@@ -771,15 +792,15 @@ class StreamSession:
         self._live()
         from repro_torch.core import streaming
 
-        t0 = time.perf_counter()
-        self._ingest_tail()
-        arrays = streaming.snapshot_state(self.state)
+        tail_s = self._ingest_tail()
+        with tracing.timed("ckpt.snapshot") as sp:
+            arrays = streaming.snapshot_state(self.state)
         if int(arrays.get("lost", 0)):
             raise RuntimeError(
                 f"refusing to checkpoint a hybrid session that dropped "
                 f"{int(arrays['lost'])} edge endpoint(s) — the snapshot would "
                 f"persist an inexact count")
-        self._wall += time.perf_counter() - t0
+        self._wall += tail_s + sp.seconds
         return SessionCheckpoint(
             n_nodes=self.n_nodes, plan=self.plan, block_size=self.block_size,
             state_bytes=self.state_bytes,
@@ -802,28 +823,28 @@ class StreamSession:
                 "(or a plan with window_epochs > 0)")
         from repro_torch.core import streaming
 
-        t0 = time.perf_counter()
-        self._ingest_tail()
-        streaming.expire_epoch(self.state)
+        self._wall += self._ingest_tail()
+        with tracing.timed("ingest.expire") as sp:
+            streaming.expire_epoch(self.state)
         self.n_epochs_advanced += 1
-        self._wall += time.perf_counter() - t0
+        self._wall += sp.seconds
 
     def finalize(self) -> CountResult:
         """Flush the padded tail block and return the stream's
         :class:`CountResult` (idempotent): the running total, or the live
         window's count. The count stays a device tensor. ``wall_s`` is the
-        host time spent inside ``feed``/``advance``/``finalize`` (the
-        ingest is asynchronous on the card). ``stats["ingest_traces"]``
-        counts the new ingest keys over the session's lifetime. A hybrid
-        session that dropped edge endpoints raises instead of returning a
-        count (its ``lost`` counter is read here, once)."""
+        host time spent re-blocking and enqueueing ingests inside
+        ``feed``/``advance``/``checkpoint``/``finalize`` (the ingest is
+        asynchronous on the card). ``stats["ingest_traces"]`` counts the new
+        ingest keys over the session's lifetime. A hybrid session that
+        dropped edge endpoints raises instead of returning a count (its
+        ``lost`` counter is read here, once, with the hub slots in use: the
+        ``hybrid.hubs_used`` counter while the tracer is on)."""
         if self.result is not None:
             return self.result
         from repro_torch.core import streaming
 
-        t0 = time.perf_counter()
-        self._ingest_tail()
-        self._wall += time.perf_counter() - t0
+        self._wall += self._ingest_tail()
         p = self.plan
         if p.state_layout == "hybrid":
             lost = streaming.hybrid_lost(self.state)
@@ -842,8 +863,6 @@ class StreamSession:
         if p.window_epochs:
             stats["window_epochs"] = p.window_epochs
             stats["epochs_advanced"] = self.n_epochs_advanced
-        if p.state_layout == "hybrid":
-            stats["hubs_used"] = int((self.state["hub_ids"] < self.n_nodes).sum())
         self.result = CountResult(count=count, plan=p, wall_s=self._wall, stats=stats)
         return self.result
 

@@ -76,6 +76,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels.bitset_count.ops import (
     bitset_edge_count,
     bitset_edge_count_per_edge,
@@ -178,24 +179,25 @@ def validate_edges(edges, n_nodes: int) -> np.ndarray:
     non-integer dtypes, shapes that are not (B, 2), and vertex ids outside
     ``[0, n_nodes)``. Returns the validated int32 (B, 2) array (zero-copy
     when already conforming); empty inputs of any shape normalize to
-    (0, 2)."""
-    arr = np.asarray(edges)
-    if arr.size == 0:
-        return np.zeros((0, 2), np.int32)
-    if not np.issubdtype(arr.dtype, np.integer):
-        raise ValueError(
-            f"edges must be an integer array, got dtype {arr.dtype} — vertex "
-            f"ids are indices, not floats")
-    if arr.ndim != 2 or arr.shape[1] != 2:
-        raise ValueError(
-            f"edges must have shape (B, 2) (one (u, v) pair per row), got "
-            f"{arr.shape}")
-    lo, hi = int(arr.min()), int(arr.max())
-    if lo < 0 or hi >= n_nodes:
-        raise ValueError(
-            f"vertex ids must lie in [0, {n_nodes}), got range [{lo}, {hi}] "
-            f"— out-of-range ids would silently scatter outside the bitset")
-    return arr.astype(np.int32, copy=False)
+    (0, 2). Timed as the ``ingest.validate`` span."""
+    with tracing.span("ingest.validate"):
+        arr = np.asarray(edges)
+        if arr.size == 0:
+            return np.zeros((0, 2), np.int32)
+        if not np.issubdtype(arr.dtype, np.integer):
+            raise ValueError(
+                f"edges must be an integer array, got dtype {arr.dtype} — vertex "
+                f"ids are indices, not floats")
+        if arr.ndim != 2 or arr.shape[1] != 2:
+            raise ValueError(
+                f"edges must have shape (B, 2) (one (u, v) pair per row), got "
+                f"{arr.shape}")
+        lo, hi = int(arr.min()), int(arr.max())
+        if lo < 0 or hi >= n_nodes:
+            raise ValueError(
+                f"vertex ids must lie in [0, {n_nodes}), got range [{lo}, {hi}] "
+                f"— out-of-range ids would silently scatter outside the bitset")
+        return arr.astype(np.int32, copy=False)
 
 
 _WORD_KEYS = ("adj", "epochs", "hub_adj")
@@ -350,6 +352,7 @@ def _delta_table(n: int, ws: int, idx: torch.Tensor, bits: torch.Tensor,
     ``scratch((n·ws,))`` when given), landed in ONE scatter: dedup makes
     the bits of one word distinct, so add equals OR (and a sum of distinct
     bits never overflows int32)."""
+    tracing.count("ingest.zero_fill_bytes", 4 * n * ws)
     delta = (torch.zeros(n * ws, dtype=torch.int32, device=idx.device) if scratch is None
              else scratch((n * ws,)).zero_())
     return delta.index_add_(0, idx, bits).view(n, ws)
@@ -710,12 +713,20 @@ class BlockBuffer:
         self._tail_target = shape_state["tail_target"]
         self._emitted_full = shape_state["emitted_full"]
 
-    def _emit(self, rows: np.ndarray) -> torch.Tensor:
+    def _emit(self, rows: np.ndarray, real: int) -> torch.Tensor:
+        """``rows`` on the device; the first ``real`` of them are edges fed,
+        the rest phantom padding (the ``ingest.rows_real`` and
+        ``ingest.rows_padded`` counters)."""
+        tracing.count("ingest.rows_real", real)
+        tracing.count("ingest.rows_padded", len(rows) - real)
         t = torch.from_numpy(np.ascontiguousarray(rows))
         if self.device.type == "cuda":
             # from pinned memory the copy is queued and the host goes on;
             # a pageable copy would wait for the card's earlier work
-            return t.pin_memory().to(self.device, non_blocking=True)
+            with tracing.span("ingest.pin"):
+                t = t.pin_memory()
+            with tracing.span("ingest.h2d"):
+                return t.to(self.device, non_blocking=True)
         return t.to(self.device)
 
     def _drain(self) -> list[torch.Tensor]:
@@ -725,7 +736,7 @@ class BlockBuffer:
             chunk, rest = flat[: self.block_size], flat[self.block_size:]
             self._buf, self._buffered = ([rest], len(rest)) if len(rest) else ([], 0)
             self._emitted_full = True
-            out.append(self._emit(chunk))
+            out.append(self._emit(chunk, len(chunk)))
         return out
 
     def push(self, block) -> list[torch.Tensor]:
@@ -781,7 +792,7 @@ class BlockBuffer:
                 target = min(target, self.block_size)
                 self._tail_target = target
             pad = np.full((target - len(flat), 2), self.n_nodes, np.int32)
-            return self._emit(np.concatenate([flat, pad]))
+            return self._emit(np.concatenate([flat, pad]), len(flat))
         finally:
             self._owner.release()
 
@@ -1120,6 +1131,7 @@ def ingest_block_hybrid(state: dict, edges, *, hub_threshold: int) -> dict:
                       torch.where(live, l_hi * wl + l_lo // 32, 0)])
     dbit = torch.cat([torch.where(live, bits[l_hi % 32], 0),
                       torch.where(live, bits[l_lo % 32], 0)])
+    tracing.count("ingest.zero_fill_bytes", 4 * big * wl)
     dloc = torch.zeros(big * wl, dtype=torch.int32, device=dev).index_add_(
         0, didx, dbit).view(big, wl)
     aloc = _pack_local(table, gvert, n, wl)
@@ -1190,8 +1202,14 @@ def ingest_block_hybrid(state: dict, edges, *, hub_threshold: int) -> dict:
 def hybrid_lost(state: dict) -> int:
     """Host-synced dropped-endpoint counter of a hybrid state — must be 0
     for the count to be exact; finalize and checkpoint raise when it is
-    not (capacity exhaustion is a sizing bug, never a silent undercount)."""
-    return int(state["lost"])
+    not (capacity exhaustion is a sizing bug, never a silent undercount).
+    The same read brings the hub slots in use, added to the
+    ``hybrid.hubs_used`` counter while the tracer is on."""
+    n = state["hub_slot"].shape[0]
+    lost, hubs = torch.stack([state["lost"].to(torch.int64),
+                              (state["hub_ids"] < n).sum()]).tolist()
+    tracing.count("hybrid.hubs_used", hubs)
+    return lost
 
 
 def count_stream_hybrid(n_nodes: int, blocks, *, hub_slots: int, tail_capacity: int,

@@ -104,6 +104,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.utils import PropagatingThread, count_dtype
 
 
@@ -173,6 +174,8 @@ class _Session:
     # it live again (or close() forces the restore). Victims of a
     # priority-preemption are NOT parked — they readmit transparently.
     parked: bool = False
+    # perf_counter_ns when open() queued it, the start of its mux.queued span
+    queued_ns: int | None = None
 
 
 class _PrefetchDriver:
@@ -312,15 +315,11 @@ class _PrefetchDriver:
     def _dispatch(self, item) -> None:
         kind, payload = item
         if kind == "block":
-            if self._sizer is None:
-                self.session.ingest_ready(payload)
-                return
-            t0 = time.perf_counter()
-            self.session.ingest_ready(payload)
-            new = self._sizer.observe(len(payload),
-                                      time.perf_counter() - t0)
-            if new is not None:
-                self._pending_resize = new
+            seconds = self.session.ingest_ready(payload)
+            if self._sizer is not None:
+                new = self._sizer.observe(len(payload), seconds)
+                if new is not None:
+                    self._pending_resize = new
         elif kind == "advance":
             self.session.expire_ready()
         else:  # sync marker
@@ -464,21 +463,23 @@ class CheckpointStore:
         host_b, spill_b, raw_b = (self.host_bytes, self.spill_bytes,
                                   self.spill_raw_bytes)
         placement: list[tuple] = []  # per item: ("host"|"disk", charged)
-        undo: list = []              # (ckpt, held_entry|None, prev_charged)
+        undo: list = []              # (sid, ckpt, held_entry|None, prev_charged)
         n_spills = n_evictions = 0
 
         def _spill(sid, ckpt):
             """Write the compressed file; return its size, or None (file
-            removed again) when the disk budget refuses it."""
+            removed again) when the disk budget refuses it. Its spans carry
+            ``sid``."""
             nonlocal spill_b, raw_b, n_spills
             if self.spill_dir is None:
                 return None
             os.makedirs(self.spill_dir, exist_ok=True)
-            ckpt.spill(os.path.join(self.spill_dir, f"ckpt-{sid}.npz"))
-            db = ckpt.disk_bytes
-            if spill_b + db > self.spill_budget_bytes:
-                ckpt.load_arrays()  # reload + delete the just-written file
-                return None
+            with tracing.session(sid):
+                ckpt.spill(os.path.join(self.spill_dir, f"ckpt-{sid}.npz"))
+                db = ckpt.disk_bytes
+                if spill_b + db > self.spill_budget_bytes:
+                    ckpt.load_arrays()  # reload + delete the just-written file
+                    return None
             spill_b += db
             raw_b += ckpt.nbytes
             n_spills += 1
@@ -495,7 +496,7 @@ class CheckpointStore:
                     if db is None:
                         break
                     host_b -= victim[2]
-                    undo.append((victim[0], victim, victim[2]))
+                    undo.append((vsid, victim[0], victim, victim[2]))
                     victim[1], victim[2] = "disk", db
                     n_evictions += 1
                 if host_b + ckpt.nbytes <= self.host_budget_bytes:
@@ -505,7 +506,7 @@ class CheckpointStore:
                 db = _spill(sid, ckpt)
                 if db is not None:
                     placement.append(("disk", db))
-                    undo.append((ckpt, None, 0))
+                    undo.append((sid, ckpt, None, 0))
                     continue
                 raise BackpressureError(
                     f"checkpoint store full: {ckpt.nbytes} B snapshot over "
@@ -514,8 +515,9 @@ class CheckpointStore:
                     f"({len(self._held)} checkpoint(s) parked) — close or "
                     f"restore a preempted session first")
         except BaseException:
-            for ckpt, entry, prev_charged in reversed(undo):
-                ckpt.load_arrays()  # reload host arrays, delete the file
+            for sid, ckpt, entry, prev_charged in reversed(undo):
+                with tracing.session(sid):
+                    ckpt.load_arrays()  # reload host arrays, delete the file
                 if entry is not None:  # evicted resident: back to host
                     entry[1], entry[2] = "host", prev_charged
             raise
@@ -662,72 +664,77 @@ class StreamMultiplexer:
         the busiest device (``api.planner.plan_admission``), and its
         ``window_epochs`` is the window. This is how a session runs on every
         stage of a mesh that shares one card, a ring the planner never
-        picks there."""
-        if (not isinstance(n_nodes, (int, np.integer))
-                or isinstance(n_nodes, bool) or n_nodes <= 0):
-            raise ValueError(f"n_nodes must be a positive int, got {n_nodes!r}")
-        if window is not None and (not isinstance(window, (int, np.integer))
-                                   or isinstance(window, bool) or window <= 0):
-            raise ValueError(
-                f"window must be a positive epoch count, got {window!r}")
-        if not isinstance(priority, (int, np.integer)) or isinstance(priority, bool):
-            raise ValueError(f"priority must be an int, got {priority!r}")
-        if deadline_s is not None and not deadline_s > 0:
-            raise ValueError(f"deadline_s must be > 0, got {deadline_s!r}")
-        if plan is not None:
-            if plan.method != "stream":
-                raise ValueError(f"open(plan=) needs a 'stream' plan, got {plan.method!r}")
-            if window is not None and window != plan.window_epochs:
+        picks there. Traced as ``mux.open``, with the children
+        ``mux.admission``, ``session.alloc`` and ``mux.replay``."""
+        with tracing.span("mux.open") as sp:
+            if (not isinstance(n_nodes, (int, np.integer))
+                    or isinstance(n_nodes, bool) or n_nodes <= 0):
+                raise ValueError(f"n_nodes must be a positive int, got {n_nodes!r}")
+            if window is not None and (not isinstance(window, (int, np.integer))
+                                       or isinstance(window, bool) or window <= 0):
                 raise ValueError(
-                    f"window={window} conflicts with the plan's window_epochs="
-                    f"{plan.window_epochs} — pass the window through the plan")
-            self.counter.check_stream_plan(plan)
-            window = plan.window_epochs or None
-        self._reap()
-        # let live waiters claim any free budget (e.g. freed by an explicit
-        # preempt) before the fairness gate treats them as blocking
-        self._admit_pending()
-        sid = self._next_id
-        self._next_id += 1
-        rec = _Session(
-            sid=sid, n_nodes=int(n_nodes),
-            block_size=block_size if block_size is not None else self.block_size,
-            window=int(window) if window is not None else None,
-            priority=int(priority), deadline_s=deadline_s,
-            last_activity=self._clock(), asked=plan)
-        # fairness gate: admit around the waiters only with strictly higher
-        # priority than every one of them (FIFO within a priority level;
-        # policy="fifo" never admits around any waiter). Parked sessions are
-        # deliberately benched — they don't block anyone.
-        blocking = any(
-            r.state != "active" and not r.parked
-            and (self.policy == "fifo" or r.priority >= rec.priority)
-            for r in self._recs.values())
-        if not blocking:
-            adm, victim_sids = self._admission(
-                rec.n_nodes, self.bytes_in_use, rec.window,
-                priority=rec.priority, preempt=self.policy == "fair",
-                block_size=rec.block_size, plan=plan)
-            if adm.admitted:
-                from repro_torch.api.planner import BackpressureError
+                    f"window must be a positive epoch count, got {window!r}")
+            if not isinstance(priority, (int, np.integer)) or isinstance(priority, bool):
+                raise ValueError(f"priority must be an int, got {priority!r}")
+            if deadline_s is not None and not deadline_s > 0:
+                raise ValueError(f"deadline_s must be > 0, got {deadline_s!r}")
+            if plan is not None:
+                if plan.method != "stream":
+                    raise ValueError(f"open(plan=) needs a 'stream' plan, got {plan.method!r}")
+                if window is not None and window != plan.window_epochs:
+                    raise ValueError(
+                        f"window={window} conflicts with the plan's window_epochs="
+                        f"{plan.window_epochs} — pass the window through the plan")
+                self.counter.check_stream_plan(plan)
+                window = plan.window_epochs or None
+            self._reap()
+            # let live waiters claim any free budget (e.g. freed by an explicit
+            # preempt) before the fairness gate treats them as blocking
+            self._admit_pending()
+            sid = self._next_id
+            self._next_id += 1
+            sp.sid = sid
+            rec = _Session(
+                sid=sid, n_nodes=int(n_nodes),
+                block_size=block_size if block_size is not None else self.block_size,
+                window=int(window) if window is not None else None,
+                priority=int(priority), deadline_s=deadline_s,
+                last_activity=self._clock(), asked=plan)
+            # fairness gate: admit around the waiters only with strictly higher
+            # priority than every one of them (FIFO within a priority level;
+            # policy="fifo" never admits around any waiter). Parked sessions are
+            # deliberately benched — they don't block anyone.
+            blocking = any(
+                r.state != "active" and not r.parked
+                and (self.policy == "fifo" or r.priority >= rec.priority)
+                for r in self._recs.values())
+            if not blocking:
+                with tracing.span("mux.admission", sid):
+                    adm, victim_sids = self._admission(
+                        rec.n_nodes, self.bytes_in_use, rec.window,
+                        priority=rec.priority, preempt=self.policy == "fair",
+                        block_size=rec.block_size, plan=plan)
+                if adm.admitted:
+                    from repro_torch.api.planner import BackpressureError
 
-                try:
-                    if victim_sids:
-                        self._preempt_many(victim_sids)
-                except BackpressureError:
-                    pass  # store full: can't park the victims — queue instead
-                else:
-                    self._recs[sid] = rec
-                    self._admit(rec, adm)
-                    return sid
-        idle, _ = self._admission(rec.n_nodes, 0, rec.window,
-                                  block_size=rec.block_size, idle=True, plan=plan)
-        if not idle.admitted:
-            raise ValueError(
-                f"stream of {rec.n_nodes} nodes can never be admitted on "
-                f"this server: {idle.reason}")
-        self._recs[sid] = rec
-        return sid
+                    try:
+                        if victim_sids:
+                            self._preempt_many(victim_sids)
+                    except BackpressureError:
+                        pass  # store full: can't park the victims — queue instead
+                    else:
+                        self._recs[sid] = rec
+                        self._admit(rec, adm)
+                        return sid
+            idle, _ = self._admission(rec.n_nodes, 0, rec.window,
+                                      block_size=rec.block_size, idle=True, plan=plan)
+            if not idle.admitted:
+                raise ValueError(
+                    f"stream of {rec.n_nodes} nodes can never be admitted on "
+                    f"this server: {idle.reason}")
+            rec.queued_ns = time.perf_counter_ns()
+            self._recs[sid] = rec
+            return sid
 
     def feed(self, sid: int, edges) -> None:
         """Feed one (B, 2) edge array to session ``sid``: ingested through
@@ -735,36 +742,37 @@ class StreamMultiplexer:
         or preempted) — against the BOUNDED ``queue_budget_bytes``, raising
         ``BackpressureError`` past it. Edge arrays are validated at this
         front door either way (shape (B, 2), integer dtype, ids in
-        ``[0, n_nodes)``)."""
-        rec = self._rec(sid)
-        if rec.state == "active":
-            if rec.driver is not None:
+        ``[0, n_nodes)``). Traced as ``mux.feed``."""
+        with tracing.span("mux.feed", sid):
+            rec = self._rec(sid)
+            if rec.state == "active":
+                if rec.driver is not None:
+                    from repro_torch.core import streaming
+
+                    # validate HERE (front-door contract) so the producer thread
+                    # only ever sees clean arrays and errors raise in the caller
+                    rec.driver.submit(streaming.validate_edges(edges, rec.n_nodes))
+                else:
+                    rec.session.feed(edges)
+                rec.served_blocks += 1
+            else:
+                from repro_torch.api.planner import BackpressureError
                 from repro_torch.core import streaming
 
-                # validate HERE (front-door contract) so the producer thread
-                # only ever sees clean arrays and errors raise in the caller
-                rec.driver.submit(streaming.validate_edges(edges, rec.n_nodes))
-            else:
-                rec.session.feed(edges)
-            rec.served_blocks += 1
-        else:
-            from repro_torch.api.planner import BackpressureError
-            from repro_torch.core import streaming
-
-            arr = streaming.validate_edges(edges, rec.n_nodes)
-            if self.queue_bytes + arr.nbytes > self.queue_budget_bytes:
-                raise BackpressureError(
-                    f"waiting-session feed budget exhausted: {arr.nbytes} B "
-                    f"over {self.queue_bytes}/{self.queue_budget_bytes} B "
-                    f"already buffered across "
-                    f"{self.n_queued + self.n_preempted} waiting session(s) "
-                    f"— close an active session (or raise "
-                    f"queue_budget_bytes)")
-            rec.blocks.append(arr)
-            rec.buffered_bytes += arr.nbytes
-            self.queue_bytes += arr.nbytes
-            rec.parked = False  # new activity: rejoin the readmission pool
-        rec.last_activity = self._clock()
+                arr = streaming.validate_edges(edges, rec.n_nodes)
+                if self.queue_bytes + arr.nbytes > self.queue_budget_bytes:
+                    raise BackpressureError(
+                        f"waiting-session feed budget exhausted: {arr.nbytes} B "
+                        f"over {self.queue_bytes}/{self.queue_budget_bytes} B "
+                        f"already buffered across "
+                        f"{self.n_queued + self.n_preempted} waiting session(s) "
+                        f"— close an active session (or raise "
+                        f"queue_budget_bytes)")
+                rec.blocks.append(arr)
+                rec.buffered_bytes += arr.nbytes
+                self.queue_bytes += arr.nbytes
+                rec.parked = False  # new activity: rejoin the readmission pool
+            rec.last_activity = self._clock()
 
     def advance(self, sid: int) -> None:
         """Slide session ``sid``'s window one epoch (windowed sessions only).
@@ -881,47 +889,48 @@ class StreamMultiplexer:
         buffered feeds is restored first (preempting strictly-lower-priority
         actives if that is what it takes), and if the device cannot host
         that restore the close raises ``BackpressureError`` and the session
-        stays parked."""
-        if sid in self._results:
-            return self._results[sid]
-        if sid not in self._recs:
-            raise KeyError(f"unknown session {sid}")
-        self._reap()
-        if sid in self._results:  # the reap just expired it
-            return self._results[sid]
-        rec = self._recs[sid]
-        if rec.state != "active":
-            self._admit_pending()
-        if rec.state == "preempted" and not rec.blocks:
-            # nothing fed since the checkpoint: the count is already in the
-            # host snapshot — finalize without touching the device
-            result = self.store.take(sid).finalize_result()
-            result.stats["priority"] = rec.priority
-            result.stats["preempts"] = rec.n_preempts
-            result.stats["restored"] = False
-            del self._recs[sid]
-            self._results[sid] = result
+        stays parked. Traced as ``mux.close``."""
+        with tracing.span("mux.close", sid):
+            if sid in self._results:
+                return self._results[sid]
+            if sid not in self._recs:
+                raise KeyError(f"unknown session {sid}")
+            self._reap()
+            if sid in self._results:  # the reap just expired it
+                return self._results[sid]
+            rec = self._recs[sid]
+            if rec.state != "active":
+                self._admit_pending()
+            if rec.state == "preempted" and not rec.blocks:
+                # nothing fed since the checkpoint: the count is already in the
+                # host snapshot — finalize without touching the device
+                result = self.store.take(sid).finalize_result()
+                result.stats["priority"] = rec.priority
+                result.stats["preempts"] = rec.n_preempts
+                result.stats["restored"] = False
+                del self._recs[sid]
+                self._results[sid] = result
+                self._admit_pending()
+                return result
+            if rec.state == "preempted":
+                self._force_restore(rec)
+            if rec.state == "queued":
+                self._sched["cancellations"] += 1
+                result = self._cancel(rec)
+            else:
+                self._quiesce(rec)
+                result = rec.session.finalize()
+                result.stats["restored"] = rec.session.restored
+                # free the state before the budget admits anyone: on the card a
+                # live reference would keep its memory while a waiter allocates
+                rec.session = None
+                self.bytes_in_use -= rec.state_bytes
+                result.stats["priority"] = rec.priority
+                result.stats["preempts"] = rec.n_preempts
+                del self._recs[sid]
+                self._results[sid] = result
             self._admit_pending()
             return result
-        if rec.state == "preempted":
-            self._force_restore(rec)
-        if rec.state == "queued":
-            self._sched["cancellations"] += 1
-            result = self._cancel(rec)
-        else:
-            self._quiesce(rec)
-            result = rec.session.finalize()
-            result.stats["restored"] = rec.session.restored
-            # free the state before the budget admits anyone: on the card a
-            # live reference would keep its memory while a waiter allocates
-            rec.session = None
-            self.bytes_in_use -= rec.state_bytes
-            result.stats["priority"] = rec.priority
-            result.stats["preempts"] = rec.n_preempts
-            del self._recs[sid]
-            self._results[sid] = result
-        self._admit_pending()
-        return result
 
     def kill(self, sid: int):
         """SIGKILL analogue: tear session ``sid`` down NOW, without draining.
@@ -1119,12 +1128,16 @@ class StreamMultiplexer:
         return adm, [active[i].sid for i in adm.victims]
 
     def _admit(self, rec: _Session, adm) -> None:
+        if rec.queued_ns is not None:
+            tracing.record("mux.queued", rec.queued_ns, time.perf_counter_ns(), rec.sid)
+            rec.queued_ns = None
         if self.counter.device.type == "cuda":
             expandable_segments()
         # adm.plan carries window_epochs, so a windowed admission opens a
         # windowed session without re-stating the window here
-        rec.session = self.counter.open_stream(
-            rec.n_nodes, plan=adm.plan, block_size=rec.block_size)
+        with tracing.span("session.alloc", rec.sid):
+            rec.session = self.counter.open_stream(
+                rec.n_nodes, plan=adm.plan, block_size=rec.block_size)
         rec.plan = self._run_plan(adm.plan, rec.session.block_size)
         rec.state = "active"
         rec.state_bytes = adm.state_bytes
@@ -1140,11 +1153,12 @@ class StreamMultiplexer:
         blocks, rec.blocks = rec.blocks, []
         self.queue_bytes -= rec.buffered_bytes
         rec.buffered_bytes = 0
-        for b in blocks:
-            if isinstance(b, str):  # _ADVANCE epoch marker
-                rec.session.advance()
-            else:
-                rec.session.feed(b)
+        with tracing.span("mux.replay", rec.sid):
+            for b in blocks:
+                if isinstance(b, str):  # _ADVANCE epoch marker
+                    rec.session.advance()
+                else:
+                    rec.session.feed(b)
 
     def _preempt_many(self, sids: list) -> None:
         """Checkpoint every session in ``sids`` into the store — all or
@@ -1155,7 +1169,10 @@ class StreamMultiplexer:
         for v in sids:
             self._quiesce(self._recs[v])
         try:
-            items = [(v, self._recs[v].session.checkpoint()) for v in sids]
+            items = []
+            for v in sids:
+                with tracing.span("mux.preempt", v):
+                    items.append((v, self._recs[v].session.checkpoint()))
             self.store.put_all(items)
         except BaseException:
             for v in sids:
@@ -1173,7 +1190,8 @@ class StreamMultiplexer:
     def _restore_from(self, rec: _Session, ckpt) -> None:
         if self.counter.device.type == "cuda":
             expandable_segments()
-        rec.session = self.counter.restore_stream(ckpt)
+        with tracing.span("mux.restore", rec.sid):
+            rec.session = self.counter.restore_stream(ckpt)
         rec.plan = self._run_plan(ckpt.plan, ckpt.block_size)
         rec.state = "active"
         rec.state_bytes = rec.session.state_bytes
@@ -1237,43 +1255,46 @@ class StreamMultiplexer:
         descending, FIFO within a level (plain FIFO under ``policy="fifo"``)
         — restoring preempted ones and replaying every waiter's buffered
         blocks. Stops at the first waiter that cannot run (no skipping).
-        PARKED sessions sit the sweep out until activity revives them."""
-        from repro_torch.api.planner import BackpressureError
+        PARKED sessions sit the sweep out until activity revives them.
+        Traced as ``mux.admit_pending``, which carries no sid: the spans
+        under it carry those of the sessions they admit, restore or preempt."""
+        with tracing.session(None), tracing.span("mux.admit_pending"):
+            from repro_torch.api.planner import BackpressureError
 
-        while True:
-            waiters = [r for r in self._recs.values()
-                       if r.state != "active" and not r.parked]
-            if not waiters:
-                return
-            if self.policy == "fair":
-                rec = min(waiters, key=lambda r: (-r.priority, r.sid))
-            else:
-                rec = min(waiters, key=lambda r: r.sid)
-            if rec.state == "preempted":
-                victims = self._victims_for(rec)
-                if victims is None:
+            while True:
+                waiters = [r for r in self._recs.values()
+                           if r.state != "active" and not r.parked]
+                if not waiters:
                     return
-                ckpt = self.store.take(rec.sid)
-                try:
-                    if victims:
-                        self._preempt_many(victims)
-                except BackpressureError:
-                    self.store.put(rec.sid, ckpt)
-                    return
-                self._restore_from(rec, ckpt)
-            else:
-                adm, victim_sids = self._admission(
-                    rec.n_nodes, self.bytes_in_use, rec.window,
-                    priority=rec.priority, preempt=self.policy == "fair",
-                    block_size=rec.block_size, plan=rec.asked)
-                if not adm.admitted:
-                    return
-                try:
-                    if victim_sids:
-                        self._preempt_many(victim_sids)
-                except BackpressureError:
-                    return
-                self._admit(rec, adm)
+                if self.policy == "fair":
+                    rec = min(waiters, key=lambda r: (-r.priority, r.sid))
+                else:
+                    rec = min(waiters, key=lambda r: r.sid)
+                if rec.state == "preempted":
+                    victims = self._victims_for(rec)
+                    if victims is None:
+                        return
+                    ckpt = self.store.take(rec.sid)
+                    try:
+                        if victims:
+                            self._preempt_many(victims)
+                    except BackpressureError:
+                        self.store.put(rec.sid, ckpt)
+                        return
+                    self._restore_from(rec, ckpt)
+                else:
+                    adm, victim_sids = self._admission(
+                        rec.n_nodes, self.bytes_in_use, rec.window,
+                        priority=rec.priority, preempt=self.policy == "fair",
+                        block_size=rec.block_size, plan=rec.asked)
+                    if not adm.admitted:
+                        return
+                    try:
+                        if victim_sids:
+                            self._preempt_many(victim_sids)
+                    except BackpressureError:
+                        return
+                    self._admit(rec, adm)
 
     def _reap(self) -> None:
         """Expire sessions idle past their ``deadline_s``: active → parked
