@@ -229,10 +229,18 @@ class TriangleCounter:
     through ``DynamicPipeline`` and ring-sharded streams through the mesh
     ingests; without one, ring plans run the paper-faithful stage chain on
     the one device and sharded streams emulate their stages there.
+
+    ``delta_pool`` (``core.streaming.DeltaPool``) keeps the bitset
+    sessions' delta table clean between their blocks, so an ingest fills
+    none. It holds one table a device, until ``delta_pool.trim`` drops it:
+    a stream multiplexer trims it at each admission, ``count_stream`` and
+    ``count_windowed`` at their end.
     """
 
     def __init__(self, resources: Resources | None = None, *,
                  plan: Plan | None = None, device=None, mesh=None):
+        from repro_torch.core.streaming import DeltaPool
+
         if mesh is not None and device is None:
             device = mesh.devices[0]
         self.device = resolve_device(device)
@@ -243,6 +251,7 @@ class TriangleCounter:
         self.fixed_plan = plan
         self.mesh = mesh
         self._seen: dict[tuple, int] = {}  # cache key -> uses
+        self.delta_pool = DeltaPool()
 
     # -- planning ----------------------------------------------------------
     def plan_for(self, g, *, allow: set[str] | None = None) -> Plan:
@@ -375,11 +384,15 @@ class TriangleCounter:
         the same result contract, as a one-session wrapper over
         :meth:`open_stream` (see it for plan resolution and cache keying).
         ``n_stages > 1`` runs the column-sharded ingest: on ``self.mesh``
-        when its width matches, else its stages emulated on this device."""
+        when its width matches, else its stages emulated on this device.
+        The stream leaves no delta table in :attr:`delta_pool`."""
         session = self.open_stream(n_nodes, plan=plan, block_size=block_size)
-        for b in blocks:
-            session.feed(b)
-        return session.finalize()
+        try:
+            for b in blocks:
+                session.feed(b)
+            return session.finalize()
+        finally:
+            self.delta_pool.trim(0)
 
     def count_windowed(self, n_nodes: int, epochs: Iterable, *,
                        window: int | None = None, plan: Plan | None = None,
@@ -389,7 +402,7 @@ class TriangleCounter:
         return the count of the final window (the last ``window`` epochs).
         A one-session wrapper over :meth:`open_stream` with ``window=``: the
         window advances between epochs (one epoch-slot clear, no per-edge
-        deletes)."""
+        deletes). The stream leaves no delta table in :attr:`delta_pool`."""
         p = plan or self.fixed_plan
         if not window and (p is None or not p.window_epochs):
             # validate BEFORE open_stream allocates state for a session that
@@ -399,20 +412,33 @@ class TriangleCounter:
                 "a plan with window_epochs > 0")
         session = self.open_stream(n_nodes, plan=plan, block_size=block_size,
                                    window=window)
-        first = True
-        for epoch_blocks in epochs:
-            if not first:
-                session.advance()
-            first = False
-            for b in epoch_blocks:
-                session.feed(b)
-        return session.finalize()
+        try:
+            first = True
+            for epoch_blocks in epochs:
+                if not first:
+                    session.advance()
+                first = False
+                for b in epoch_blocks:
+                    session.feed(b)
+            return session.finalize()
+        finally:
+            self.delta_pool.trim(0)
 
     def check_stream_plan(self, p: Plan) -> None:
         """Raise ``ValueError`` when ``p``'s kernel flags contradict this
         counter's device (a stream multiplexer checks a caller's plan at
         ``open``, before the session waits for memory)."""
         self._check_plan(p)
+
+    def delta_pool_words(self, n_nodes: int, plan: Plan) -> int:
+        """Words of the delta table a stream session under ``plan`` takes
+        from :attr:`delta_pool` each block: n·ceil(W/S) for a bitset session
+        on this device, 0 for a hybrid one or one on the mesh."""
+        from repro_torch.core.streaming import delta_words
+
+        if plan.state_layout == "hybrid" or self.mesh_matches(plan.n_stages):
+            return 0
+        return delta_words(n_nodes, plan.n_stages)
 
     def mesh_matches(self, n_stages: int) -> bool:
         """True when this counter's mesh hosts a ``n_stages``-wide ring
@@ -622,17 +648,28 @@ class StreamSession:
         self._cache = counter._note(self._key)
         self._on_mesh = on_mesh
         self.restored = False
+        # The card's reserve charges one ingest's scratch, the largest, so an
+        # ingest that allocates more than its delta table first trims the
+        # pool to the table it takes (_pool_cap): its own for a window,
+        # beside its age-cumulative tables, none for a hybrid or mesh
+        # ingest. A bitset ingest allocates only its table (None: no trim).
+        pool = counter.delta_pool
+        self._pool_cap = counter.delta_pool_words(n_nodes, plan)
         if plan.state_layout == "hybrid":
             self._ingest = functools.partial(streaming.ingest_block_hybrid,
                                              hub_threshold=plan.hub_threshold)
+        elif on_mesh:
+            self._ingest = (streaming.make_mesh_ingest_windowed(mesh) if plan.window_epochs
+                            else streaming.make_mesh_ingest(mesh))
         elif plan.window_epochs:
-            self._ingest = (streaming.make_mesh_ingest_windowed(mesh) if on_mesh
-                            else streaming.ingest_block_windowed_sharded if plan.n_stages > 1
-                            else streaming.ingest_block_windowed)
+            self._ingest = functools.partial(
+                streaming.ingest_block_windowed_sharded if plan.n_stages > 1
+                else streaming.ingest_block_windowed, pool=pool)
         else:
-            self._ingest = (streaming.make_mesh_ingest(mesh) if on_mesh
-                            else streaming.ingest_block_sharded if plan.n_stages > 1
-                            else streaming.ingest_block)
+            self._ingest = functools.partial(
+                streaming.ingest_block_sharded if plan.n_stages > 1
+                else streaming.ingest_block, pool=pool)
+            self._pool_cap = None
         if state is not None:
             # restore path (TriangleCounter.restore_stream): adopt the
             # checkpointed arrays instead of allocating zeros
@@ -686,6 +723,8 @@ class StreamSession:
         returns the host seconds that took."""
         with tracing.timed("ingest.block") as sp:
             tracing.count("ingest.blocks", key=len(block))
+            if self._pool_cap is not None:
+                self.counter.delta_pool.trim(self._pool_cap)
             self._ingest(self.state, block)
         self.n_blocks += 1
         return sp.seconds

@@ -797,7 +797,11 @@ def ingest_scratch_bytes(n_nodes: int, plan: Plan, mesh=None) -> int:
       for each stage on the device where ``mesh`` hosts the ring, since
       those stages run at once on their own streams, while emulated stages
       take turns on one stream — and for a window every stage's E
-      age-cumulative tables (E·n·S·ceil(W/S) words);
+      age-cumulative tables (E·n·S·ceil(W/S) words). Off the mesh the
+      counter's ``core.streaming.DeltaPool`` holds that table between
+      blocks instead of filling one a block; the charge is the same, since
+      the multiplexer keeps the held table no larger than the largest
+      charged here;
     - hybrid: the (2B, W) table of the endpoints' pre-block rows, the two
       block-local packed tables (2B, Wl), one slab of the packing and the
       (2B, C) gathers of tail buffers;

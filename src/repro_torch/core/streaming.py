@@ -28,8 +28,10 @@ VMEM/SMEM gate is a TPU limit), a state on the CPU runs their plain
 versions, which gather rows a chunk at a time. Each ingest updates the
 state tensors IN PLACE and returns the same dict: the block's live bits
 are added straight into the adjacency (add equals OR, because dedup makes
-them distinct and absent), so no whole-table OR runs per block. D itself
-is a fresh zeroed (n, W) table per block — the K4 operand.
+them distinct and absent), so no whole-table OR runs per block. D itself,
+the K4 operand, is a zeroed (n, W) table per block, or a
+:class:`DeltaPool`'s table that each block returns to zero at the words
+it set, so a stream zero-fills it once.
 
 ``init_sharded_state``/``ingest_block_sharded`` are the column-sharded
 variant: stage s owns words [s·Ws, (s+1)·Ws) of every row, and every
@@ -70,8 +72,9 @@ reference's "one trace per fixed block shape" pins carry over as "one key".
 """
 from __future__ import annotations
 
+import contextlib
 import threading
-from functools import lru_cache
+from functools import lru_cache, partial
 
 import numpy as np
 import torch
@@ -346,15 +349,130 @@ def _delta_bits(n: int, ws: int, lo: torch.Tensor, hi: torch.Tensor,
     return torch.cat([i1, i2]), torch.cat([b1, b2])
 
 
+def delta_words(n_nodes: int, n_stages: int = 1) -> int:
+    """Words of one stage's delta table, n·ceil(W/S): what a block of a
+    bitset session takes from a :class:`DeltaPool`."""
+    w = -(-n_nodes // 32)
+    return n_nodes * -(-w // n_stages)
+
+
+class _Held:
+    """A pool's table on one device: the stream it was allocated and used
+    on, and whether a block has it now."""
+
+    __slots__ = ("table", "stream", "busy")
+
+    def __init__(self, table: torch.Tensor, stream):
+        self.table, self.stream, self.busy = table, stream, False
+
+
+class DeltaPool:
+    """Delta tables kept clean between blocks, so a block zero-fills none.
+
+    Holds at most one flat int32 table per device, all zero whenever no
+    block has it. K3, K4 and the live-bit scatter touch the delta table
+    only at the rows of the block's own edges, so a block that clears the
+    words it set, once the last kernel has read them, leaves the table
+    clean for the next (``_given_back``). :meth:`take` lends the first
+    ``n_words`` words, since a prefix of a clean table is clean. A fill is
+    left only where the table is first allocated, grown, or re-allocated
+    after a block raised or the current CUDA stream changed.
+
+    The table lives between blocks. ``api.planner.card_reserve_bytes``
+    charges the largest delta of the active sessions once a device, as
+    ingests run one at a time, so the holder keeps it no larger than that:
+    the multiplexer trims the pool at each admission, and a session whose
+    ingest allocates more than its own delta trims it before each block
+    (``StreamSession``). Counters: ``ingest.delta_reuse`` {``clean``: a
+    block took a clean table, ``filled``: one was zero-filled for it} and
+    ``ingest.zero_fill_bytes``."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._held: dict = {}  # torch.device -> _Held
+
+    def take(self, n_words: int, device: torch.device) -> torch.Tensor:
+        """A clean flat table of ``n_words`` int32 words on ``device``: the
+        held table's prefix, marked busy until :meth:`give`. A table another
+        thread has now is not shared: the caller gets a fresh zeroed one."""
+        stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
+        with self._lock:
+            held = self._held.get(device)
+            if held is None or not held.busy:
+                if held is not None and held.table.numel() >= n_words and held.stream == stream:
+                    tracing.count("ingest.delta_reuse", key="clean")
+                else:  # first use, a larger table, or another stream
+                    # the old table is freed first; on the card the allocator
+                    # hands its memory on in order on the stream that used it
+                    self._held.pop(device, None)
+                    del held
+                    held = self._held[device] = _Held(self._zeros(n_words, device), stream)
+                held.busy = True
+                return held.table[:n_words]
+        return self._zeros(n_words, device)
+
+    @staticmethod
+    def _zeros(n_words: int, device: torch.device) -> torch.Tensor:
+        tracing.count("ingest.delta_reuse", key="filled")
+        tracing.count("ingest.zero_fill_bytes", 4 * n_words)
+        return torch.zeros(n_words, dtype=torch.int32, device=device)
+
+    def give(self, table: torch.Tensor, idx: torch.Tensor | None) -> None:
+        """Hand back a table from :meth:`take`. ``idx``: the flat words the
+        block wrote, cleared here by one scatter on the current stream. None:
+        the block failed and may have left bits behind, so the table is
+        dropped. A table that is not the held one (a fresh one, or one
+        trimmed while lent) is left to be freed."""
+        with self._lock:
+            held = self._held.get(table.device)
+            if held is None or not held.busy or held.table.data_ptr() != table.data_ptr():
+                return
+            if idx is None:
+                del self._held[table.device]
+                return
+            table.view(-1).index_fill_(0, idx, 0)
+            tracing.count("ingest.zero_fill_bytes", 4 * idx.numel())
+            held.busy = False
+
+    def trim(self, max_words: int) -> None:
+        """Drop every held table larger than ``max_words`` words (a lent
+        one is freed once its block lets go of it)."""
+        with self._lock:
+            for device in [d for d, h in self._held.items() if h.table.numel() > max_words]:
+                del self._held[device]
+
+
+@contextlib.contextmanager
+def _given_back(pool: DeltaPool | None, delta: torch.Tensor, idx: torch.Tensor):
+    """Around the kernels that read a block's ``delta``: give it back to
+    ``pool`` afterwards, its words at ``idx`` cleared (a dead edge's
+    index 0 like any other), or dropped if they raised. No-op without a
+    pool. The clear is queued after the last kernel that reads the table,
+    on the same stream."""
+    if pool is None:
+        yield
+        return
+    done = False
+    try:
+        yield
+        done = True
+    finally:
+        pool.give(delta, idx if done else None)
+
+
 def _delta_table(n: int, ws: int, idx: torch.Tensor, bits: torch.Tensor,
-                 scratch=None) -> torch.Tensor:
-    """The block's delta-adjacency on one word shard (zeroed, in
-    ``scratch((n·ws,))`` when given), landed in ONE scatter: dedup makes
-    the bits of one word distinct, so add equals OR (and a sum of distinct
-    bits never overflows int32)."""
-    tracing.count("ingest.zero_fill_bytes", 4 * n * ws)
-    delta = (torch.zeros(n * ws, dtype=torch.int32, device=idx.device) if scratch is None
-             else scratch((n * ws,)).zero_())
+                 scratch=None, pool: DeltaPool | None = None) -> torch.Tensor:
+    """The block's delta-adjacency on one word shard, landed in ONE
+    scatter: dedup makes the bits of one word distinct, so add equals OR
+    (and a sum of distinct bits never overflows int32). The table is
+    ``pool``'s clean one when given (returned through ``_given_back``),
+    else zero-filled: ``scratch((n·ws,))`` when given, else fresh."""
+    if pool is not None:
+        delta = pool.take(n * ws, idx.device)
+    else:
+        tracing.count("ingest.zero_fill_bytes", 4 * n * ws)
+        delta = (torch.zeros(n * ws, dtype=torch.int32, device=idx.device) if scratch is None
+                 else scratch((n * ws,)).zero_())
     return delta.index_add_(0, idx, bits).view(n, ws)
 
 
@@ -366,20 +484,22 @@ def _phantom_edges(lo: torch.Tensor, hi: torch.Tensor, live: torch.Tensor,
 
 
 def _stage_update(adj_s: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
-                  live: torch.Tensor, off: int, scratch=None) -> torch.Tensor:
+                  live: torch.Tensor, off: int, scratch=None,
+                  pool: DeltaPool | None = None) -> torch.Tensor:
     """One stage's share of the two-phase block ingest: returns its
     (pre, mixed, dd) partials and adds the block's live bits into ``adj_s``
     in place. The caller sums shards BEFORE dividing: mixed counts every
     (block, block, pre-block) triangle twice and dd every all-in-block
-    triangle three times only in full-width sums. ``scratch`` allocates the
-    delta table (``_delta_table``)."""
+    triangle three times only in full-width sums. ``scratch`` or ``pool``
+    gives the delta table (``_delta_table``)."""
     n, ws = adj_s.shape
     idx, bits = _delta_bits(n, ws, lo, hi, live, off)
-    delta = _delta_table(n, ws, idx, bits, scratch)
-    ek = _phantom_edges(lo, hi, live, n)
-    pre = bitset_edge_count(adj_s, ek)
-    mixed = bitset_pair_count(adj_s, delta, ek) + bitset_pair_count(delta, adj_s, ek)
-    dd = bitset_edge_count(delta, ek)
+    delta = _delta_table(n, ws, idx, bits, scratch, pool)
+    with _given_back(pool, delta, idx):
+        ek = _phantom_edges(lo, hi, live, n)
+        pre = bitset_edge_count(adj_s, ek)
+        mixed = bitset_pair_count(adj_s, delta, ek) + bitset_pair_count(delta, adj_s, ek)
+        dd = bitset_edge_count(delta, ek)
     adj_s.view(-1).index_add_(0, idx, bits)
     return torch.stack([pre, mixed, dd])
 
@@ -416,7 +536,8 @@ def _age_cum(epochs_s: torch.Tensor, head: torch.Tensor, scratch=None) -> torch.
 
 def _windowed_stage_update(epochs_s: torch.Tensor, cum: torch.Tensor,
                            lo: torch.Tensor, hi: torch.Tensor, live: torch.Tensor,
-                           off: int, head: torch.Tensor, scratch=None) -> torch.Tensor:
+                           off: int, head: torch.Tensor, scratch=None,
+                           pool: DeltaPool | None = None) -> torch.Tensor:
     """One stage's share of the windowed two-phase block ingest.
 
     Each age-cumulative table gets the unbounded sweep: ``P[t] = Σ_e
@@ -428,13 +549,15 @@ def _windowed_stage_update(epochs_s: torch.Tensor, cum: torch.Tensor,
     BEFORE ``_windowed_combine`` differences and divides."""
     n_epochs, n, ws = epochs_s.shape
     idx, bits = _delta_bits(n, ws, lo, hi, live, off)
-    delta = _delta_table(n, ws, idx, bits, scratch)
-    ek = _phantom_edges(lo, hi, live, n)
-    ps, ms = [], []
-    for t in range(n_epochs):  # the unbounded closures, once per epoch age
-        ps.append(bitset_edge_count(cum[t], ek))
-        ms.append(bitset_pair_count(cum[t], delta, ek) + bitset_pair_count(delta, cum[t], ek))
-    dd = bitset_edge_count(delta, ek)
+    delta = _delta_table(n, ws, idx, bits, scratch, pool)
+    with _given_back(pool, delta, idx):
+        ek = _phantom_edges(lo, hi, live, n)
+        ps, ms = [], []
+        for t in range(n_epochs):  # the unbounded closures, once per epoch age
+            ps.append(bitset_edge_count(cum[t], ek))
+            ms.append(bitset_pair_count(cum[t], delta, ek)
+                      + bitset_pair_count(delta, cum[t], ek))
+        dd = bitset_edge_count(delta, ek)
     epochs_s.view(-1).index_add_(0, head.to(torch.int64) * (n * ws) + idx, bits)
     return torch.cat([torch.stack(ps), torch.stack(ms), dd[None]])
 
@@ -462,29 +585,31 @@ def window_count(state: dict) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # Unbounded ingest
 # --------------------------------------------------------------------------
-def ingest_block(state: dict, edges) -> dict:
+def ingest_block(state: dict, edges, *, pool: DeltaPool | None = None) -> dict:
     """Fold one (B, 2) edge block (phantom rows: id >= n_nodes) into an
     ``init_state`` state with the two-phase blocked ingest, in place, and
     return the state. Duplicate edges are ignored (the paper's simple-graph
     precondition); self-loops contribute nothing. On the card: K3 twice
     (``pre``, ``dd``) and K4 twice (``mixed``) per block; transient memory
-    one (n, W) delta table."""
+    one (n, W) delta table, zero-filled, or ``pool``'s clean one, which
+    the block clears again."""
     adj = state["adj"]
     n = adj.shape[0]
     e = _as_edges(edges, adj.device)
     _note_ingest("blocked", adj, e)
     keep, lo, hi = _canonical_live(e, n)
     live = keep & (_stage_seen(adj, lo, hi, 0) == 0)
-    _combine(state["count"], _stage_update(adj, lo, hi, live, 0))
+    _combine(state["count"], _stage_update(adj, lo, hi, live, 0, pool=pool))
     return state
 
 
-def ingest_block_sharded(state: dict, edges) -> dict:
+def ingest_block_sharded(state: dict, edges, *, pool: DeltaPool | None = None) -> dict:
     """Column-sharded ingest with the S stages emulated on one device: the
     per-stage ``seen`` bits and (pre, mixed, dd) partials are summed over
     the stages (the ring's all-reduce) before the divisions. Each stage
     launches K3/K4 on its own shard. State bytes: all S shards on this
-    device — n²/8 in all."""
+    device — n²/8 in all. The stages take turns on one stream, so
+    ``pool``'s one clean table serves each in turn."""
     adj = state["adj"]  # (S, n, Ws)
     s, n, ws = adj.shape
     e = _as_edges(edges, adj.device)
@@ -492,7 +617,7 @@ def ingest_block_sharded(state: dict, edges) -> dict:
     keep, lo, hi = _canonical_live(e, n)
     seen = sum(_stage_seen(adj[i], lo, hi, i * ws) for i in range(s))
     live = keep & (seen == 0)
-    terms = sum(_stage_update(adj[i], lo, hi, live, i * ws) for i in range(s))
+    terms = sum(_stage_update(adj[i], lo, hi, live, i * ws, pool=pool) for i in range(s))
     _combine(state["count"], terms)
     return state
 
@@ -508,7 +633,10 @@ def make_mesh_ingest(mesh, axis_name: str | None = None):
     between the phases, K3 twice and K4 twice per shard per block. Memoized
     per (mesh, axis), so every session on one mesh shares one ingest.
     State bytes: n²/8/S per stage; a device holds that once for each stage
-    it hosts."""
+    it hosts. Each stage zero-fills its own delta table from the runtime's
+    per-stream scratch and takes no :class:`DeltaPool`: the stages a device
+    hosts run at once on their own streams, so one clean table cannot
+    serve them."""
     from repro_torch.core.dynamic_pipeline import ShardedStateStream
 
     runtime = ShardedStateStream.shared(mesh, axis_name or mesh.axis_names[0])
@@ -533,7 +661,7 @@ def make_mesh_ingest(mesh, axis_name: str | None = None):
 # --------------------------------------------------------------------------
 # Sliding-window ingest: the epoch ring (dense / emulated-sharded)
 # --------------------------------------------------------------------------
-def ingest_block_windowed(state: dict, edges) -> dict:
+def ingest_block_windowed(state: dict, edges, *, pool: DeltaPool | None = None) -> dict:
     """Fold one (B, 2) edge block into the CURRENT epoch of a windowed
     state, in place, and return the state.
 
@@ -542,7 +670,8 @@ def ingest_block_windowed(state: dict, edges) -> dict:
     earlier arrival has expired is new and lands in the current epoch.
     Per-slot attribution is exact, so ``window_count`` equals a recount of
     the live window after every block. Transient memory: the E
-    age-cumulative tables and one delta table."""
+    age-cumulative tables and one delta table (``pool``'s, as in
+    :func:`ingest_block`)."""
     epochs = state["epochs"]
     n = epochs.shape[1]
     e = _as_edges(edges, epochs.device)
@@ -551,15 +680,17 @@ def ingest_block_windowed(state: dict, edges) -> dict:
     keep, lo, hi = _canonical_live(e, n)
     cum = _age_cum(epochs, head)  # cum[-1] = live adjacency
     live = keep & (_stage_seen(cum[-1], lo, hi, 0) == 0)
-    terms = _windowed_stage_update(epochs, cum, lo, hi, live, 0, head)
+    terms = _windowed_stage_update(epochs, cum, lo, hi, live, 0, head, pool=pool)
     _windowed_combine(state["counts"], terms, head)
     return state
 
 
-def ingest_block_windowed_sharded(state: dict, edges) -> dict:
+def ingest_block_windowed_sharded(state: dict, edges, *,
+                                  pool: DeltaPool | None = None) -> dict:
     """Column-sharded windowed ingest, the S stages emulated on one device:
     the (P, M, dd) partials are summed over the shards BEFORE
-    ``_windowed_combine`` differences and divides."""
+    ``_windowed_combine`` differences and divides. ``pool`` as in
+    :func:`ingest_block_sharded`."""
     epochs = state["epochs"]  # (S, E, n, Ws)
     s, _, n, ws = epochs.shape
     e = _as_edges(edges, epochs.device)
@@ -569,7 +700,8 @@ def ingest_block_windowed_sharded(state: dict, edges) -> dict:
     cums = [_age_cum(epochs[i], head) for i in range(s)]
     seen = sum(_stage_seen(cums[i][-1], lo, hi, i * ws) for i in range(s))
     live = keep & (seen == 0)
-    terms = sum(_windowed_stage_update(epochs[i], cums[i], lo, hi, live, i * ws, head)
+    terms = sum(_windowed_stage_update(epochs[i], cums[i], lo, hi, live, i * ws, head,
+                                       pool=pool)
                 for i in range(s))
     _windowed_combine(state["counts"], terms, head)
     return state
@@ -582,7 +714,8 @@ def make_mesh_ingest_windowed(mesh, axis_name: str | None = None):
     age-cumulative tables and ``seen`` bits, the (P, M, dd) partials are
     summed on stage 0 BEFORE ``_windowed_combine`` differences and divides,
     and ``counts``/``head`` stay on stage 0 (the head reaches each stage
-    with the block's endpoints). E·n²/8/S bytes per stage."""
+    with the block's endpoints). E·n²/8/S bytes per stage. Its delta
+    tables are zero-filled per stage, as in :func:`make_mesh_ingest`."""
     from repro_torch.core.dynamic_pipeline import ShardedStateStream
 
     runtime = ShardedStateStream.shared(mesh, axis_name or mesh.axis_names[0])
@@ -875,16 +1008,16 @@ def count_stream(n_nodes: int, blocks, *, block_size: int | None = None,
     Blocks are coalesced/padded to one fixed shape (``padded_blocks``).
     ``n_stages > 1`` column-shards the state over the stages: on ``mesh``
     when its size matches (each shard on its stage's device, blocks on
-    stage 0's), else emulated on ``device`` (default ``cuda``)."""
+    stage 0's), else emulated on ``device`` (default ``cuda``), the delta
+    table kept clean between blocks by a :class:`DeltaPool` of its own."""
     if n_stages > 1 and mesh is not None and mesh.size == n_stages:
         state = init_sharded_state(n_nodes, n_stages, mesh=mesh)
         step, device = make_mesh_ingest(mesh), mesh.devices[0]
-    elif n_stages > 1:
-        state = init_sharded_state(n_nodes, n_stages, device=device)
-        step = ingest_block_sharded
     else:
-        state = init_state(n_nodes, device=device)
-        step = ingest_block
+        state = (init_sharded_state(n_nodes, n_stages, device=device) if n_stages > 1
+                 else init_state(n_nodes, device=device))
+        step = partial(ingest_block_sharded if n_stages > 1 else ingest_block,
+                       pool=DeltaPool())
     for block in padded_blocks(blocks, n_nodes, block_size, device=device):
         step(state, block)
     return int(state["count"])

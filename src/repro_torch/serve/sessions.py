@@ -51,10 +51,14 @@ out of memory, so on the card the multiplexer takes every admission
 against ``memory_bytes`` less ``api.planner.card_reserve_bytes`` of the
 active sessions and the candidate (a pure function of their (n, plan)
 pairs). Off the card the reserve is 0 and every verdict is the reference's.
-A closing or evicted session drops its state before the freed budget
-admits a waiter, so on the card the memory is free when the waiter
-allocates. Free is not contiguous, though: under a mixed order of opens,
-preemptions and closes of multi-GB states, the caching allocator's fixed
+The counter's ``delta_pool`` holds the bitset sessions' delta table
+between blocks; each admission and restore trims it, before the state is
+allocated, to the largest table the active sessions and the candidate take
+from it, so it stays inside the reserve's one table. A closing or evicted
+session drops its state before the freed budget admits a waiter, so on the
+card the memory is free when the waiter allocates. Free is not
+contiguous, though: under a mixed order of opens, preemptions and closes of
+multi-GB states, the caching allocator's fixed
 segments fragment until an 8.73 GB delta table finds no block beside
 8.5 GiB of free fragments (an NVIDIA H100 80GB HBM3 at 700 W,
 ``chip_smoke.py`` [serve streams] (f)). So the first session a multiplexer
@@ -1133,6 +1137,7 @@ class StreamMultiplexer:
             rec.queued_ns = None
         if self.counter.device.type == "cuda":
             expandable_segments()
+        self._trim_pool(rec.n_nodes, adm.plan)
         # adm.plan carries window_epochs, so a windowed admission opens a
         # windowed session without re-stating the window here
         with tracing.span("session.alloc", rec.sid):
@@ -1187,9 +1192,20 @@ class StreamMultiplexer:
             r.last_activity = self._clock()
             self._sched["preemptions"] += 1
 
+    def _trim_pool(self, n_nodes: int, plan) -> None:
+        """Before a session's state is allocated: trim the counter's delta
+        pool to the largest table the active sessions and this one take
+        from it (``TriangleCounter.delta_pool_words``), the delta table the
+        card's reserve charges."""
+        words = self.counter.delta_pool_words
+        self.counter.delta_pool.trim(max(
+            [words(r.n_nodes, r.plan) for r in self._recs.values() if r.state == "active"]
+            + [words(n_nodes, plan)]))
+
     def _restore_from(self, rec: _Session, ckpt) -> None:
         if self.counter.device.type == "cuda":
             expandable_segments()
+        self._trim_pool(ckpt.n_nodes, ckpt.plan)
         with tracing.span("mux.restore", rec.sid):
             rec.session = self.counter.restore_stream(ckpt)
         rec.plan = self._run_plan(ckpt.plan, ckpt.block_size)

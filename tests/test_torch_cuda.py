@@ -607,6 +607,44 @@ def test_card_reserve_keeps_a_card_budget_from_over_admitting(cuda):
     assert counts[0] == counts[1] > 0
 
 
+def test_the_delta_pool_changes_no_count_and_no_peak_of_a_server(cuda):
+    """Three bitset sessions at n = 20,000, fed in turns through one
+    server: with the counter's delta pool the counts equal a server's
+    whose ingests zero-fill a fresh delta table each block, and the peak
+    allocated above the server's start is no higher."""
+    from repro_torch.core import streaming
+
+    class FreshTables(streaming.DeltaPool):
+        """The ingest without a pool: a zero-filled table each block."""
+
+        def take(self, n_words, device):
+            return torch.zeros(n_words, dtype=torch.int32, device=device)
+
+        def give(self, table, idx):
+            pass
+
+    n, block, feed = 20_000, 4096, 5000
+    edges = [_shuffled(gen.powerlaw(n, 8, seed=31 + k), 31 + k) for k in range(3)]
+    got = {}
+    for label in ("fresh", "pooled"):
+        server = TriangleServer(device=cuda)
+        if label == "fresh":
+            server.counter.delta_pool = FreshTables()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sids = [server.open_stream(n, block_size=block) for _ in edges]
+        for i in range(0, max(len(e) for e in edges), feed):
+            for sid, e in zip(sids, edges):
+                server.feed(sid, e[i:i + feed])
+        counts = [server.close_stream(sid).item() for sid in sids]
+        torch.cuda.synchronize()
+        got[label] = counts, torch.cuda.max_memory_allocated() - base
+        del server
+    assert got["pooled"][0] == got["fresh"][0] and min(got["fresh"][0]) > 0
+    assert got["pooled"][1] <= got["fresh"][1]
+
+
 # --------------------------------------------------------------------------
 # The ring mesh on one card: every stage on a CUDA stream of its own
 # --------------------------------------------------------------------------

@@ -175,13 +175,16 @@ def test_the_tracer_off_records_nothing(prefetch_depth):
 
 def test_counters_equal_what_the_host_knows():
     server = TriangleServer(device="cpu")
+    server.counter.delta_pool.trim(0)  # the first block fills, whatever ran before
     g = gen.gnp(N, 0.3, seed=4)
     (_, result, _), _, counters = _traced(lambda: _serve(server, g))
     n_blocks = result.stats["n_blocks"]
     assert counters["ingest.blocks"] == {BLOCK: n_blocks}
     assert counters["ingest.rows_real"] == g.n_edges
     assert counters["ingest.rows_padded"] == n_blocks * BLOCK - g.n_edges
-    assert counters["ingest.zero_fill_bytes"] == n_blocks * N * -(-N // 32) * 4
+    # one fill of the delta table, then each block clears its 2·B words
+    assert counters["ingest.zero_fill_bytes"] == N * -(-N // 32) * 4 + n_blocks * 2 * BLOCK * 4
+    assert counters["ingest.delta_reuse"] == {"filled": 1, "clean": n_blocks - 1}
     assert "hybrid.hubs_used" not in counters
 
 
